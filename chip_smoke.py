@@ -1,0 +1,545 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch port's main path on one NVIDIA GPU and check it.
+
+    python3 chip_smoke.py
+
+Phases, each printing one JSON line:
+
+  (a) build     — compile the CUDA kernels (``src/repro_torch/csrc/*.cu``)
+                  with nvcc for sm_90a and load them.
+  (b) main_path — a chip-filling Loihi-2 deployment at full width:
+                  fc 1024-2048-1024-1024-512, sd_relu (threshold 0.05),
+                  weight density 0.5, T = 1024 steps at input density 0.1.
+                  Functional run through the event backend's kernel mode,
+                  single-candidate pricing into a SimReport, a floorline
+                  fit over five input densities, and the greedy §VI-B
+                  partitioner.  Kernel launch counts are zeroed just before
+                  and read just after; every kernel must have launched.
+  profile       — one more run_batch under torch.profiler: device busy
+                  time, the device's idle share, the top kernels.
+  (c) kernels   — every kernel against its plain PyTorch version on the
+                  card, teacher-forced at the main path's own operands, on
+                  a strided conv stack through im2col, and on edge cases.
+  (d) dense     — the same workload through the dense backend.
+  (e) times     — CUDA-event times of each kernel's launch alone (``ms``),
+                  of its wrapper (compaction included), of its plain
+                  version and of one PyTorch call computing the same
+                  function, beside the card's bound for the same work.
+                  ``event_matmul2`` is timed at the largest value and
+                  counter launches, the narrowest layer, a discarded
+                  base-row counter launch, and the largest delta stream
+                  with half its windows quiet (dead activation tiles); the
+                  share of live tile products of every main-path launch is
+                  printed too.  ``window_cumsum`` at the widest stream.
+
+Then a ``{"kernels": [...]}`` line, the card's name and power limit as
+nvidia-smi reports them, and a last line ``{"ok": true, "device": ...}``.
+Any failed check raises: the script exits non-zero and prints no result.
+It exits non-zero without a result when no GPU is visible, or when the
+port's package is not beside it.
+"""
+
+from __future__ import annotations
+
+import json
+import pathlib
+import statistics
+import subprocess
+import sys
+import time
+
+ROOT = pathlib.Path(__file__).resolve().parent
+sys.path.insert(0, str(ROOT / "src"))
+
+# Published H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit):
+# HBM3 bandwidth, the float32 rate outside the tensor cores (the value
+# products' type) and the int8 tensor-core rate (0/1 counter products are
+# exact in int8 with int32 sums).
+PEAK_BYTES_PER_S = 3.35e12
+PEAK_FP32_FLOPS = 67e12
+PEAK_INT8_OPS = 1979e12
+TILE = 128
+DEVICE = "cuda"
+
+# stated tolerances
+PRE_RTOL, PRE_ATOL = 1e-5, 1e-5       # kernel vs plain / dense pre-acts
+WIN_RTOL, WIN_ATOL = 1e-6, 1e-6       # window_cumsum kernel vs plain
+REPORT_RTOL = 1e-3                    # event vs dense time / energy
+
+
+def emit(obj) -> None:
+    print(json.dumps(obj), flush=True)
+
+
+def require(cond: bool, msg: str) -> None:
+    if not cond:
+        raise RuntimeError(msg)
+
+
+def close(a, b, rtol, atol, what: str) -> float:
+    import torch
+    err = float((a - b).abs().max()) if a.numel() else 0.0
+    require(torch.allclose(a, b, rtol=rtol, atol=atol),
+            f"{what}: max abs err {err} beyond rtol={rtol} atol={atol}")
+    return err
+
+
+def exact(a, b, what: str) -> None:
+    import torch
+    require(torch.equal(a, b), f"{what}: not bit-identical")
+
+
+def gpu_name_and_limit() -> str:
+    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True, timeout=60)
+    return out.stdout.strip().splitlines()[0]
+
+
+def time_ms(fn, reps: int = 20, batches: int = 5) -> float:
+    """Median over ``batches`` of the mean time of ``reps`` back-to-back
+    calls, timed with CUDA events around each batch (after a warm-up)."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    per_call = []
+    for _ in range(batches):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        for _ in range(reps):
+            fn()
+        b.record()
+        b.synchronize()
+        per_call.append(a.elapsed_time(b) / reps)
+    return statistics.median(per_call)
+
+
+def main() -> int:
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False",
+              file=sys.stderr)
+        return 2
+    try:
+        from repro_torch.kernels import build
+    except ImportError as e:
+        print(f"chip_smoke: the port's package is missing ({e})",
+              file=sys.stderr)
+        return 2
+    from repro_torch.core.floorline import WorkloadPoint, fit_floorline
+    from repro_torch.core.partitioner import (SimEvaluator,
+                                              optimize_partitioning)
+    from repro_torch.kernels.event_matmul.ops import (
+        _compact_indices_joint, _pad_to, event_matmul2, pad_compact,
+        weight_block_occupancy)
+    from repro_torch.kernels.event_matmul.ref import event_matmul2_ref
+    from repro_torch.kernels.sigma_delta.ops import (window_cumsum,
+                                                     window_reconstruct)
+    from repro_torch.kernels.sigma_delta.ref import (window_cumsum_ref,
+                                                     window_reconstruct_ref)
+    from repro_torch.neuromorphic import (DenseCompute, EventCompute,
+                                          fc_network, loihi2_like,
+                                          make_inputs, minimal_partition,
+                                          network_from_numpy, simulate)
+    from repro_torch.neuromorphic.compute import _im2col, _patch_weights
+    import numpy as np
+
+    dev = torch.device(DEVICE)
+    card = gpu_name_and_limit()
+
+    # ------------------------------------------------------------ (a) build
+    t0 = time.perf_counter()
+    build.load()
+    build_s = time.perf_counter() - t0
+    log = (build.BUILD_DIR / "build.log")
+    ptxas = ([l.strip() for l in log.read_text().splitlines()
+              if "registers" in l or "spill" in l] if log.exists() else [])
+    emit({"phase": "build", "seconds": build_s,
+          "library": build.library_path().name, "ptxas": ptxas,
+          "card": card, "torch": torch.__version__,
+          "cuda": torch.version.cuda})
+
+    # -------------------------------------------------------- (b) main path
+    class Recorder(EventCompute):
+        """Kernel-mode event backend that keeps every synaptic forward's
+        operands, for the teacher-forced checks of phase (c)."""
+
+        def __init__(self):
+            super().__init__(mode="kernel")
+            self.calls, self.deltas = [], []
+
+        def forward(self, layer, x_eff, act_mask, msgs_in):
+            self.calls.append((layer, x_eff, act_mask, msgs_in))
+            return super().forward(layer, x_eff, act_mask, msgs_in)
+
+        def delta_forward(self, layer, x_in, in_acc, act_mask, msgs_in):
+            self.deltas.append((layer, x_in, in_acc.clone()))
+            return super().delta_forward(layer, x_in, in_acc, act_mask,
+                                         msgs_in)
+
+    sizes = [1024, 2048, 1024, 1024, 512]
+    T = 1024
+    net = fc_network(sizes, weight_density=0.5, neuron_model="sd_relu",
+                     seed=0, device=DEVICE)
+    for layer in net.layers:
+        layer.threshold = 0.05
+    xs = make_inputs(sizes[0], density=0.1, steps=T, seed=1,
+                     device=DEVICE)
+    prof = loihi2_like()
+    part = minimal_partition(net, prof)
+    n_delta = len(net.layers) - 1          # every layer after an sd_relu one
+    expect = {"event_matmul2": 2 * len(net.layers) + 2 * n_delta,
+              "window_cumsum": n_delta}
+    counters = {"event_matmul2": event_matmul2,
+                "window_cumsum": window_cumsum}
+    rec = Recorder()
+    walls = {}
+
+    for fn in counters.values():
+        fn.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    run_k = net.run_batch(xs, compute=rec)
+    torch.cuda.synchronize()
+    walls["run_batch"] = time.perf_counter() - t0
+    per_run = {k: fn.launches for k, fn in counters.items()}
+    t0 = time.perf_counter()
+    rep = simulate(net, xs, prof, part, precomputed=run_k)
+    walls["simulate"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    pts = []
+    for dens in (0.8, 0.5, 0.3, 0.1, 0.05):
+        xs_d = make_inputs(sizes[0], dens, T, seed=2, device=DEVICE)
+        r = simulate(net, xs_d, prof, compute=EventCompute(mode="kernel"))
+        pts.append(WorkloadPoint(r.max_synops, r.max_acts, r.time_per_step,
+                                 r.energy_per_step, label=f"d={dens}"))
+    model = fit_floorline(pts)
+    state = model.classify(WorkloadPoint(rep.max_synops, rep.max_acts,
+                                         rep.time_per_step))
+    walls["floorline"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    evaluator = SimEvaluator(net, xs, prof, compute="event")
+    res = optimize_partitioning(net, prof, evaluator, max_iters=8)
+    torch.cuda.synchronize()
+    walls["greedy"] = time.perf_counter() - t0
+    launches = {k: fn.launches for k, fn in counters.items()}
+
+    outputs = run_k[0]
+    require(tuple(outputs.shape) == (T, sizes[-1]), "output shape")
+    require(bool(torch.isfinite(outputs).all()), "non-finite outputs")
+    require(np.isfinite(rep.time_per_step) and rep.time_per_step > 0,
+            "time_per_step")
+    require(np.isfinite(rep.energy_per_step) and rep.energy_per_step > 0,
+            "energy_per_step")
+    require(per_run == expect, f"launches per run_batch {per_run} != "
+                               f"{expect}")
+    require(all(n > 0 for n in launches.values()), f"launches {launches}")
+    speedup = res.history[0].time / res.report.time_per_step
+    emit({"phase": "main_path", "sizes": sizes, "T": T,
+          "partition": list(part.cores), "cores_used": part.total_cores,
+          "time_per_step": rep.time_per_step,
+          "energy_per_step": rep.energy_per_step,
+          "bottleneck_stage": rep.bottleneck_stage,
+          "floorline_state": state.value,
+          "greedy_speedup": speedup, "greedy_iters": len(res.history),
+          "greedy_partition": list(res.partition.cores),
+          "greedy_evals": evaluator.n_evals,
+          "launches_per_run_batch": per_run, "launches": launches,
+          "wall_s": walls})
+
+    # ------------------------- where one run_batch's time goes (profiler)
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as trace:
+        t0 = time.perf_counter()
+        net.run_batch(xs, compute=EventCompute(mode="kernel"))
+        torch.cuda.synchronize()
+        traced_wall = time.perf_counter() - t0
+    # device-side events only: a host op's self device time repeats the
+    # time of the kernels it launched
+    dev_us = lambda e: getattr(e, "self_device_time_total",
+                               getattr(e, "self_cuda_time_total", 0.0))
+    by_kernel = sorted(((e.key, dev_us(e), e.count)
+                        for e in trace.key_averages()
+                        if e.device_type == torch.autograd.DeviceType.CUDA
+                        and dev_us(e) > 0), key=lambda r: -r[1])
+    busy_s = sum(us for _, us, _ in by_kernel) * 1e-6
+    emit({"phase": "profile", "what": "one run_batch, kernel mode, traced",
+          "wall_s": traced_wall,
+          "device_busy_s": busy_s if busy_s else "not measured",
+          "device_idle_share": (1 - busy_s / traced_wall) if busy_s
+          else "not measured",
+          "top_kernels": [{"name": k[:90], "device_s": us * 1e-6,
+                           "calls": n} for k, us, n in by_kernel[:10]]})
+
+    # ------------------------------------------- (c) kernels vs plain, card
+    t0 = time.perf_counter()
+    kernel_cc, dense_cc = EventCompute(mode="kernel"), DenseCompute()
+    max_err = {"event_matmul2": 0.0, "window_cumsum": 0.0}
+    checks = 0
+
+    def check_matmul(x, w, occ, what, mask_operand=False):
+        nonlocal checks
+        y = event_matmul2(x, w, occ)
+        M, N = x.shape[0], w.shape[1]
+        y_ref = event_matmul2_ref(_pad_to(x, (TILE, TILE)),
+                                  _pad_to(w, (TILE, TILE)), occ,
+                                  threshold=0.0, bm=TILE, bk=TILE,
+                                  bn=TILE)[:M, :N]
+        if mask_operand:
+            exact(y, y_ref, what)
+        else:
+            max_err["event_matmul2"] = max(
+                max_err["event_matmul2"],
+                close(y, y_ref, PRE_RTOL, PRE_ATOL, what))
+        checks += 1
+        return y
+
+    def check_forward(layer, x, m, msgs, what):
+        nonlocal checks
+        pre_k, macs_k, fetch_k = kernel_cc.forward(layer, x, m, msgs)
+        pre_d, macs_d, fetch_d = dense_cc.forward(layer, x, m, msgs)
+        exact(macs_k, macs_d, f"{what} macs")
+        exact(fetch_k, fetch_d, f"{what} fetches_dense")
+        close(pre_k, pre_d, PRE_RTOL, PRE_ATOL, f"{what} pre")
+        checks += 1
+        return pre_d
+
+    # teacher-forced at the main path's operands
+    for i, (layer, x, m, msgs) in enumerate(rec.calls):
+        check_forward(layer, x, m, msgs, f"fc call {i} ({layer.name})")
+        occ = weight_block_occupancy(layer.weights)
+        check_matmul(x, layer.weights, occ, f"fc call {i} values")
+        check_matmul(m, layer.w_mask, occ, f"fc call {i} counters",
+                     mask_operand=True)
+    for layer, x_in, acc in rec.deltas:
+        bases, xwin, new_acc = window_reconstruct(x_in, acc, window=TILE)
+        rb, rx, ra = window_reconstruct_ref(x_in, acc, window=TILE)
+        exact(bases, rb, f"{layer.name} bases")
+        exact(new_acc, ra, f"{layer.name} new_acc")
+        max_err["window_cumsum"] = max(max_err["window_cumsum"], close(
+            xwin, rx, WIN_RTOL, WIN_ATOL, f"{layer.name} window_cumsum"))
+        checks += 1
+
+    # a strided conv stack through im2col: 3x3 stride-2 convs on a 64x64x2
+    # input, channels 16 / 32 / 64, T = 32
+    rng = np.random.default_rng(7)
+    specs, h, c_prev = [], 64, 2
+    for i, c in enumerate((16, 32, 64)):
+        wgt = rng.normal(0, 1 / np.sqrt(9 * c_prev),
+                         (3, 3, c_prev, c)).astype(np.float32)
+        wgt *= (rng.random(wgt.shape) < 0.6)
+        specs.append(dict(name=f"conv{i}", kind="conv", weights=wgt,
+                          stride=2, in_hw=(h, h)))
+        h, c_prev = h // 2, c
+    conv_net = network_from_numpy(specs, 64 * 64 * 2, device=DEVICE)
+    cur = make_inputs(64 * 64 * 2, 0.3, 32, seed=8, device=DEVICE)
+    for layer in conv_net.layers:
+        m = (cur != 0).to(torch.float32)
+        pre = check_forward(layer, cur, m, m.sum(dim=1), layer.name)
+        kh, kw = layer.weights.shape[:2]
+        oh, ow = layer.out_hw
+        x4 = cur.reshape(32, layer.weights.shape[2], *layer.in_hw)
+        wf, wfm, _ = _patch_weights(layer)
+        occ = weight_block_occupancy(wf)
+        pat = _im2col(x4, kh, kw, layer.stride, oh, ow)
+        check_matmul(pat, wf, occ, f"{layer.name} im2col values")
+        check_matmul((pat != 0).to(torch.float32), wfm, occ,
+                     f"{layer.name} im2col counters", mask_operand=True)
+        cur, _ = layer._neuron_batch(pre, {})
+
+    # edge cases: ragged M/K/N, all-zero activation and weight tiles, (m, n)
+    # pairs with cnt == 0, a quiet window and ragged T
+    g = torch.Generator(device="cpu").manual_seed(11)
+    x = torch.randn(300, 333, generator=g).to(dev)
+    w = torch.randn(333, 270, generator=g).to(dev)
+    x[:128] = 0.0                          # first m-block: cnt == 0
+    x[128:256, 128:256] = 0.0              # one dead activation tile
+    w[256:, :] = 0.0                       # last k-block of weights dead
+    w[:, 128:256] = 0.0                    # a whole n-block dead: cnt == 0
+    occ = weight_block_occupancy(w)
+    _, active, _, _ = pad_compact(x, 0.0)
+    _, cnt = _compact_indices_joint(active, occ)
+    require(int((cnt == 0).sum()) >= 3, "edge case lost its cnt == 0 pairs")
+    y = check_matmul(x, w, occ, "edge ragged values")
+    require(bool((y[:128] == 0).all()) and bool((y[:, 128:256] == 0).all()),
+            "cnt == 0 tiles are not exact zeros")
+    check_matmul((x != 0).to(torch.float32), (w != 0).to(torch.float32),
+                 occ, "edge ragged counters", mask_operand=True)
+    zocc = torch.zeros_like(occ)
+    require(bool((event_matmul2(x, w, zocc) == 0).all()),
+            "all-unoccupied weights must give exact zeros")
+    xd = torch.randn(300, 200, generator=g).to(dev)
+    xd[128:256] = 0.0                      # a quiet window in the middle
+    for T_edge in (300, 256):
+        xe = xd[:T_edge]
+        acc = torch.randn(200, generator=g).to(dev)
+        bases, xwin, new_acc = window_reconstruct(xe, acc, window=TILE)
+        rb, rx, ra = window_reconstruct_ref(xe, acc, window=TILE)
+        require(bool((xwin[128:256] == 0).all()),
+                "quiet window is not exact zeros")
+        max_err["window_cumsum"] = max(max_err["window_cumsum"], close(
+            xwin, rx, WIN_RTOL, WIN_ATOL, f"ragged T={T_edge} window"))
+        exact(bases, rb, "ragged bases")
+        checks += 1
+    torch.cuda.synchronize()
+    emit({"phase": "kernels", "checks": checks, "max_abs_err": max_err,
+          "tolerances": {"pre": [PRE_RTOL, PRE_ATOL],
+                         "window_cumsum": [WIN_RTOL, WIN_ATOL],
+                         "counters": "bit-identical"},
+          "wall_s": time.perf_counter() - t0})
+
+    # ---------------------------------------- (d) end to end against dense
+    t0 = time.perf_counter()
+    run_d = net.run_batch(xs, compute="dense")
+    rep_d = simulate(net, xs, prof, part, precomputed=run_d)
+    rel_t = abs(rep.time_per_step - rep_d.time_per_step) / rep_d.time_per_step
+    rel_e = (abs(rep.energy_per_step - rep_d.energy_per_step)
+             / rep_d.energy_per_step)
+    msgs_diff = [int((a.msgs_out != b.msgs_out).sum())
+                 for a, b in zip(run_k[1], run_d[1])]
+    emit({"phase": "dense", "time_per_step": rep_d.time_per_step,
+          "energy_per_step": rep_d.energy_per_step,
+          "rel_diff_time": rel_t, "rel_diff_energy": rel_e,
+          "msgs_out_differing_per_layer": msgs_diff,
+          "msgs_out_total_per_layer":
+              [int(c.msgs_out.sum()) for c in run_d[1]],
+          "wall_s": time.perf_counter() - t0})
+    require(rel_t <= REPORT_RTOL and rel_e <= REPORT_RTOL,
+            f"event vs dense report differs: time {rel_t}, energy {rel_e}")
+
+    # ----------------------------------------------------------- (e) times
+    lib = build.load()
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def live_tiles(x, w):
+        """(Mb, Nb, Kb) bool live tile products of ``x @ w``, the padded
+        ``x``, its tile activity and the weight-tile occupancy, as the
+        wrapper computes them."""
+        xp, active, _, _ = pad_compact(x, 0.0)
+        occ = weight_block_occupancy(w)
+        return active[:, None, :] & occ.T[None, :, :], xp, active, occ
+
+    def time_matmul(x, w, counter: bool, what: str, name: str) -> dict:
+        """Launch-alone, wrapper, plain and library times of one
+        event_matmul2 call, with its bound from this call's live tiles:
+        operand tiles read once, the output written once, and the live
+        products at the fp32 rate (values) or the int8 rate (counters)."""
+        live, xp, active, occ = live_tiles(x, w)
+        wp = _pad_to(w, (TILE, TILE))
+        idx, cnt = _compact_indices_joint(active, occ)
+        mb, nb, kb = live.shape
+        out = torch.empty((xp.shape[0], wp.shape[1]), device=dev)
+        n_live = int(live.sum())
+        nbytes = 4 * TILE * TILE * (int(live.any(dim=1).sum())
+                                    + int(live.any(dim=0).sum()))
+        nbytes += 4 * xp.shape[0] * wp.shape[1] + 4 * (mb * nb * (kb + 1))
+        ops = 2 * TILE ** 3 * n_live
+        t_bytes = nbytes / PEAK_BYTES_PER_S
+        t_ops = ops / (PEAK_INT8_OPS if counter else PEAK_FP32_FLOPS)
+        row = {"what": what, "layer": name, "M": x.shape[0],
+               "K": x.shape[1], "N": w.shape[1],
+               "live_tile_products": n_live, "tile_products": live.numel(),
+               "bytes": nbytes, "ops": ops,
+               "ops_rate": "int8" if counter else "fp32",
+               "ms": time_ms(lambda: lib.event_matmul2_launch(
+                   xp.data_ptr(), wp.data_ptr(), idx.data_ptr(),
+                   cnt.data_ptr(), out.data_ptr(), mb, nb, kb, xp.shape[1],
+                   wp.shape[1], stream)),
+               "wrapper_ms": time_ms(lambda: event_matmul2(x, w, occ)),
+               "plain_ms": time_ms(lambda: event_matmul2_ref(
+                   xp, wp, occ, threshold=0.0, bm=TILE, bk=TILE, bn=TILE)),
+               "bound_ms": 1e3 * max(t_bytes, t_ops),
+               "bound_by": "bytes" if t_bytes > t_ops else "operations",
+               "library_ms": time_ms(lambda: torch.matmul(xp, wp))}
+        if counter:
+            # the same exact counter product on the int8 tensor cores
+            x8, w8 = xp.to(torch.int8), wp.to(torch.int8)
+            row["int8_mm_ms"] = time_ms(lambda: torch._int_mm(x8, w8))
+        return row
+
+    # every main-path launch: (value, counter) live share per forward call
+    live_share = []
+    for layer, x, m, _ in rec.calls:
+        live_share.append([float(live_tiles(a, b)[0].float().mean())
+                           for a, b in ((x, layer.weights),
+                                        (m, layer.w_mask))])
+    mm_rows = []
+    layer, x, m, _ = max(rec.calls, key=lambda c: c[1].numel()
+                         * c[0].weights.shape[1])
+    mm_rows.append(time_matmul(x, layer.weights, False, "largest value",
+                               layer.name))
+    mm_rows.append(time_matmul(m, layer.w_mask, True, "largest counter",
+                               layer.name))
+    layer, x, _, _ = min(rec.calls, key=lambda c: (c[0].weights.shape[1],
+                                                   -c[1].shape[0]))
+    mm_rows.append(time_matmul(x, layer.weights, False, "narrowest layer",
+                               layer.name))
+    layer, _, m, _ = next(c for c in rec.calls if c[1].shape[0] < TILE)
+    mm_rows.append(time_matmul(m, layer.w_mask, True,
+                               "base-row counter (discarded)", layer.name))
+    widest = max(rec.deltas, key=lambda d: d[1].numel())[0]
+    layer, x, _, _ = next(c for c in rec.calls
+                          if c[0] is widest and c[1].shape[0] == T)
+    xq = x.clone().reshape(T // TILE, TILE, -1)
+    xq[1::2] = 0.0                         # windows 1, 3, 5, 7 quiet
+    mm_rows.append(time_matmul(xq.reshape(T, -1), layer.weights, False,
+                               "widest xwin, half its windows quiet",
+                               layer.name))
+    mm = {"name": "event_matmul2", "route": "cuda",
+          "source": "src/repro_torch/csrc/event_matmul2.cu",
+          "replaces": "src/repro/kernels/event_matmul/kernel.py:52",
+          "launches": launches["event_matmul2"],
+          "max_abs_err": max_err["event_matmul2"]}
+    mm.update({k: mm_rows[0][k] for k in ("ms", "plain_ms", "bound_ms",
+                                          "bound_by", "library_ms")})
+
+    # window_cumsum at the main path's widest delta stream
+    layer, x_in, _ = max(rec.deltas, key=lambda d: d[1].numel())
+    x_in = x_in.contiguous()
+    Tp, D = x_in.shape
+    xw = x_in.reshape(Tp // TILE, TILE, D)
+    lv = (xw != 0).any(dim=2).any(dim=1).to(torch.int32)
+    n_lw = int(lv.sum())
+    bytes_wc = 4 * (n_lw * TILE * D + Tp * D) + 4 * lv.numel()
+    ops_wc = n_lw * TILE * D
+    out_wc = torch.empty_like(x_in)
+    t_bytes, t_ops = bytes_wc / PEAK_BYTES_PER_S, ops_wc / PEAK_FP32_FLOPS
+    wc = {"name": "window_cumsum", "route": "cuda",
+          "source": "src/repro_torch/csrc/window_cumsum.cu",
+          "replaces": "src/repro/kernels/sigma_delta/kernel.py:37",
+          "launches": launches["window_cumsum"],
+          "max_abs_err": max_err["window_cumsum"],
+          "ms": time_ms(lambda: lib.window_cumsum_launch(
+              x_in.data_ptr(), lv.data_ptr(), out_wc.data_ptr(),
+              Tp // TILE, D, TILE, stream)),
+          "plain_ms": time_ms(lambda: window_cumsum_ref(x_in, lv,
+                                                        window=TILE)),
+          "bound_ms": 1e3 * max(t_bytes, t_ops),
+          "bound_by": "bytes" if t_bytes > t_ops else "operations",
+          "library_ms": time_ms(lambda: torch.cumsum(xw, dim=1))}
+    shape_wc = {"T": Tp, "D": D, "window": TILE, "live_windows": n_lw,
+                "windows": lv.numel(), "bytes": bytes_wc, "adds": ops_wc,
+                "wrapper_ms": time_ms(lambda: window_cumsum(x_in, lv,
+                                                            window=TILE)),
+                "layer": layer.name}
+    emit({"phase": "times", "card": card,
+          "peaks": {"bytes_per_s": PEAK_BYTES_PER_S,
+                    "fp32_flops_per_s": PEAK_FP32_FLOPS,
+                    "int8_ops_per_s": PEAK_INT8_OPS,
+                    "source": "NVIDIA H100 SXM data sheet"},
+          "event_matmul2": mm_rows,
+          "event_matmul2_live_share_per_call": live_share,
+          "window_cumsum": shape_wc})
+
+    emit({"kernels": [mm, wc]})
+    print(card, flush=True)
+    emit({"ok": True, "device": {"platform": "gpu",
+                                 "kind": torch.cuda.get_device_name(0),
+                                 "count": torch.cuda.device_count()}})
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

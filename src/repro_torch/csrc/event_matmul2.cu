@@ -1,0 +1,142 @@
+// Joint (activation x weight tile) block-sparse matmul for Hopper (sm_90a).
+//
+// Replaces the TPU kernel `_event_matmul2_kernel` / `event_matmul2_pallas`
+// in src/repro/kernels/event_matmul/kernel.py.  Same contract: y = x @ w
+// over 128 x 128 x 128 tiles, where the (m, n) output tile sums only the
+// k-tiles listed in idx[m, n, :cnt[m, n]] (activation tile has an event AND
+// weight tile has a nonzero); every skipped tile product is an exact zero
+// and a tile with cnt == 0 writes zeros.
+//
+// What bounds it on this card: operations.  Every live tile product is
+// 2 * 128^3 flops against 2 * 64 KiB of operands, and the products run in
+// plain fp32 FMA (no TF32, no tensor cores), whose peak is ~67 TFLOP/s —
+// so the compute roof sits far below the 3.35 TB/s memory roof.  fp32 FMA
+// is required for the value matmul, which must stay within rtol 1e-6 of a
+// float32 reference (TF32 would not).  The counter matmul multiplies 0/1
+// masks: fp32 keeps its integer sums exact below 2^24, but so would int8
+// tensor-core products with int32 sums, at a far higher rate.  This one
+// kernel serves both for now.
+//
+// Design: one 256-thread block per (m, n) output tile (Hopper has no
+// scalar prefetch, so the block reads its own cnt and k list).  The k loop
+// runs only over the live list, so dead tiles are never loaded.  Each live
+// k-tile is staged through shared memory 8 k-rows at a time, double
+// buffered: while the block multiplies one stage, every thread holds its
+// share of the next stage (one float4 of x, one of w) in registers and
+// stores it to the other buffer afterwards, so one barrier per stage
+// suffices.  x is stored transposed (xs[k][row]) so both operands are read
+// as float4s.  Each thread owns an 8 x 8 register block of the output
+// (rows ty*4 + {0..3} and 64 + ty*4 + {0..3}, likewise columns), read
+// conflict-free, and accumulates with one FMA per product in ascending k
+// order.  Operands arrive padded to tile multiples and 16-byte aligned.
+
+#include <cuda_runtime.h>
+
+namespace {
+
+constexpr int kTile = 128;              // bm = bk = bn
+constexpr int kStep = 8;                // k rows per shared-memory stage
+constexpr int kStages = kTile / kStep;  // stages per live k-tile
+constexpr int kThreads = 256;           // 16 x 16 threads, 8 x 8 outputs each
+
+__global__ void __launch_bounds__(kThreads)
+event_matmul2_kernel(const float* __restrict__ x, const float* __restrict__ w,
+                     const int* __restrict__ idx, const int* __restrict__ cnt,
+                     float* __restrict__ out, int nb, int kb, int K, int N) {
+  const int n = blockIdx.x;
+  const int m = blockIdx.y;
+  const int tid = threadIdx.x;
+  const int tx = tid % 16;
+  const int ty = tid / 16;
+
+  __shared__ __align__(16) float xs[2][kStep][kTile];   // xs[.][k][row]
+  __shared__ __align__(16) float ws[2][kStep][kTile];   // ws[.][k][col]
+
+  const int pair = m * nb + n;
+  const int total = cnt[pair] * kStages;
+  const int* list = idx + static_cast<size_t>(pair) * kb;
+
+  // this thread's share of a stage: 4 consecutive k of one x row, and
+  // 4 consecutive columns of one w row
+  const int xr = tid / 2, xc = (tid % 2) * 4;
+  const int wr = tid / 32, wc = (tid % 32) * 4;
+  const float* xrow = x + (static_cast<size_t>(m) * kTile + xr) * K + xc;
+  const float* wrow = w + static_cast<size_t>(wr) * N
+                    + static_cast<size_t>(n) * kTile + wc;
+
+  float4 xv, wv;
+  auto fetch = [&](int q) {
+    const int k = list[q / kStages] * kTile + (q % kStages) * kStep;
+    xv = *reinterpret_cast<const float4*>(xrow + k);
+    wv = *reinterpret_cast<const float4*>(wrow + static_cast<size_t>(k) * N);
+  };
+  auto stash = [&](int buf) {
+    xs[buf][xc + 0][xr] = xv.x;
+    xs[buf][xc + 1][xr] = xv.y;
+    xs[buf][xc + 2][xr] = xv.z;
+    xs[buf][xc + 3][xr] = xv.w;
+    *reinterpret_cast<float4*>(&ws[buf][wr][wc]) = wv;
+  };
+
+  float acc[8][8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) acc[i][j] = 0.0f;
+
+  if (total > 0) {
+    fetch(0);
+    stash(0);
+  }
+  __syncthreads();
+  for (int q = 0; q < total; ++q) {
+    const int buf = q & 1;
+    if (q + 1 < total) fetch(q + 1);
+#pragma unroll
+    for (int k = 0; k < kStep; ++k) {
+      const float4 a0 = *reinterpret_cast<const float4*>(&xs[buf][k][ty * 4]);
+      const float4 a1 =
+          *reinterpret_cast<const float4*>(&xs[buf][k][64 + ty * 4]);
+      const float4 b0 = *reinterpret_cast<const float4*>(&ws[buf][k][tx * 4]);
+      const float4 b1 =
+          *reinterpret_cast<const float4*>(&ws[buf][k][64 + tx * 4]);
+      const float a[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
+      const float b[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
+    }
+    if (q + 1 < total) stash(buf ^ 1);
+    __syncthreads();
+  }
+
+  float* oblk = out + static_cast<size_t>(m) * kTile * N
+              + static_cast<size_t>(n) * kTile;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int row = (i < 4 ? 0 : 64) + ty * 4 + (i % 4);
+    float* o = oblk + static_cast<size_t>(row) * N;
+    *reinterpret_cast<float4*>(o + tx * 4) =
+        make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
+    *reinterpret_cast<float4*>(o + 64 + tx * 4) =
+        make_float4(acc[i][4], acc[i][5], acc[i][6], acc[i][7]);
+  }
+}
+
+}  // namespace
+
+// x (mb*128, K), w (K, N), out (mb*128, N): row-major float32, 16-byte
+// aligned, K and N multiples of 128.  idx (mb, nb, kb) and cnt (mb, nb):
+// int32.  Launches on `stream` and returns the launch's cudaError_t.
+extern "C" int event_matmul2_launch(const float* x, const float* w,
+                                    const int* idx, const int* cnt,
+                                    float* out, int mb, int nb, int kb,
+                                    int K, int N, void* stream) {
+  if (mb <= 0 || nb <= 0) return static_cast<int>(cudaGetLastError());
+  dim3 grid(nb, mb);
+  event_matmul2_kernel<<<grid, kThreads, 0,
+                         static_cast<cudaStream_t>(stream)>>>(
+      x, w, idx, cnt, out, nb, kb, K, N);
+  return static_cast<int>(cudaGetLastError());
+}

@@ -1,0 +1,38 @@
+"""Neuromorphic chip simulator (PyTorch port): networks, chip profiles,
+partitioning, NoC routing, layer-compute backends and the timestep cost
+model."""
+
+from repro_torch.neuromorphic.compute import (DEFAULT_COMPUTE, DenseCompute,
+                                              EventCompute, LayerCompute,
+                                              get_compute, register_compute)
+from repro_torch.neuromorphic.network import (BatchCounters, CounterMaps,
+                                              SimLayer, SimNetwork,
+                                              fc_network, make_inputs,
+                                              network_from_numpy,
+                                              programmed_fc_network)
+from repro_torch.neuromorphic.noc import (Mapping, ordered_mapping,
+                                          random_mapping, route_batch,
+                                          route_step, strided_mapping)
+from repro_torch.neuromorphic.partition import (Partition, minimal_partition,
+                                                validate_partition)
+from repro_torch.neuromorphic.platform import (NEURON_COST, PROFILES,
+                                               ChipProfile, akd1000_like,
+                                               loihi2_like, speck_like)
+from repro_torch.neuromorphic.timestep import (PricingCache, SimReport,
+                                               layer_stage_times,
+                                               precompute_pricing,
+                                               price_candidate, simulate)
+
+__all__ = [
+    "DEFAULT_COMPUTE", "DenseCompute", "EventCompute", "LayerCompute",
+    "get_compute", "register_compute",
+    "BatchCounters", "CounterMaps", "SimLayer", "SimNetwork", "fc_network",
+    "make_inputs", "network_from_numpy", "programmed_fc_network",
+    "Mapping", "ordered_mapping", "random_mapping", "route_batch",
+    "route_step", "strided_mapping",
+    "Partition", "minimal_partition", "validate_partition",
+    "NEURON_COST", "PROFILES", "ChipProfile", "akd1000_like", "loihi2_like",
+    "speck_like",
+    "PricingCache", "SimReport", "layer_stage_times", "precompute_pricing",
+    "price_candidate", "simulate",
+]

@@ -1,0 +1,463 @@
+"""Pluggable per-layer synaptic-compute backends for the simulator.
+
+The simulator's hot path is the per-layer synaptic forward: consume the
+``(T, n_in)`` effective-activation block, produce the ``(T, n_out)``
+pre-activations plus the exact MAC / dense-fetch counter maps the cost
+model prices.  :class:`SimLayer` delegates it to a :class:`LayerCompute`:
+
+* ``"dense"`` (:class:`DenseCompute`, the default) — one ``torch.matmul``
+  or one ``F.conv2d`` per layer.
+* ``"event"`` (:class:`EventCompute`) — event-driven execution: a message
+  is only sent for a nonzero activation, and only its weights are fetched.
+  Three kernel modes share one semantic contract (skipped work is exactly
+  event-free, so integer counters are bit-identical to dense and ``pre``
+  agrees to float roundoff):
+
+  - ``"kernel"`` — the hand-written CUDA kernels: the joint (activation x
+    weight tile) block-sparse matmul
+    (:func:`repro_torch.kernels.event_matmul.ops.event_matmul_pair`) and
+    the windowed delta reconstruction
+    (:func:`repro_torch.kernels.sigma_delta.ops.window_reconstruct`).  On
+    CPU tensors the kernel wrappers run their plain PyTorch versions.
+  - ``"gather"`` — the column-granular host expression of the same
+    contract: per :data:`GATHER_BM`-row tile the union of active input columns
+    is compacted and only those weight rows enter one dense contraction.
+  - ``"auto"`` picks ``kernel`` for layers on a CUDA device and ``gather``
+    on the CPU.
+
+Conv layers run event-driven through an im2col view whose patch rows feed
+the same event matmul as fc layers.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.kernels.event_matmul.ops import (KERNEL_TILE,
+                                                  event_matmul_pair,
+                                                  weight_block_occupancy)
+from repro_torch.kernels.sigma_delta.ops import window_reconstruct
+
+#: Backend used when a ``compute=`` argument is omitted.
+DEFAULT_COMPUTE = "dense"
+
+#: Row tile of the gather mode's column compaction (timesteps per tile).
+GATHER_BM = 32
+
+
+def _seq_cumsum(x: torch.Tensor) -> torch.Tensor:
+    """float32 cumulative sum over dim 0, one row at a time: the addition
+    order of ``np.cumsum`` and of the step-major delta accumulator.
+    ``torch.cumsum`` accumulates float32 in float64 on the CPU and in a
+    parallel scan on CUDA, and either can move a sigma-delta message."""
+    out = torch.empty_like(x)
+    acc = x[0].clone()
+    out[0] = acc
+    for t in range(1, x.shape[0]):
+        acc = acc + x[t]
+        out[t] = acc
+    return out
+
+
+class LayerCompute:
+    """Backend protocol: the per-layer synaptic forward over a time batch.
+
+    ``fc_forward`` / ``conv_forward`` consume the ``(T, n_in)``
+    effective-activation block, the 0/1 wire-event mask and the per-step
+    message counts, and return ``(pre, macs, fetches_dense)`` as
+    ``(T, n_out)`` maps (channel-major flat for conv).
+
+    Contract: ``macs`` and ``fetches_dense`` are exact event counts,
+    bit-identical across backends; ``pre`` equals the dense reference to
+    float roundoff (rtol <= 1e-6).
+    """
+
+    name = "?"
+
+    def fc_forward(self, layer, x_eff, act_mask, msgs_in):
+        raise NotImplementedError
+
+    def conv_forward(self, layer, x_eff, act_mask, msgs_in):
+        raise NotImplementedError
+
+    def forward(self, layer, x_eff: torch.Tensor, act_mask: torch.Tensor,
+                msgs_in: torch.Tensor):
+        """Dispatch on the layer kind; the one entry point SimLayer calls."""
+        if layer.kind == "fc":
+            return self.fc_forward(layer, x_eff, act_mask, msgs_in)
+        return self.conv_forward(layer, x_eff, act_mask, msgs_in)
+
+    def delta_forward(self, layer, x_in: torch.Tensor, in_acc: torch.Tensor,
+                      act_mask: torch.Tensor, msgs_in: torch.Tensor):
+        """Forward for a layer whose upstream sends deltas: reconstruct the
+        effective activation from the carried accumulator, run the synaptic
+        forward, and return ``(pre, macs, fetches_dense, new_acc)``.
+
+        The base implementation is the bit-exact reference: a sequential
+        float32 cumulative sum over time, which matches the step-major
+        addition order when the accumulator starts at zero.
+        """
+        if bool(in_acc.any()):
+            x_eff = in_acc[None, :] + _seq_cumsum(x_in)
+        else:
+            x_eff = _seq_cumsum(x_in)
+        new_acc = x_eff[-1].clone()
+        pre, macs, fetches = self.forward(layer, x_eff, act_mask, msgs_in)
+        return pre, macs, fetches, new_acc
+
+
+def _fetches(msgs_in: torch.Tensor, shape) -> torch.Tensor:
+    """Dense-format fetches: every input message fetches one weight word
+    per output neuron."""
+    return msgs_in.to(torch.float32)[:, None].expand(shape)
+
+
+def _same_pads(layer) -> tuple[int, int, int, int]:
+    """XLA "SAME" padding split (``lo = total // 2``) as an ``F.pad``
+    tuple (left, right, top, bottom) for the layer's conv."""
+    h, w = layer.in_hw
+    kh, kw = layer.weights.shape[:2]
+    oh, ow = layer.out_hw
+    s = layer.stride
+    pad_h = max(0, (oh - 1) * s + kh - h)
+    pad_w = max(0, (ow - 1) * s + kw - w)
+    return (pad_w // 2, pad_w - pad_w // 2, pad_h // 2, pad_h - pad_h // 2)
+
+
+# ------------------------------------------------------------------- dense
+
+class DenseCompute(LayerCompute):
+    """The dense path: one GEMM / one batched conv per layer."""
+
+    name = "dense"
+
+    def fc_forward(self, layer, x_eff, act_mask, msgs_in):
+        pre = x_eff @ layer.weights
+        macs = act_mask @ layer.w_mask
+        return pre, macs, _fetches(msgs_in, macs.shape)
+
+    def conv_forward(self, layer, x_eff, act_mask, msgs_in):
+        """All-timesteps conv with batch = T, NCHW (the flat maps are
+        channel-major on both sides).  The counter convs are rounded:
+        their exact values are integers, and cuDNN may pick a transform
+        algorithm (FFT / Winograd) that is off by float roundoff."""
+        T = x_eff.shape[0]
+        h, w = layer.in_hw
+        cin = layer.weights.shape[2]
+        pads = _same_pads(layer)
+        wk, wmask, wones = layer._conv_kernels
+        conv = lambda a, k: F.conv2d(F.pad(a.reshape(T, cin, h, w), pads),
+                                     k, stride=layer.stride).reshape(T, -1)
+        pre = conv(x_eff, wk)
+        macs = torch.round(conv(act_mask, wmask))
+        fetches = torch.round(conv(act_mask, wones))
+        return pre, macs, fetches
+
+
+# ------------------------------------------------------------------- event
+
+def derived_from_weights(layer, key: str, builder):
+    """Per-layer cache of data derived from ``layer.weights``, keyed on the
+    identity of the weights tensor: a cached value is served only while
+    ``layer.weights`` is still the same tensor object, so rebinding the
+    weights invalidates every derived structure.  ``builder(layer)`` runs
+    on a miss."""
+    slot = layer.__dict__.get(key)
+    if slot is None or slot[0] is not layer.weights:
+        slot = (layer.weights, builder(layer))
+        layer.__dict__[key] = slot
+    return slot[1]
+
+
+def _patch_weights(layer) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Conv weights in im2col patch order: ``(kh, kw, cin, cout) ->
+    (cin * kh * kw, cout)`` values + nnz mask + per-feature-row liveness,
+    matching :func:`_im2col`'s (cin, kh, kw) feature layout."""
+    def build(layer):
+        wf = layer.weights.permute(2, 0, 1, 3).reshape(
+            -1, layer.weights.shape[3]).contiguous()
+        nz = wf != 0
+        return wf, nz.to(torch.float32), nz.any(dim=1)
+    return derived_from_weights(layer, "_patch_weights", build)
+
+
+class _WeightBlocks:
+    """Block-CSR weight-sparsity structure for one 2-D weight matrix:
+    ``live`` (K,) bool marks weight rows with >= 1 nonzero; ``occ`` is the
+    (Kb, Nb) bool :data:`KERNEL_TILE`-square weight-tile occupancy map on
+    the weights' device."""
+
+    __slots__ = ("live", "occ")
+
+    def __init__(self, w2: torch.Tensor):
+        self.live = (w2 != 0).any(dim=1)
+        self.occ = weight_block_occupancy(w2, KERNEL_TILE, KERNEL_TILE)
+
+    @classmethod
+    def rows_only(cls, live: torch.Tensor) -> "_WeightBlocks":
+        """Row-liveness-only structure (conv gather, where the patch-weight
+        feature axis is compacted per call)."""
+        wb = cls.__new__(cls)
+        wb.live = live
+        wb.occ = torch.ones((1, 1), dtype=torch.bool, device=live.device)
+        return wb
+
+
+def _fc_weight_blocks(layer) -> _WeightBlocks:
+    return derived_from_weights(layer, "_fc_weight_blocks",
+                                lambda l: _WeightBlocks(l.weights))
+
+
+def _conv_weight_blocks(layer) -> _WeightBlocks:
+    return derived_from_weights(
+        layer, "_conv_weight_blocks",
+        lambda l: _WeightBlocks(_patch_weights(l)[0]))
+
+
+def _im2col(x4: torch.Tensor, kh: int, kw: int, stride: int,
+            oh: int, ow: int) -> torch.Tensor:
+    """SAME-padded strided im2col: ``(T, cin, h, w) -> (T * oh * ow,
+    cin * kh * kw)`` patch rows in (cin, kh, kw) feature order, padded the
+    XLA way (``lo = total // 2``) so the windows are exactly the dense
+    conv's receptive fields."""
+    T, cin, h, w = x4.shape
+    pad_h = max(0, (oh - 1) * stride + kh - h)
+    pad_w = max(0, (ow - 1) * stride + kw - w)
+    x4 = F.pad(x4, (pad_w // 2, pad_w - pad_w // 2,
+                    pad_h // 2, pad_h - pad_h // 2))
+    win = x4.unfold(2, kh, stride).unfold(3, kw, stride)[:, :, :oh, :ow]
+    # (T, cin, oh, ow, kh, kw) -> (T, oh, ow, cin, kh, kw) -> rows
+    return win.permute(0, 2, 3, 1, 4, 5).reshape(T * oh * ow, cin * kh * kw)
+
+
+class EventCompute(LayerCompute):
+    """Event-driven synaptic forward: skip all work for event-free inputs.
+
+    An event is a nonzero activation, so every mode equals the dense
+    contraction exactly.  Kernel mode runs :data:`KERNEL_TILE`-square
+    tiles (the CUDA kernel's); ``mode`` picks the kernel path (module
+    docstring).
+    """
+
+    name = "event"
+
+    def __init__(self, mode: str = "auto"):
+        if mode not in ("auto", "kernel", "gather"):
+            raise ValueError(f"unknown event kernel mode {mode!r}")
+        self.mode = mode
+
+    def _kernel_mode(self, device: torch.device) -> str:
+        if self.mode != "auto":
+            return self.mode
+        return "kernel" if device.type == "cuda" else "gather"
+
+    def _delta_window_size(self, device: torch.device) -> int:
+        """Temporal tile length for windowed delta reconstruction: the
+        kernel's time tile in kernel mode, so quiet windows line up with
+        skippable activation tiles; the gather row tile otherwise."""
+        if self._kernel_mode(device) == "kernel":
+            return KERNEL_TILE
+        return GATHER_BM
+
+    # ---------------------------------------------------- event contractions
+    def _gather_matmul(self, x: torch.Tensor, w: torch.Tensor,
+                       bm: int | None = None,
+                       wb: "_WeightBlocks | None" = None) -> torch.Tensor:
+        """Column-granular event contraction: ``x @ w`` fetching only the
+        weight rows of inputs active within each ``bm``-row tile; with
+        ``wb``, dead weight rows are dropped from the union and output
+        n-blocks whose occupancy is dead for every surviving k-tile skip
+        their slice.  Dropped operands are exact zeros."""
+        M, K = x.shape
+        N = w.shape[1]
+        bm = bm or GATHER_BM
+        mask = x.abs() > 0
+        live = mask.any(dim=0)
+        if wb is not None:
+            live &= wb.live                  # CSR row skipping
+        out = torch.zeros((M, N), dtype=torch.float32, device=x.device)
+        for i0 in range(0, M, bm):
+            i1 = min(i0 + bm, M)
+            cols = torch.nonzero(mask[i0:i1].any(dim=0) & live).flatten()
+            if cols.numel() == 0:
+                continue                     # event-free tile: no fetch
+            if wb is not None and wb.occ.shape[1] > 1:
+                nb_live = wb.occ[torch.unique(cols // KERNEL_TILE)].any(
+                    dim=0)
+                if not bool(nb_live.all()):  # block-CSR n-tile skipping
+                    ncols = torch.nonzero(
+                        nb_live.repeat_interleave(KERNEL_TILE)[:N]).flatten()
+                    out[i0:i1, ncols] = (x[i0:i1, cols]
+                                         @ w[cols][:, ncols])
+                    continue
+            if 2 * cols.numel() >= K:        # near-dense tile
+                out[i0:i1] = x[i0:i1] @ w
+            else:
+                out[i0:i1] = x[i0:i1, cols] @ w[cols]
+        return out
+
+    def _pair(self, x, m, w, wm, wb: _WeightBlocks):
+        """(pre, macs) through the selected kernel mode; ``wm`` is the nnz
+        mask of ``w``, so both contractions share one occupancy map and
+        skip exactly the same tiles."""
+        if self._kernel_mode(x.device) == "gather":
+            return (self._gather_matmul(x, w, wb=wb),
+                    self._gather_matmul(m, wm, wb=wb))
+        return event_matmul_pair(x.to(torch.float32), m.to(torch.float32),
+                                 w, wm, wb.occ)
+
+    # ------------------------------------------------------------ layer kinds
+    def fc_forward(self, layer, x_eff, act_mask, msgs_in):
+        wb = _fc_weight_blocks(layer)
+        pre, macs = self._pair(x_eff, act_mask, layer.weights, layer.w_mask,
+                               wb)
+        return pre, macs, _fetches(msgs_in, macs.shape)
+
+    def _conv_gather(self, a4, wf, layer, wlive=None):
+        """Channel-compacted gather-mode conv: input channels with no event
+        anywhere in the batch are dropped before the im2col copy.  Returns
+        the ``(T * oh * ow, cout)`` result and the per-window event row
+        sums (taken before any weight-based dropping: the dense-fetch
+        counter counts every event in the window)."""
+        kh, kw = layer.weights.shape[:2]
+        cin = a4.shape[1]
+        oh, ow = layer.out_hw
+        active_c = a4.abs().amax(dim=(0, 2, 3)) > 0
+        k_c = int(active_c.sum())
+        if k_c == 0:
+            T = a4.shape[0]
+            z = torch.zeros((T * oh * ow, wf.shape[1]), dtype=torch.float32,
+                            device=a4.device)
+            return z, torch.zeros(T * oh * ow, dtype=torch.float32,
+                                  device=a4.device)
+        if 2 * k_c < cin:
+            ch = torch.nonzero(active_c).flatten()
+            a4 = a4[:, ch]
+            wf = wf.reshape(cin, kh * kw, -1)[ch].reshape(k_c * kh * kw, -1)
+            if wlive is not None:
+                wlive = wlive.reshape(cin, kh * kw)[ch].reshape(-1)
+        pat = _im2col(a4, kh, kw, layer.stride, oh, ow)
+        rows = pat.sum(dim=1)
+        wb = None
+        if wlive is not None and not bool(wlive.all()):
+            wb = _WeightBlocks.rows_only(wlive)
+        return self._gather_matmul(pat, wf, bm=max(GATHER_BM, oh * ow),
+                                   wb=wb), rows
+
+    def conv_forward(self, layer, x_eff, act_mask, msgs_in):
+        """Event-driven conv through the im2col view: ``macs`` sums the
+        weight-nnz mask over each window's events and ``fetches_dense``
+        counts every event in the window once per output channel."""
+        T = x_eff.shape[0]
+        h, w = layer.in_hw
+        cin = layer.weights.shape[2]
+        kh, kw = layer.weights.shape[:2]
+        oh, ow = layer.out_hw
+        cout = layer.weights.shape[3]
+        wf, wfm, wlive = _patch_weights(layer)
+        x4 = x_eff.to(torch.float32).reshape(T, cin, h, w)
+        m4 = act_mask.to(torch.float32).reshape(T, cin, h, w)
+        if self._kernel_mode(x_eff.device) == "gather":
+            pre, _ = self._conv_gather(x4, wf, layer, wlive)
+            macs, fetch_rows = self._conv_gather(m4, wfm, layer, wlive)
+        else:
+            xpat = _im2col(x4, kh, kw, layer.stride, oh, ow)
+            mpat = _im2col(m4, kh, kw, layer.stride, oh, ow)
+            pre, macs = self._pair(xpat, mpat, wf, wfm,
+                                   _conv_weight_blocks(layer))
+            fetch_rows = mpat.sum(dim=1)
+        fetches = fetch_rows[:, None].expand(T * oh * ow, cout)
+        # (T*oh*ow, cout) -> channel-major (T, cout * oh * ow) flat maps
+        to_flat = lambda a: a.reshape(T, oh, ow, cout).permute(
+            0, 3, 1, 2).reshape(T, -1)
+        return to_flat(pre), to_flat(macs), to_flat(fetches)
+
+    # --------------------------------------------- temporal-tile delta path
+    def delta_forward(self, layer, x_in, in_acc, act_mask, msgs_in):
+        """Windowed delta reconstruction: split time into ``window``-step
+        tiles and use linearity of the synaptic forward,
+
+            x_eff = repeat(bases, window) + xwin
+            pre   = forward(bases) repeated + forward(xwin)
+
+        ``xwin`` is exactly zero through quiet windows, so its event
+        matmul skips them; the ``T / window`` base rows pay one small
+        value-only contraction.  Counters come from the unchanged
+        ``act_mask`` / ``msgs_in`` and stay bit-identical."""
+        T = x_in.shape[0]
+        window = self._delta_window_size(x_in.device)
+        if T <= window:
+            return super().delta_forward(layer, x_in, in_acc, act_mask,
+                                         msgs_in)
+        if self._kernel_mode(x_in.device) == "kernel":
+            bases, xwin, new_acc = window_reconstruct(
+                x_in.to(torch.float32), in_acc.to(torch.float32),
+                window=window)
+        else:
+            bases, xwin, new_acc = _window_reconstruct_host(x_in, in_acc,
+                                                            window)
+        pre_w, macs, fetches = self.forward(layer, xwin, act_mask, msgs_in)
+        # value-only pass over the base rows: a zero event mask yields zero
+        # counters, which are discarded
+        zmask = torch.zeros_like(bases)
+        zmsgs = torch.zeros(bases.shape[0], dtype=torch.float32,
+                            device=bases.device)
+        pre_b, _, _ = self.forward(layer, bases, zmask, zmsgs)
+        pre = pre_w + pre_b.repeat_interleave(window, dim=0)[:T]
+        return pre, macs, fetches, new_acc
+
+
+def _window_reconstruct_host(x_in: torch.Tensor, acc: torch.Tensor,
+                             window: int):
+    """Gather-mode counterpart of :func:`window_reconstruct` (same
+    decomposition, sequential float32 sums in the reference's order):
+    quiet windows are skipped outright."""
+    T, n = x_in.shape
+    pt = (-T) % window
+    xp = F.pad(x_in.to(torch.float32), (0, 0, 0, pt))
+    xw = xp.reshape(-1, window, n)
+    ws = xw[:, 0].clone()                      # per-window totals
+    for j in range(1, window):
+        ws = ws + xw[:, j]
+    csum = _seq_cumsum(ws)
+    bases = torch.empty_like(csum)
+    bases[0] = acc
+    bases[1:] = acc[None, :] + csum[:-1]
+    new_acc = acc + csum[-1]
+    live = torch.nonzero((xw != 0).any(dim=2).any(dim=1)).flatten()
+    xwin = torch.zeros_like(xw)
+    if live.numel():
+        xwin[live] = _seq_cumsum(xw[live].transpose(0, 1)).transpose(0, 1)
+    return bases, xwin.reshape(-1, n)[:T], new_acc
+
+
+# ---------------------------------------------------------------- registry
+
+_REGISTRY: dict[str, type[LayerCompute]] = {
+    "dense": DenseCompute,
+    "event": EventCompute,
+}
+_INSTANCES: dict[str, LayerCompute] = {}
+
+
+def register_compute(name: str, factory: type[LayerCompute]) -> None:
+    """Register a backend class under ``name`` (overwrites; the shared
+    instance is rebuilt on the next :func:`get_compute`)."""
+    _REGISTRY[name] = factory
+    _INSTANCES.pop(name, None)
+
+
+def get_compute(spec: "str | LayerCompute | None" = None) -> LayerCompute:
+    """Resolve a ``compute=`` argument: None -> :data:`DEFAULT_COMPUTE`,
+    a registered name -> its (shared) instance, an instance -> itself."""
+    if spec is None:
+        spec = DEFAULT_COMPUTE
+    if isinstance(spec, LayerCompute):
+        return spec
+    if spec not in _REGISTRY:
+        raise ValueError(f"unknown compute backend {spec!r}; registered: "
+                         f"{sorted(_REGISTRY)}")
+    if spec not in _INSTANCES:
+        _INSTANCES[spec] = _REGISTRY[spec]()
+    return _INSTANCES[spec]
