@@ -31,6 +31,30 @@ Phases, each printing one JSON line:
                   with half its windows quiet (dead activation tiles); the
                   share of live tile products of every main-path launch is
                   printed too.  ``window_cumsum`` at the widest stream.
+  (f) frontend  — the model-zoo frontend at full width: whisper-base's full
+                  config compiled at its decoder context (seq_len 448; 97
+                  fc layers, 0.435 G weight entries) with every attention
+                  site verified on the card, then 448 decoded tokens through
+                  the event backend's kernel mode.  Launch counts are zeroed
+                  before the compile and read after the run; every MAC
+                  counter equals 448 * macs_per_token and every counter is
+                  bit-identical to a dense run.  One more kernel-mode run
+                  is traced as in ``profile``.
+  (g) pricing   — four compiled smoke archs (gemma2, mamba2, olmoe, whisper)
+                  priced on loihi2_like through kernel mode and dense; the
+                  per-layer counters equal ``tests/golden/model_*.json``.
+  (h) attention — ``attention_probe`` at all 18 lowered sites of full
+                  whisper-base (seq_len 448) and all 26 of full gemma2-2b
+                  (seq_len 8192), and edge cases (a window that bites,
+                  ragged Sq != Skv with padded keys, GQA 10/1, hd 112,
+                  B = 2): the flash kernel within the frontend's own probe
+                  limit (``PROBE_ATOL``, 2e-4) of its plain version.
+  (i) times     — ``flash_attn`` at whisper's encoder site and at gemma2's
+                  global site, as in (e).  The library call is
+                  ``scaled_dot_product_attention`` at whisper's site and,
+                  for gemma2's tanh softcap, ``flex_attention`` compiled by
+                  Inductor (its caches under ``build/``), each held to the
+                  plain version first.
 
 Then a ``{"kernels": [...]}`` line, the card's name and power limit as
 nvidia-smi reports them, and a last line ``{"ok": true, "device": ...}``.
@@ -42,6 +66,7 @@ port's package is not beside it.
 from __future__ import annotations
 
 import json
+import os
 import pathlib
 import statistics
 import subprocess
@@ -65,6 +90,7 @@ DEVICE = "cuda"
 PRE_RTOL, PRE_ATOL = 1e-5, 1e-5       # kernel vs plain / dense pre-acts
 WIN_RTOL, WIN_ATOL = 1e-6, 1e-6       # window_cumsum kernel vs plain
 REPORT_RTOL = 1e-3                    # event vs dense time / energy
+FIELDS = ("msgs_in", "macs", "fetches_dense", "msgs_out", "acts_evented")
 
 
 def emit(obj) -> None:
@@ -115,6 +141,35 @@ def time_ms(fn, reps: int = 20, batches: int = 5) -> float:
     return statistics.median(per_call)
 
 
+def traced(fn) -> dict:
+    """Wall time, device busy time, the device's idle share and the top
+    kernels of one call of ``fn`` under torch.profiler (ending in a
+    synchronise)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as trace:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    # device-side events only: a host op's self device time repeats the
+    # time of the kernels it launched
+    dev_us = lambda e: getattr(e, "self_device_time_total",
+                               getattr(e, "self_cuda_time_total", 0.0))
+    by_kernel = sorted(((e.key, dev_us(e), e.count)
+                        for e in trace.key_averages()
+                        if e.device_type == torch.autograd.DeviceType.CUDA
+                        and dev_us(e) > 0), key=lambda r: -r[1])
+    busy_s = sum(us for _, us, _ in by_kernel) * 1e-6
+    return {"wall_s": wall,
+            "device_busy_s": busy_s if busy_s else "not measured",
+            "device_idle_share": (1 - busy_s / wall) if busy_s
+            else "not measured",
+            "top_kernels": [{"name": k[:90], "device_s": us * 1e-6,
+                             "calls": n} for k, us, n in by_kernel[:10]]}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -127,6 +182,10 @@ def main() -> int:
         print(f"chip_smoke: the port's package is missing ({e})",
               file=sys.stderr)
         return 2
+    # Inductor and Triton (phase i's flex_attention) cache inside build/
+    for var, sub in (("TORCHINDUCTOR_CACHE_DIR", "inductor"),
+                     ("TRITON_CACHE_DIR", "triton")):
+        os.environ.setdefault(var, str(build.BUILD_DIR / sub))
     from repro_torch.core.floorline import WorkloadPoint, fit_floorline
     from repro_torch.core.partitioner import (SimEvaluator,
                                               optimize_partitioning)
@@ -134,16 +193,24 @@ def main() -> int:
         _compact_indices_joint, _pad_to, event_matmul2, pad_compact,
         weight_block_occupancy)
     from repro_torch.kernels.event_matmul.ref import event_matmul2_ref
+    from repro_torch.kernels.flash_attn.ops import (bind_launch,
+                                                    flash_attention)
+    from repro_torch.kernels.flash_attn.ref import flash_attention_ref
     from repro_torch.kernels.sigma_delta.ops import (window_cumsum,
                                                      window_reconstruct)
     from repro_torch.kernels.sigma_delta.ref import (window_cumsum_ref,
                                                      window_reconstruct_ref)
+    from repro_torch.configs import registry
     from repro_torch.neuromorphic import (DenseCompute, EventCompute,
-                                          fc_network, loihi2_like,
+                                          attention_probe, compile_network,
+                                          excluded_params, fc_network,
+                                          loihi2_like, lowering_spec,
                                           make_inputs, minimal_partition,
                                           network_from_numpy, simulate)
     from repro_torch.neuromorphic.compute import _im2col, _patch_weights
+    from repro_torch.neuromorphic.frontend import PROBE_ATOL
     import numpy as np
+    import torch.nn.functional as F
 
     dev = torch.device(DEVICE)
     card = gpu_name_and_limit()
@@ -249,29 +316,9 @@ def main() -> int:
           "wall_s": walls})
 
     # ------------------------- where one run_batch's time goes (profiler)
-    from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as trace:
-        t0 = time.perf_counter()
-        net.run_batch(xs, compute=EventCompute(mode="kernel"))
-        torch.cuda.synchronize()
-        traced_wall = time.perf_counter() - t0
-    # device-side events only: a host op's self device time repeats the
-    # time of the kernels it launched
-    dev_us = lambda e: getattr(e, "self_device_time_total",
-                               getattr(e, "self_cuda_time_total", 0.0))
-    by_kernel = sorted(((e.key, dev_us(e), e.count)
-                        for e in trace.key_averages()
-                        if e.device_type == torch.autograd.DeviceType.CUDA
-                        and dev_us(e) > 0), key=lambda r: -r[1])
-    busy_s = sum(us for _, us, _ in by_kernel) * 1e-6
     emit({"phase": "profile", "what": "one run_batch, kernel mode, traced",
-          "wall_s": traced_wall,
-          "device_busy_s": busy_s if busy_s else "not measured",
-          "device_idle_share": (1 - busy_s / traced_wall) if busy_s
-          else "not measured",
-          "top_kernels": [{"name": k[:90], "device_s": us * 1e-6,
-                           "calls": n} for k, us, n in by_kernel[:10]]})
+          **traced(lambda: net.run_batch(
+              xs, compute=EventCompute(mode="kernel")))})
 
     # ------------------------------------------- (c) kernels vs plain, card
     t0 = time.perf_counter()
@@ -533,7 +580,244 @@ def main() -> int:
           "event_matmul2_live_share_per_call": live_share,
           "window_cumsum": shape_wc})
 
-    emit({"kernels": [mm, wc]})
+    # ---------------------------------------- (f) frontend at full width
+    del rec, run_k, run_d
+    torch.cuda.empty_cache()
+    kernels = {"event_matmul2": event_matmul2, "window_cumsum": window_cumsum,
+               "flash_attn": flash_attention}
+    T_W = 448                               # whisper's n_text_ctx
+    torch.cuda.reset_peak_memory_stats()
+    for fn in kernels.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    cn = compile_network("whisper-base", smoke=False, seq_len=T_W, seed=0,
+                         device=DEVICE, verify_attention=True)
+    torch.cuda.synchronize()
+    compile_s = time.perf_counter() - t0
+    cfg = cn.cfg
+    require(cn.param_layer_nnz() + excluded_params(cfg) == cfg.param_count(),
+            "whisper-base: param identity")
+    xs_w = cn.inputs(T_W, seed=5)
+    rec_w = Recorder()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out_w, cnt_w = cn.net.run_batch(xs_w, compute=rec_w)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    launches_f = {k: fn.launches for k, fn in kernels.items()}
+    n_fc = len(cn.net.layers)
+    expect_f = {"event_matmul2": 2 * n_fc, "window_cumsum": 0,
+                "flash_attn": len(cn.attn_specs)}
+    require(n_fc == 97 and len(cn.attn_specs) == 18,
+            f"whisper-base lowered to {n_fc} layers, "
+            f"{len(cn.attn_specs)} attention sites")
+    require(launches_f == expect_f,
+            f"frontend launches {launches_f} != {expect_f}")
+    require(tuple(out_w.shape) == (T_W, cfg.vocab_size), "frontend shape")
+    require(bool(torch.isfinite(out_w).all()), "frontend: non-finite")
+    for spec, c in zip(cn.specs, cnt_w):
+        require(int(c.macs.to(torch.float64).sum())
+                == T_W * spec.macs_per_token, f"{spec.name}: MACs")
+    t0 = time.perf_counter()
+    _, cnt_wd = cn.net.run_batch(xs_w, compute="dense")
+    torch.cuda.synchronize()
+    dense_w_s = time.perf_counter() - t0
+    for layer, a, b in zip(cn.net.layers, cnt_w, cnt_wd):
+        for f in FIELDS:
+            exact(getattr(a, f), getattr(b, f), f"{layer.name} {f}")
+    profile_w = traced(lambda: cn.net.run_batch(
+        xs_w, compute=EventCompute(mode="kernel")))
+    attn_share = {layer.name: [float(live_tiles(a, b)[0].float().mean())
+                               for a, b in ((x, layer.weights),
+                                            (m, layer.w_mask))]
+                  for layer, x, m, _ in rec_w.calls
+                  if layer.name.endswith((".scores", ".values"))}
+    emit({"phase": "frontend", "arch": "whisper-base", "seq_len": T_W,
+          "fc_layers": n_fc,
+          "weight_entries": sum(l.n_weights for l in cn.net.layers),
+          "synapses": sum(l.w_nnz for l in cn.net.layers),
+          "attention_sites": len(cn.attn_specs),
+          "compile_s": compile_s, "compile_includes": "host build of the "
+          "weights, copy to the card, 18 attention probes",
+          "run_batch_s": run_s, "dense_run_batch_s": dense_w_s,
+          "tokens": T_W, "macs_per_token": cn.macs_per_token(),
+          "launches": launches_f,
+          "counters": "bit-identical to dense; MACs == T * macs_per_token",
+          "peak_device_bytes": torch.cuda.max_memory_allocated(),
+          "traced_run_batch": profile_w,
+          "live_share_value_counter": attn_share})
+    del cn, xs_w, rec_w, out_w, cnt_w, cnt_wd
+    torch.cuda.empty_cache()
+
+    # ------------------------------------- (g) pricing of compiled nets
+    t0 = time.perf_counter()
+    priced = {}
+    for arch, fixture in (("gemma2-2b", "model_lm_gemma2"),
+                          ("mamba2-1.3b", "model_ssm_mamba2"),
+                          ("olmoe-1b-7b", "model_moe_olmoe"),
+                          ("whisper-base", "model_encdec_whisper")):
+        golden = json.loads((ROOT / "tests" / "golden"
+                             / f"{fixture}.json").read_text())
+        cs = compile_network(arch, seed=0, device=DEVICE)
+        xs_s = cs.inputs(golden["steps"], seed=5)
+        require([r["name"] for r in golden["layers"]]
+                == [l.name for l in cs.net.layers], f"{fixture}: layers")
+        reps = {}
+        for mode, cc in (("kernel", EventCompute(mode="kernel")),
+                         ("dense", DenseCompute())):
+            run = cs.net.run_batch(xs_s, compute=cc)
+            for row, c in zip(golden["layers"], run[1]):
+                for f in FIELDS:
+                    require(row[f] == int(getattr(c, f).to(torch.float64)
+                                          .sum()),
+                            f"{fixture} {mode} {row['name']} {f}")
+            reps[mode] = simulate(cs.net, xs_s, prof, precomputed=run)
+        rk, rd = reps["kernel"], reps["dense"]
+        rel_t = abs(rk.time_per_step - rd.time_per_step) / rd.time_per_step
+        rel_e = (abs(rk.energy_per_step - rd.energy_per_step)
+                 / rd.energy_per_step)
+        require(rel_t <= REPORT_RTOL and rel_e <= REPORT_RTOL,
+                f"{arch}: kernel vs dense report {rel_t}, {rel_e}")
+        priced[arch] = {"fixture": fixture, "layers": len(cs.net.layers),
+                        "cores": rd.n_cores_active,
+                        "time_per_step": rd.time_per_step,
+                        "energy_per_step": rd.energy_per_step,
+                        "bottleneck_stage": rd.bottleneck_stage,
+                        "rel_diff_time": rel_t, "rel_diff_energy": rel_e}
+    emit({"phase": "pricing", "profile": prof.name, "archs": priced,
+          "counters": "equal to tests/golden, kernel and dense",
+          "wall_s": time.perf_counter() - t0})
+
+    # --------------------------------------------- (h) flash attention
+    for fn in kernels.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    flash_err, sites, probe_s = 0.0, {}, {}
+    for arch, seq in (("whisper-base", 448), ("gemma2-2b", 8192)):
+        _, attn = lowering_spec(registry.get(arch).config, seq_len=seq)
+        t1 = time.perf_counter()
+        for spec in attn:
+            out, ref = attention_probe(spec, seed=0, device=DEVICE)
+            require(bool(torch.isfinite(out).all()), f"{spec}: non-finite")
+            err = close(out, ref, 0.0, PROBE_ATOL, f"{arch} {spec.name}")
+            flash_err = max(flash_err, err)
+            key = (f"{arch} S={spec.seq} H={spec.heads}/{spec.kv_heads} "
+                   f"hd={spec.head_dim} causal={spec.causal} "
+                   f"window={spec.window} softcap={spec.softcap}")
+            row = sites.setdefault(key, {"sites": 0, "max_abs_err": 0.0})
+            row["sites"] += 1
+            row["max_abs_err"] = max(row["max_abs_err"], err)
+        torch.cuda.synchronize()
+        probe_s[arch] = time.perf_counter() - t1
+    n_probes = sum(r["sites"] for r in sites.values())
+    require(n_probes == 44, f"{n_probes} attention sites, not 18 + 26")
+    gen = torch.Generator(device=dev).manual_seed(13)
+    edges = {}
+
+    def edge(what, B, Sq, Skv, H, K, hd, **kw):
+        nonlocal flash_err
+        q = torch.randn((B, Sq, H, hd), generator=gen, device=dev)
+        k = torch.randn((B, Skv, K, hd), generator=gen, device=dev)
+        v = torch.randn((B, Skv, K, hd), generator=gen, device=dev)
+        out = flash_attention(q, k, v, **kw)
+        require(bool(torch.isfinite(out).all()), f"{what}: non-finite")
+        err = close(out, flash_attention_ref(q, k, v, **kw), 0.0, PROBE_ATOL,
+                    what)
+        flash_err = max(flash_err, err)
+        edges[what] = {"B": B, "Sq": Sq, "Skv": Skv, "H": H, "K": K,
+                       "hd": hd, **kw, "max_abs_err": err}
+
+    edge("window that bites", 1, 8192, 8192, 8, 4, 256, causal=True,
+         window=4096, softcap=50.0)
+    edge("ragged Sq != Skv, padded keys", 1, 300, 1000, 8, 2, 64,
+         causal=False)
+    edge("recurrentgemma GQA 10/1", 1, 4096, 4096, 10, 1, 256, causal=True,
+         window=2048)
+    edge("hd 112 (kimi-k2 heads)", 1, 1000, 1000, 64, 8, 112, causal=True)
+    edge("B = 2", 2, 1500, 1500, 8, 8, 64, causal=False)
+    torch.cuda.synchronize()
+    launches_h = flash_attention.launches
+    require(launches_h == n_probes + len(edges),
+            f"flash launches {launches_h} != {n_probes} + {len(edges)}")
+    emit({"phase": "attention", "probes": n_probes, "sites": sites,
+          "probe_s": probe_s, "edge_cases": edges, "launches": launches_h,
+          "max_abs_err": flash_err, "atol": PROBE_ATOL,
+          "wall_s": time.perf_counter() - t0})
+
+    # ---------------------------------------------- (i) flash times
+    def library_attention(q, k, v, causal, softcap):
+        """One PyTorch call computing the same attention, as (name, call):
+        scaled_dot_product_attention, or, for a tanh softcap, which it
+        lacks, flex_attention compiled by Inductor with the cap as its
+        score_mod and a causal block mask."""
+        qt, kt, vt = (a.transpose(1, 2) for a in (q, k, v))
+        if softcap is None:
+            return "scaled_dot_product_attention", lambda: (
+                F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal)
+                .transpose(1, 2))
+        from torch.nn.attention.flex_attention import (create_block_mask,
+                                                       flex_attention)
+        mask = (create_block_mask(lambda b, h, i, j: i >= j, None, None,
+                                  q.shape[1], k.shape[1], device=dev)
+                if causal else None)
+
+        def cap(s, b, h, i, j):
+            return softcap * torch.tanh(s / softcap)
+        flex = torch.compile(flex_attention, dynamic=False)
+        return "flex_attention (torch.compile)", lambda: flex(
+            qt, kt, vt, score_mod=cap, block_mask=mask,
+            enable_gqa=q.shape[2] != k.shape[2]).transpose(1, 2)
+
+    def time_flash(what, B, S, H, K, hd, causal, softcap, reps):
+        """Launch-alone, wrapper, plain and library times of one attention
+        call, with its bound: q, k, v read once, o written once, and
+        4 * hd flops per live (query, key) pair per head."""
+        g = torch.Generator(device=dev).manual_seed(17)
+        q = torch.randn((B, S, H, hd), generator=g, device=dev)
+        k = torch.randn((B, S, K, hd), generator=g, device=dev)
+        v = torch.randn((B, S, K, hd), generator=g, device=dev)
+        kw = dict(causal=causal, softcap=softcap)
+        launch, out = bind_launch(q, k, v, **kw)
+        build.check(launch(), "flash_attn")
+        plain = flash_attention_ref(q, k, v, **kw)
+        exact(out[:, :S], flash_attention(q, k, v, **kw), f"{what} launch")
+        name, library = library_attention(q, k, v, causal, softcap)
+        t1 = time.perf_counter()
+        lib_err = close(library(), plain, 0.0, PROBE_ATOL, f"{what} {name}")
+        torch.cuda.synchronize()
+        lib_first_s = time.perf_counter() - t1
+        del plain
+        live = S * (S + 1) // 2 if causal else S * S
+        flops = 4 * B * H * hd * live
+        nbytes = 4 * (2 * B * S * H * hd + 2 * B * S * K * hd)
+        t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S, flops / PEAK_FP32_FLOPS
+        return {"what": what, "B": B, "S": S, "H": H, "K": K, "hd": hd,
+                "causal": causal, "softcap": softcap, "bytes": nbytes,
+                "flops": flops, "live_pairs_per_head": live,
+                "ms": time_ms(launch, reps),
+                "wrapper_ms": time_ms(lambda: flash_attention(q, k, v, **kw),
+                                      reps),
+                "plain_ms": time_ms(lambda: flash_attention_ref(q, k, v,
+                                                                **kw), reps),
+                "bound_ms": 1e3 * max(t_bytes, t_ops),
+                "bound_by": "bytes" if t_bytes > t_ops else "operations",
+                "library_ms": time_ms(library, reps), "library_call": name,
+                "library_max_abs_err": lib_err,
+                "library_first_call_s": lib_first_s}
+
+    fa_rows = [time_flash("whisper encoder site", 1, 1500, 8, 8, 64, False,
+                          None, 20),
+               time_flash("gemma2 global site", 1, 8192, 8, 4, 256, True,
+                          50.0, 3)]
+    emit({"phase": "times_flash", "card": card, "flash_attn": fa_rows})
+    fa = {"name": "flash_attn", "route": "cuda",
+          "source": "src/repro_torch/csrc/flash_attn.cu",
+          "replaces": "src/repro/kernels/flash_attn/kernel.py:29",
+          "launches": launches_f["flash_attn"], "max_abs_err": flash_err}
+    fa.update({k: fa_rows[0][k] for k in ("ms", "plain_ms", "bound_ms",
+                                          "bound_by", "library_ms")})
+
+    emit({"kernels": [mm, wc, fa]})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -1,10 +1,14 @@
 """Neuromorphic chip simulator (PyTorch port): networks, chip profiles,
-partitioning, NoC routing, layer-compute backends and the timestep cost
-model."""
+partitioning, NoC routing, layer-compute backends, the timestep cost
+model and the model-zoo frontend."""
 
 from repro_torch.neuromorphic.compute import (DEFAULT_COMPUTE, DenseCompute,
                                               EventCompute, LayerCompute,
                                               get_compute, register_compute)
+from repro_torch.neuromorphic.frontend import (AttnSpec, CompiledNetwork,
+                                               LayerSpec, attention_probe,
+                                               compile_network,
+                                               excluded_params, lowering_spec)
 from repro_torch.neuromorphic.network import (BatchCounters, CounterMaps,
                                               SimLayer, SimNetwork,
                                               fc_network, make_inputs,
@@ -26,6 +30,8 @@ from repro_torch.neuromorphic.timestep import (PricingCache, SimReport,
 __all__ = [
     "DEFAULT_COMPUTE", "DenseCompute", "EventCompute", "LayerCompute",
     "get_compute", "register_compute",
+    "AttnSpec", "CompiledNetwork", "LayerSpec", "attention_probe",
+    "compile_network", "excluded_params", "lowering_spec",
     "BatchCounters", "CounterMaps", "SimLayer", "SimNetwork", "fc_network",
     "make_inputs", "network_from_numpy", "programmed_fc_network",
     "Mapping", "ordered_mapping", "random_mapping", "route_batch",

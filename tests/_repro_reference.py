@@ -30,6 +30,10 @@ MODULES = {
     "em_ref": "repro.kernels.event_matmul.ref",
     "sd_ops": "repro.kernels.sigma_delta.ops",
     "sd_ref": "repro.kernels.sigma_delta.ref",
+    "frontend": "repro.neuromorphic.frontend",
+    "registry": "repro.configs.registry",
+    "flash_ops": "repro.kernels.flash_attn.ops",
+    "flash_ref": "repro.kernels.flash_attn.ref",
 }
 
 

@@ -18,7 +18,8 @@ import torch
 
 from _repro_reference import reference
 from repro_torch.neuromorphic import (EventCompute, SimLayer, SimNetwork,
-                                      fc_network, get_compute, make_inputs,
+                                      compile_network, fc_network,
+                                      get_compute, make_inputs,
                                       network_from_numpy,
                                       programmed_fc_network)
 from repro_torch.neuromorphic.compute import DenseCompute, _im2col
@@ -301,10 +302,23 @@ def _conv_characterization():
     return net, make_inputs(net.in_size, 0.3, 6, seed=14, **CPU)
 
 
+def _compiled(arch_id):
+    """A compiled smoke arch and its inputs, as the reference's golden
+    suite builds them."""
+    def build():
+        compiled = compile_network(arch_id, seed=0, **CPU)
+        return compiled.net, compiled.inputs(4, seed=5)
+    return build
+
+
 @pytest.mark.parametrize("compute", ["dense", "gather", "kernel"])
 @pytest.mark.parametrize("name,build", [
     ("fc_characterization", _fc_characterization),
-    ("conv_characterization", _conv_characterization)])
+    ("conv_characterization", _conv_characterization),
+    ("model_lm_gemma2", _compiled("gemma2-2b")),
+    ("model_ssm_mamba2", _compiled("mamba2-1.3b")),
+    ("model_moe_olmoe", _compiled("olmoe-1b-7b")),
+    ("model_encdec_whisper", _compiled("whisper-base"))])
 def test_golden_counters_reproduced(name, build, compute):
     golden = json.loads((GOLDEN / f"{name}.json").read_text())
     net, xs = build()
