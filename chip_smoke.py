@@ -55,6 +55,37 @@ Phases, each printing one JSON line:
                   for gemma2's tanh softcap, ``flex_attention`` compiled by
                   Inductor (its caches under ``build/``), each held to the
                   plain version first.
+  (j) kernel_api — the public kernel API (``repro_torch.kernels``, the
+                  JAX package's ``repro.kernels``) on the slice-1 cell's own
+                  streams: ``sigma_delta_encode`` of fc0's (T, 2048)
+                  activations against the state one step behind (theta
+                  0.05), then ``event_matmul_pair`` of the messages with
+                  fc1's weights and ``event_matmul`` of fc0's operands,
+                  both without weight occupancy (the 1-D kernel).  Launch
+                  counts are zeroed before and read after: one encoder and
+                  three 1-D matmul launches, counters bit-identical.
+  (k) kernels   — the 1-D ``event_matmul`` against its plain version: (j)'s
+                  value product (fc1, 1024x2048 @ 2048x1024, on the encoded
+                  messages), and at fc0 (1024x1024 @ 1024x2048) float32
+                  with every tile live, 25% of the tiles live in float32
+                  and bfloat16;
+                  the pair on fc0's teacher-forced operands (counters equal
+                  to dense and to ``event_matmul2``'s).  The encoder bit for
+                  bit against its plain version at fc0's stream and at
+                  whisper-base's widest map (1500, 2048), float32 and bf16.
+  (l) times     — both kernels as in (e), and each launch alone after a
+                  write that evicts the L2 (``time_ms_cold``); the encoder's
+                  ``ms`` is that cold time.  The library call is
+                  ``torch.matmul`` for the 1-D matmul, none for the encoder.
+  (m) population — 1024 (partition, mapping) candidates of the slice-1 cell
+                  (the minimal partition and the greedy walk's, each with
+                  ordered, strided and random mappings) priced through
+                  ``evaluate_population`` with the ``numpy`` and ``device``
+                  backends from one pricing cache: device within rtol 1e-9
+                  of numpy, 16 spread-out candidates bit-identical to
+                  ``simulate``, evaluation counts exact; candidates per
+                  second, cache build time, peak device memory.
+  (n) guidance  — floorline guidance per layer at the slice-1 cell.
 
 Then a ``{"kernels": [...]}`` line, the card's name and power limit as
 nvidia-smi reports them, and a last line ``{"ok": true, "device": ...}``.
@@ -82,14 +113,24 @@ sys.path.insert(0, str(ROOT / "src"))
 # exact in int8 with int32 sums).
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FP32_FLOPS = 67e12
+PEAK_BF16_FLOPS = 989e12
 PEAK_INT8_OPS = 1979e12
 TILE = 128
 DEVICE = "cuda"
+THETA = 0.05                          # sigma-delta threshold, phases (j)-(l)
+K_POP = 1024                          # candidates priced in phase (m)
 
 # stated tolerances
 PRE_RTOL, PRE_ATOL = 1e-5, 1e-5       # kernel vs plain / dense pre-acts
 WIN_RTOL, WIN_ATOL = 1e-6, 1e-6       # window_cumsum kernel vs plain
 REPORT_RTOL = 1e-3                    # event vs dense time / energy
+EM_TOL = {"float32": (1e-6, 1e-5),    # 1-D event_matmul vs plain (rtol,
+          "bfloat16": (2e-2, 2e-2)}   # atol); bf16 compared in bf16
+POP_RTOL = 1e-9                       # device vs numpy population pricing
+REPORT_ARRAYS = ("times", "energies", "per_core_synops", "per_core_acts",
+                 "per_core_msgs_out")
+REPORT_SCALARS = ("time_per_step", "energy_per_step", "max_synops",
+                  "max_acts", "max_link_load")
 FIELDS = ("msgs_in", "macs", "fetches_dense", "msgs_out", "acts_evented")
 
 
@@ -115,6 +156,58 @@ def exact(a, b, what: str) -> None:
     require(torch.equal(a, b), f"{what}: not bit-identical")
 
 
+def reports_close(got, want, rtol: float) -> float:
+    """Hold two lists of SimReports to each other over the fields of the
+    JAX package's population parity check (arrays with an atol of rtol,
+    scalars as np.isclose, stages, core counts and M0 metrics); returns
+    the largest relative difference where the wanted value is nonzero."""
+    import numpy as np
+    import torch
+    worst = 0.0
+    for f in REPORT_ARRAYS:
+        a = torch.cat([getattr(r, f) for r in got])
+        b = torch.cat([getattr(r, f) for r in want])
+        require(a.shape == b.shape and torch.allclose(a, b, rtol=rtol,
+                                                      atol=rtol),
+                f"population {f} beyond rtol {rtol}")
+        nz = b != 0
+        if bool(nz.any()):
+            worst = max(worst, float(((a - b)[nz] / b[nz]).abs().max()))
+    for f in REPORT_SCALARS + ("msgs_total", "weight_density",
+                               "act_density"):
+        src = (lambda r: getattr(r.metrics, f)) if f in (
+            "msgs_total", "weight_density", "act_density") else (
+            lambda r: getattr(r, f))
+        a = np.array([src(r) for r in got])
+        b = np.array([src(r) for r in want])
+        require(bool(np.isclose(a, b, rtol=rtol).all()),
+                f"population {f} beyond rtol {rtol}")
+        nz = b != 0
+        if nz.any():
+            worst = max(worst, float(np.abs((a - b)[nz] / b[nz]).max()))
+    for x, y in zip(got, want):
+        require((x.bottleneck_stage, x.n_cores_active)
+                == (y.bottleneck_stage, y.n_cores_active),
+                "population stage or core count")
+        for m in ("synops", "acts", "traffic"):
+            u, v = getattr(x.metrics, m), getattr(y.metrics, m)
+            require((u.n_units, u.n_active) == (v.n_units, v.n_active)
+                    and np.allclose([u.total, u.max, u.imbalance],
+                                    [v.total, v.max, v.imbalance],
+                                    rtol=rtol, atol=0.0),
+                    f"population metrics.{m}")
+    return worst
+
+
+def reports_identical(a, b) -> bool:
+    import torch
+    return (all(torch.equal(getattr(a, f), getattr(b, f))
+                for f in REPORT_ARRAYS)
+            and all(getattr(a, f) == getattr(b, f) for f in
+                    REPORT_SCALARS + ("bottleneck_stage", "n_cores_active",
+                                      "metrics")))
+
+
 def gpu_name_and_limit() -> str:
     out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -138,6 +231,27 @@ def time_ms(fn, reps: int = 20, batches: int = 5) -> float:
         b.record()
         b.synchronize()
         per_call.append(a.elapsed_time(b) / reps)
+    return statistics.median(per_call)
+
+
+def time_ms_cold(fn, reps: int = 20) -> float:
+    """Median time of ``reps`` calls, each timed alone with CUDA events
+    after a 256 MB write that evicts the 50 MB L2, so the call reads its
+    inputs from HBM (the host enqueues the call while the write runs)."""
+    import torch
+    flush = torch.empty(64 * 2 ** 20, dtype=torch.float32, device="cuda")
+    fn()
+    torch.cuda.synchronize()
+    per_call = []
+    for _ in range(reps):
+        flush.zero_()
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        per_call.append(a.elapsed_time(b))
     return statistics.median(per_call)
 
 
@@ -186,19 +300,25 @@ def main() -> int:
     for var, sub in (("TORCHINDUCTOR_CACHE_DIR", "inductor"),
                      ("TRITON_CACHE_DIR", "triton")):
         os.environ.setdefault(var, str(build.BUILD_DIR / sub))
+    import repro_torch.kernels as kernels_api
     from repro_torch.core.floorline import WorkloadPoint, fit_floorline
+    from repro_torch.core.guidance import floorline_layer_guidance
     from repro_torch.core.partitioner import (SimEvaluator,
                                               optimize_partitioning)
     from repro_torch.kernels.event_matmul.ops import (
-        _compact_indices_joint, _pad_to, event_matmul2, pad_compact,
+        _compact_indices, _compact_indices_joint, _pad_to, block_activity,
+        event_matmul, event_matmul2, event_matmul_pair, pad_compact,
         weight_block_occupancy)
-    from repro_torch.kernels.event_matmul.ref import event_matmul2_ref
+    from repro_torch.kernels.event_matmul.ref import (event_matmul2_ref,
+                                                      event_matmul_ref)
     from repro_torch.kernels.flash_attn.ops import (bind_launch,
                                                     flash_attention)
     from repro_torch.kernels.flash_attn.ref import flash_attention_ref
-    from repro_torch.kernels.sigma_delta.ops import (window_cumsum,
+    from repro_torch.kernels.sigma_delta.ops import (sigma_delta_encode,
+                                                     window_cumsum,
                                                      window_reconstruct)
-    from repro_torch.kernels.sigma_delta.ref import (window_cumsum_ref,
+    from repro_torch.kernels.sigma_delta.ref import (sigma_delta_ref,
+                                                     window_cumsum_ref,
                                                      window_reconstruct_ref)
     from repro_torch.configs import registry
     from repro_torch.neuromorphic import (DenseCompute, EventCompute,
@@ -206,7 +326,11 @@ def main() -> int:
                                           excluded_params, fc_network,
                                           loihi2_like, lowering_spec,
                                           make_inputs, minimal_partition,
-                                          network_from_numpy, simulate)
+                                          network_from_numpy,
+                                          ordered_mapping,
+                                          precompute_pricing,
+                                          random_mapping, simulate,
+                                          strided_mapping)
     from repro_torch.neuromorphic.compute import _im2col, _patch_weights
     from repro_torch.neuromorphic.frontend import PROBE_ATOL
     import numpy as np
@@ -535,7 +659,7 @@ def main() -> int:
                                "widest xwin, half its windows quiet",
                                layer.name))
     mm = {"name": "event_matmul2", "route": "cuda",
-          "source": "src/repro_torch/csrc/event_matmul2.cu",
+          "source": "src/repro_torch/csrc/event_matmul.cu",
           "replaces": "src/repro/kernels/event_matmul/kernel.py:52",
           "launches": launches["event_matmul2"],
           "max_abs_err": max_err["event_matmul2"]}
@@ -581,6 +705,11 @@ def main() -> int:
           "window_cumsum": shape_wc})
 
     # ---------------------------------------- (f) frontend at full width
+    # fc0's teacher-forced operands and fc1's input delta stream, for the
+    # public kernel API phases (j)-(l)
+    fc0_call = next(c for c in rec.calls
+                    if c[0] is net.layers[0] and c[1].shape[0] == T)
+    fc1_delta = next(d for d in rec.deltas if d[0] is net.layers[1])
     del rec, run_k, run_d
     torch.cuda.empty_cache()
     kernels = {"event_matmul2": event_matmul2, "window_cumsum": window_cumsum,
@@ -817,7 +946,307 @@ def main() -> int:
     fa.update({k: fa_rows[0][k] for k in ("ms", "plain_ms", "bound_ms",
                                           "bound_by", "library_ms")})
 
-    emit({"kernels": [mm, wc, fa]})
+    # ------------------------------- (j) the public kernel API, driven
+    # The reference's public entry point (repro.kernels) on the slice-1
+    # cell's own streams: sigma-delta encode fc0's activations against the
+    # state one step behind, then the event-driven products of the
+    # messages (values and counters) with fc1's weights, and fc0's own
+    # product, without weight-tile occupancy (the 1-D kernel).
+    layer0, x0, m0, _ = fc0_call
+    layer1, d1, acc1 = fc1_delta
+    a_fc0 = acc1[None, :] + torch.cumsum(d1, dim=0)     # (T, 2048)
+    s_fc0 = torch.cat([torch.zeros_like(a_fc0[:1]), a_fc0[:-1]])
+    api = {"event_matmul2": event_matmul2, "window_cumsum": window_cumsum,
+           "flash_attn": flash_attention, "event_matmul": event_matmul,
+           "sigma_delta_encode": sigma_delta_encode}
+    for fn in api.values():
+        fn.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    q_fc0, s_new = kernels_api.sigma_delta_encode(a_fc0, s_fc0, theta=THETA)
+    y_q, macs_q = kernels_api.event_matmul_pair(
+        q_fc0, (q_fc0 != 0).to(torch.float32), layer1.weights,
+        layer1.w_mask)
+    y_x0 = kernels_api.event_matmul(x0, layer0.weights)
+    torch.cuda.synchronize()
+    api_s = time.perf_counter() - t0
+    launches_j = {k: fn.launches for k, fn in api.items()}
+    expect_j = {"event_matmul2": 0, "window_cumsum": 0, "flash_attn": 0,
+                "event_matmul": 3, "sigma_delta_encode": 1}
+    require(launches_j == expect_j,
+            f"kernel API launches {launches_j} != {expect_j}")
+    n_msgs = int((q_fc0 != 0).sum())
+    require(0 < n_msgs < q_fc0.numel(), "sigma-delta messages: none or all")
+    exact(macs_q, (q_fc0 != 0).to(torch.float32) @ layer1.w_mask,
+          "API counters vs dense")
+    for v in (q_fc0, s_new, y_q, y_x0):
+        require(bool(torch.isfinite(v).all()), "kernel API: non-finite")
+    emit({"phase": "kernel_api", "entry": "repro_torch.kernels",
+          "calls": ["sigma_delta_encode(fc0 activations, state one step "
+                    "behind, theta=0.05)",
+                    "event_matmul_pair(messages, fc1 weights), no w_occ",
+                    "event_matmul(fc0 input, fc0 weights), no w_occ"],
+          "shapes": {"a": list(a_fc0.shape), "fc1_w": list(
+              layer1.weights.shape), "fc0_x": list(x0.shape)},
+          "messages": n_msgs, "message_density": n_msgs / q_fc0.numel(),
+          "launches": launches_j, "wall_s": api_s,
+          "counters": "bit-identical to dense"})
+
+    # -------------------------------- (k) kernels 3 and 4 vs plain, card
+    t0 = time.perf_counter()
+    em_err = {"float32": 0.0, "bfloat16": 0.0}
+    rng = np.random.default_rng(21)
+    keep = torch.as_tensor(rng.random((T // TILE, sizes[0] // TILE)) < 0.25,
+                           device=dev)
+    x_q = x0 * keep.repeat_interleave(TILE, 0).repeat_interleave(TILE, 1)
+    em_cases = {"fc0 float32, all live": (x0, layer0.weights),
+                "fc0 float32, 25% live": (x_q, layer0.weights),
+                "fc0 bfloat16, 25% live": (x_q.to(torch.bfloat16),
+                                           layer0.weights.to(
+                                               torch.bfloat16))}
+    em_rows = {}
+    # phase (j)'s value product: fc1's shape on the encoded message stream
+    em_err["float32"] = close(y_q, event_matmul_ref(
+        _pad_to(q_fc0, (TILE, TILE)), _pad_to(layer1.weights, (TILE, TILE)),
+        threshold=0.0, bm=TILE, bk=TILE)[:q_fc0.shape[0],
+                                         :layer1.weights.shape[1]],
+        *EM_TOL["float32"], "kernel API fc1 pair values")
+    em_rows["fc1 pair (sigma-delta messages)"] = {
+        "max_abs_err": em_err["float32"],
+        "live_tile_share": float(block_activity(q_fc0, 0.0).float().mean())}
+    for what, (xc, wc_) in em_cases.items():
+        yk = event_matmul(xc, wc_)
+        yp = event_matmul_ref(_pad_to(xc, (TILE, TILE)),
+                              _pad_to(wc_, (TILE, TILE)), threshold=0.0,
+                              bm=TILE, bk=TILE)[:xc.shape[0], :wc_.shape[1]]
+        require(yk.dtype == xc.dtype, f"{what}: output type {yk.dtype}")
+        dt = "bfloat16" if xc.dtype == torch.bfloat16 else "float32"
+        rt, at = EM_TOL[dt]
+        err = close(yk, yp, rt, at, f"event_matmul {what}")
+        em_err[dt] = max(em_err[dt], err)
+        live = float(block_activity(xc, 0.0).float().mean())
+        em_rows[what] = {"max_abs_err": err, "live_tile_share": live}
+    # the 1-D pair on fc0's teacher-forced value and counter operands
+    ones = torch.ones((sizes[0] // TILE, sizes[1] // TILE), dtype=torch.bool,
+                      device=dev)
+    y1, macs1 = event_matmul_pair(x0, m0, layer0.weights, layer0.w_mask)
+    y2, macs2 = event_matmul_pair(x0, m0, layer0.weights, layer0.w_mask, ones)
+    exact(macs1, m0 @ layer0.w_mask, "1-D pair counters vs dense")
+    exact(macs1, macs2, "1-D pair counters vs event_matmul2")
+    em_err["float32"] = max(em_err["float32"], close(
+        y1, event_matmul_ref(x0, layer0.weights, threshold=0.0, bm=TILE,
+                             bk=TILE), *EM_TOL["float32"],
+        "1-D pair values"))
+    em_rows["fc0 pair (teacher-forced)"] = {
+        "counters": "bit-identical to dense m @ wm and to event_matmul2",
+        "values_bit_identical_to_event_matmul2": bool(torch.equal(y1, y2))}
+    # kernel 4: fc0's activation stream and whisper-base's widest map
+    gw = torch.Generator(device=dev).manual_seed(23)
+    a_w = torch.relu(torch.randn((1500, 2048), generator=gw, device=dev))
+    s_w = torch.cat([torch.zeros_like(a_w[:1]), a_w[:-1]])
+    sd_cases = {"fc0 activations (1024, 2048) float32": (a_fc0, s_fc0),
+                "whisper (1500, 2048) float32": (a_w, s_w),
+                "whisper (1500, 2048) bfloat16": (a_w.to(torch.bfloat16),
+                                                  s_w.to(torch.bfloat16))}
+    sd_rows, sd_err = {}, 0.0
+    for what, (ac, sc) in sd_cases.items():
+        qk, sk = sigma_delta_encode(ac, sc, theta=THETA)
+        qp, sp = sigma_delta_ref(ac, sc, theta=THETA)
+        exact(qk, qp, f"sigma_delta {what} q")
+        exact(sk, sp, f"sigma_delta {what} s'")
+        sd_err = max(sd_err, *(float((k_.float() - p_.float()).abs().max())
+                               for k_, p_ in ((qk, qp), (sk, sp))))
+        nz = int((qk != 0).sum())
+        require(0 < nz < qk.numel(), f"sigma_delta {what}: q all or none")
+        sd_rows[what] = {"messages": nz, "density": nz / qk.numel()}
+    torch.cuda.synchronize()
+    emit({"phase": "kernels_api_check", "event_matmul": em_rows,
+          "event_matmul_max_abs_err": em_err,
+          "tolerances": {k: list(v) for k, v in EM_TOL.items()},
+          "sigma_delta_encode": sd_rows,
+          "sigma_delta_tolerance": "q and s' bit-identical",
+          "sigma_delta_max_abs_err": sd_err,
+          "wall_s": time.perf_counter() - t0})
+
+    # ------------------------------------------ (l) kernel 3 and 4 times
+    peak_of = {torch.float32: PEAK_FP32_FLOPS, torch.bfloat16: PEAK_BF16_FLOPS}
+
+    def time_em(what, x, w) -> dict:
+        """Launch-alone, wrapper, plain and torch.matmul times of one 1-D
+        event_matmul call, with its bound from this call's live tiles:
+        live x tiles read once, every w k-strip some live tile needs read
+        once, the output written once, and the live tile products at the
+        operand type's rate."""
+        xp, wp = _pad_to(x, (TILE, TILE)), _pad_to(w, (TILE, TILE))
+        active = block_activity(xp, 0.0)
+        idx, cnt = _compact_indices(active)
+        mb, kb = active.shape
+        nb = wp.shape[1] // TILE
+        out = torch.empty((xp.shape[0], wp.shape[1]), dtype=x.dtype,
+                          device=dev)
+        elt = x.element_size()
+        n_live = int(active.sum())
+        nbytes = elt * (TILE * TILE * n_live
+                        + TILE * wp.shape[1] * int(active.any(dim=0).sum())
+                        + xp.shape[0] * wp.shape[1]) + 4 * (mb * kb + mb)
+        ops = 2 * TILE * TILE * wp.shape[1] * n_live
+        t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S, ops / peak_of[x.dtype]
+        bf = int(x.dtype == torch.bfloat16)
+
+        def launch():
+            return lib.event_matmul_launch(
+                xp.data_ptr(), wp.data_ptr(), idx.data_ptr(),
+                cnt.data_ptr(), out.data_ptr(), mb, nb, kb, xp.shape[1],
+                wp.shape[1], bf, stream)
+        return {"what": what, "M": x.shape[0], "K": x.shape[1],
+                "N": w.shape[1], "dtype": str(x.dtype).split(".")[-1],
+                "live_tiles": n_live, "tiles": active.numel(),
+                "bytes": nbytes, "ops": ops, "ms": time_ms(launch),
+                "cold_l2_ms": time_ms_cold(launch),
+                "wrapper_ms": time_ms(lambda: event_matmul(x, w)),
+                "plain_ms": time_ms(lambda: event_matmul_ref(
+                    xp, wp, threshold=0.0, bm=TILE, bk=TILE)),
+                "bound_ms": 1e3 * max(t_bytes, t_ops),
+                "bound_by": "bytes" if t_bytes > t_ops else "operations",
+                "library_ms": time_ms(lambda: torch.matmul(xp, wp)),
+                "library_call": "torch.matmul"}
+
+    def time_sd(what, a, s) -> dict:
+        """Launch-alone, wrapper and plain times of one sigma_delta_encode
+        call, with its bound: a and s read once, q and s' written once,
+        six operations per element at the fp32 rate.  No single PyTorch
+        call computes the encoder, so there is no library time.  ``ms`` is
+        the launch with a cold L2: back to back, a working set under 50 MB
+        stays in L2 and the warm time (``warm_l2_ms``) can beat the HBM
+        bound."""
+        q, so = torch.empty_like(a), torch.empty_like(s)
+        n = a.numel()
+        nbytes = 4 * n * a.element_size()
+        ops = 6 * n
+        t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S, ops / PEAK_FP32_FLOPS
+        bf = int(a.dtype == torch.bfloat16)
+
+        def launch():
+            return lib.sigma_delta_launch(a.data_ptr(), s.data_ptr(),
+                                          q.data_ptr(), so.data_ptr(), n,
+                                          THETA, bf, stream)
+        return {"what": what, "shape": list(a.shape),
+                "dtype": str(a.dtype).split(".")[-1], "bytes": nbytes,
+                "ops": ops, "ms": time_ms_cold(launch),
+                "warm_l2_ms": time_ms(launch),
+                "wrapper_ms": time_ms(lambda: sigma_delta_encode(
+                    a, s, theta=THETA)),
+                "plain_ms": time_ms(lambda: sigma_delta_ref(a, s,
+                                                            theta=THETA)),
+                "bound_ms": 1e3 * max(t_bytes, t_ops),
+                "bound_by": "bytes" if t_bytes > t_ops else "operations",
+                "library_ms": None,
+                "library_call": "none: no single PyTorch call computes the "
+                                "fused encoder"}
+
+    em_times = [time_em(w, *em_cases[w]) for w in em_cases]
+    sd_times = [time_sd(w, *sd_cases[w]) for w in sd_cases]
+    emit({"phase": "times_api", "card": card,
+          "peaks": {"bytes_per_s": PEAK_BYTES_PER_S,
+                    "fp32_flops_per_s": PEAK_FP32_FLOPS,
+                    "bf16_flops_per_s": PEAK_BF16_FLOPS,
+                    "source": "NVIDIA H100 SXM data sheet"},
+          "event_matmul": em_times, "sigma_delta_encode": sd_times})
+    em1 = {"name": "event_matmul", "route": "cuda",
+           "source": "src/repro_torch/csrc/event_matmul.cu",
+           "replaces": "src/repro/kernels/event_matmul/kernel.py:33",
+           "launches": launches_j["event_matmul"],
+           "max_abs_err": em_err["float32"]}
+    em1.update({k: em_times[0][k] for k in ("ms", "plain_ms", "bound_ms",
+                                            "bound_by", "library_ms")})
+    sdk = {"name": "sigma_delta_encode", "route": "cuda",
+           "source": "src/repro_torch/csrc/sigma_delta.cu",
+           "replaces": "src/repro/kernels/sigma_delta/kernel.py:27",
+           "launches": launches_j["sigma_delta_encode"],
+           "max_abs_err": sd_err}
+    sdk.update({k: sd_times[0][k] for k in ("ms", "plain_ms", "bound_ms",
+                                            "bound_by", "library_ms")})
+
+    # ----------------------- (m) population pricing at the slice-1 cell
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    run_p = net.run_batch(xs, compute=EventCompute(mode="kernel"))
+    torch.cuda.synchronize()
+    run_p_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    cache = precompute_pricing(net, xs, prof, precomputed=run_p)
+    torch.cuda.synchronize()
+    cache_s = time.perf_counter() - t0
+    parts = [part]
+    for h in res.history:
+        if h.partition not in parts:
+            parts.append(h.partition)
+    rng = np.random.default_rng(31)
+    cands = [(p_, mk(p_, prof)) for p_ in parts
+             for mk in (ordered_mapping, strided_mapping)]
+    while len(cands) < K_POP:
+        p_ = parts[len(cands) % len(parts)]
+        cands.append((p_, random_mapping(p_, prof, rng)))
+    ev_np = SimEvaluator(net, xs, prof, cache=cache)
+    ev_dev = SimEvaluator(net, xs, prof, cache=cache,
+                          population_backend="device")
+    torch.cuda.reset_peak_memory_stats()
+    pop_s = {}
+    t0 = time.perf_counter()
+    r_np = ev_np.evaluate_population(cands)
+    torch.cuda.synchronize()
+    pop_s["numpy"] = time.perf_counter() - t0
+    peak_np = torch.cuda.max_memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    r_dev = ev_dev.evaluate_population(cands)
+    torch.cuda.synchronize()
+    pop_s["device_first"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    r_dev = ev_dev.evaluate_population(cands)
+    torch.cuda.synchronize()
+    pop_s["device"] = time.perf_counter() - t0
+    peak_dev = torch.cuda.max_memory_allocated()
+    require(ev_np.n_evals == K_POP and ev_dev.n_evals == 2 * K_POP,
+            f"evaluations {ev_np.n_evals}, {ev_dev.n_evals}")
+    pop_err = reports_close(r_dev, r_np, POP_RTOL)
+    spot = np.linspace(0, K_POP - 1, 16).astype(int)
+    for i in spot:
+        p_, m_ = cands[i]
+        same = simulate(net, xs, prof, p_, m_, precomputed=run_p)
+        require(reports_identical(r_np[i], same),
+                f"candidate {i}: numpy backend is not simulate's bits")
+    emit({"phase": "population", "candidates": K_POP,
+          "partitions": [list(p_.cores) for p_ in parts],
+          "mappings": "ordered and strided for each partition, the rest "
+                      "random (numpy seed 31)",
+          "functional_run_s": run_p_s, "cache_build_s": cache_s,
+          "wall_s": pop_s,
+          "candidates_per_s": {k: K_POP / v for k, v in pop_s.items()},
+          "peak_device_bytes": {"numpy": peak_np, "device": peak_dev},
+          "device_vs_numpy_max_rel_err": pop_err, "rtol": POP_RTOL,
+          "simulate_bit_identical": len(spot),
+          "n_evals": {"numpy": ev_np.n_evals, "device": ev_dev.n_evals},
+          "best_time_per_step": min(r.time_per_step for r in r_np)})
+
+    # ----------------------------------- (n) guidance at the slice-1 cell
+    t0 = time.perf_counter()
+    guide = {}
+    for what, (p_, m_) in (("minimal, ordered", (part, None)),
+                           ("greedy result", (res.partition, res.mapping))):
+        gs = floorline_layer_guidance(net, xs, prof, p_, m_, cache=cache)
+        w_ = np.array([g.weight for g in gs])
+        require(np.isfinite(w_).all() and abs(w_.mean() - 1.0) < 1e-9,
+                f"guidance weights {w_}")
+        guide[what] = [{"layer": g.name, "state": g.state.value,
+                        "weight": g.weight, "mem_time": g.stage.mem_time,
+                        "act_time": g.stage.act_time,
+                        "traffic_time": g.stage.traffic_time}
+                       for g in gs]
+    emit({"phase": "guidance", "layers": guide,
+          "wall_s": time.perf_counter() - t0})
+
+    emit({"kernels": [mm, wc, fa, em1, sdk]})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

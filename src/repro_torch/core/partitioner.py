@@ -35,7 +35,8 @@ from repro_torch.neuromorphic.partition import (Partition,
                                                 validate_partition)
 from repro_torch.neuromorphic.platform import ChipProfile
 from repro_torch.neuromorphic.timestep import (SimReport, precompute_pricing,
-                                               price_candidate, simulate)
+                                               price_candidate, simulate,
+                                               simulate_population)
 
 #: Anything that prices a (partition, mapping) candidate.
 Evaluator = Callable[[Partition, Mapping], SimReport]
@@ -47,12 +48,19 @@ class SimEvaluator:
     counter cumsums are computed once, on the network's device, and every
     candidate is priced from that cache; ``engine="reference"`` prices
     each candidate with the step-major engine instead (identical results).
-    ``n_evals`` counts priced candidates."""
+    ``n_evals`` counts priced candidates.
+
+    ``population_backend`` selects how :meth:`evaluate_population` prices
+    a population: ``"numpy"`` (per candidate, bit-identical to
+    ``simulate``) or ``"device"`` (one batched program; float64
+    roundoff).  A backend failure raises: there is no fallback chain."""
 
     def __init__(self, net: SimNetwork, xs, profile: ChipProfile, *,
-                 engine: str | None = None, cache=None, compute=None):
+                 engine: str | None = None, cache=None,
+                 population_backend: str = "numpy", compute=None):
         self.net, self.xs, self.profile = net, xs, profile
         self.engine = engine or timestep.DEFAULT_ENGINE
+        self.population_backend = population_backend
         #: per-layer synaptic backend of the functional run
         self.compute = compute
         self.cache = (cache or precompute_pricing(net, xs, profile,
@@ -67,6 +75,20 @@ class SimEvaluator:
                                    part, mapping)
         return simulate(self.net, self.xs, self.profile, part, mapping,
                         engine=self.engine, compute=self.compute)
+
+    def evaluate_population(self, candidates) -> list[SimReport]:
+        """Price a list of (partition, mapping) pairs through
+        ``population_backend`` when the pricing cache is live (else one
+        step-major ``simulate`` each); counts every candidate."""
+        cands = list(candidates)
+        self.n_evals += len(cands)
+        if self.cache is not None:
+            return simulate_population(self.net, self.xs, self.profile,
+                                       cands, cache=self.cache,
+                                       backend=self.population_backend)
+        return [simulate(self.net, self.xs, self.profile, p, m,
+                         engine=self.engine, compute=self.compute)
+                for p, m in cands]
 
 
 @dataclasses.dataclass

@@ -28,13 +28,18 @@ BUILD_DIR = (pathlib.Path(__file__).resolve().parents[3] / "build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
-_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_P, _I, _L, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
+                  ctypes.c_float)
 #: C entry points and their argument types (pointers and the stream as
-#: ``c_void_p``, ints as ``c_int``, floats as ``c_float``); every one
-#: returns ``cudaError_t``.
+#: ``c_void_p``, ints as ``c_int`` or ``c_longlong``, floats as
+#: ``c_float``); every one returns ``cudaError_t``.
 SIGNATURES = {
+    # x, w, idx, cnt, out, mb, nb, kb, K, N, bf16, stream
+    "event_matmul_launch": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     # x, w, idx, cnt, out, mb, nb, kb, K, N, stream
     "event_matmul2_launch": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # a, s, q, s_out, n, theta, bf16, stream
+    "sigma_delta_launch": [_P, _P, _P, _P, _L, _F, _I, _P],
     # x, live, out, n_windows, D, window, stream
     "window_cumsum_launch": [_P, _P, _P, _I, _I, _I, _P],
     # q, k, v, o, B, Sq, Skv, H, K, hd, causal, window, softcap, kv_len,

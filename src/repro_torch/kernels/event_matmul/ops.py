@@ -1,10 +1,15 @@
-"""Wrapper for the joint (activation x weight tile) block-sparse matmul.
+"""Wrappers for the block-sparse event-driven matmul: the public
+:func:`event_matmul` / :func:`event_matmul_pair` API and the two kernels
+behind it.
 
 The tile bookkeeping — padding, the activity map, the weight-tile
-occupancy map and the compacted per-(m, n) k lists — is plain torch on the
-operands' device.  :func:`event_matmul2` launches the CUDA kernel
-(``csrc/event_matmul2.cu``) on CUDA tensors and runs
-:func:`..ref.event_matmul2_ref` on CPU tensors.
+occupancy map and the compacted k lists — is plain torch on the operands'
+device.  Both kernels are instances of one tile body
+(``csrc/event_matmul.cu``).  Without a weight-tile occupancy map the
+product goes through the 1-D kernel (one k list per m-block, shared by
+every n); with one, through the joint kernel :func:`event_matmul2` (one k
+list per (m, n) tile pair).  CUDA tensors launch the kernel or raise; CPU
+tensors run the plain versions in :mod:`.ref`.
 """
 
 from __future__ import annotations
@@ -14,7 +19,8 @@ import torch.nn.functional as F
 
 from repro_torch.kernels import build
 from repro_torch.kernels.event_matmul.ref import (block_activity_ref,
-                                                  event_matmul2_ref)
+                                                  event_matmul2_ref,
+                                                  event_matmul_ref)
 
 #: The tile edge the CUDA kernel is compiled for (bm = bk = bn).
 KERNEL_TILE = 128
@@ -26,6 +32,13 @@ def _pad_to(a: torch.Tensor, mult: tuple[int, int]) -> torch.Tensor:
     if pm or pn:
         return F.pad(a, (0, pn, 0, pm))
     return a.contiguous()
+
+
+def block_activity(x: torch.Tensor, threshold: float, bm: int = 128,
+                   bk: int = 128) -> torch.Tensor:
+    """(Mb, Kb) bool activity map of raw or tile-aligned ``x``: the
+    (bm, bk) tile holds at least one event (|x| > threshold)."""
+    return block_activity_ref(_pad_to(x, (bm, bk)), threshold, bm, bk)
 
 
 def pad_compact(x: torch.Tensor, threshold: float, bm: int = 128,
@@ -139,19 +152,103 @@ def event_matmul2(x: torch.Tensor, w: torch.Tensor, w_occ: torch.Tensor, *,
 event_matmul2.launches = 0
 
 
+#: Operand types the 1-D kernel is compiled for, by its ``bf16`` flag.
+_KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def _event_matmul_launch(xp: torch.Tensor, w: torch.Tensor,
+                         active: torch.Tensor, bm: int,
+                         bk: int) -> torch.Tensor:
+    """Launch the 1-D kernel on CUDA operands: ``xp`` padded to (bm, bk),
+    ``active`` its (Mb, Kb) activity map.  The kernel's tiles are 128 wide,
+    so a (bm, bk) activity map is expanded to them (exact: a 128-tile of an
+    active (bm, bk) tile is active, of an inactive one all dead).  Returns
+    the padded (Mp, Np) product in the operands' type."""
+    if bm % KERNEL_TILE or bk % KERNEL_TILE:
+        raise ValueError(f"the CUDA kernel takes tiles that are multiples "
+                         f"of {KERNEL_TILE}, got bm={bm} bk={bk}")
+    if xp.dtype != w.dtype or xp.dtype not in _KERNEL_DTYPES:
+        raise TypeError(f"event_matmul takes float32 or bfloat16 operands "
+                        f"of one type, got {xp.dtype} @ {w.dtype}")
+    wp = _pad_to(w, (bk, KERNEL_TILE))
+    active = (active.repeat_interleave(bm // KERNEL_TILE, 0)
+              .repeat_interleave(bk // KERNEL_TILE, 1))
+    # the kernel reads 4 elements per thread in one load: 16 bytes in
+    # float32, 8 in bfloat16, so operands start on a 16-byte boundary
+    xp, wp = (a if a.data_ptr() % 16 == 0 else a.clone() for a in (xp, wp))
+    idx, cnt = _compact_indices(active)
+    mb, kb = active.shape
+    nb = wp.shape[1] // KERNEL_TILE
+    out = torch.empty((xp.shape[0], wp.shape[1]), dtype=xp.dtype,
+                      device=xp.device)
+    lib = build.load()
+    with torch.cuda.device(xp.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.event_matmul_launch(
+            xp.data_ptr(), wp.data_ptr(), idx.data_ptr(), cnt.data_ptr(),
+            out.data_ptr(), mb, nb, kb, xp.shape[1], wp.shape[1],
+            _KERNEL_DTYPES[xp.dtype], stream)
+    build.check(err, "event_matmul")
+    event_matmul.launches += 1
+    return out
+
+
+def event_matmul(x: torch.Tensor, w: torch.Tensor,
+                 w_occ: torch.Tensor | None = None, *,
+                 threshold: float = 0.0, bm: int = 128, bk: int = 128,
+                 bn: int = 128) -> torch.Tensor:
+    """``y = x @ w`` skipping event-free (bm, bk) activation tiles (all
+    |x| <= threshold): their tile products are exact zeros, while an active
+    tile contributes fully, sub-threshold entries included.
+
+    With ``w_occ`` (the (Kb, Nb) occupancy from
+    :func:`weight_block_occupancy`) the sparsity goes 2-D through
+    :func:`event_matmul2` (float32 only).  Without it, CPU tensors run
+    :func:`..ref.event_matmul_ref` and CUDA tensors launch the 1-D kernel
+    (float32 or bfloat16, float32 accumulation; bm and bk multiples of 128),
+    counted in ``event_matmul.launches``.  ``bn`` does not change the
+    result.  Returns (M, N) in ``x.dtype``."""
+    M, K = x.shape
+    K2, N = w.shape
+    if K != K2:
+        raise ValueError(f"contraction mismatch: {tuple(x.shape)} @ "
+                         f"{tuple(w.shape)}")
+    if x.device != w.device:
+        raise ValueError("operands on different devices")
+    if w_occ is not None:
+        return event_matmul2(x, w, w_occ, threshold=threshold, bm=bm, bk=bk,
+                             bn=bn)
+    xp = _pad_to(x, (bm, bk))
+    if x.device.type == "cpu":
+        return event_matmul_ref(xp, _pad_to(w, (bk, bn)), threshold=threshold,
+                                bm=bm, bk=bk)[:M, :N]
+    if x.device.type != "cuda":
+        raise ValueError(f"event_matmul: unsupported device {x.device}")
+    active = block_activity_ref(xp, threshold, bm, bk)
+    return _event_matmul_launch(xp, w, active, bm, bk)[:M, :N]
+
+
+event_matmul.launches = 0
+
+
 def event_matmul_pair(x: torch.Tensor, m: torch.Tensor, w: torch.Tensor,
-                      wm: torch.Tensor, w_occ: torch.Tensor, *,
-                      threshold: float = 0.0, bm: int = 128, bk: int = 128,
-                      bn: int = 128) -> tuple[torch.Tensor, torch.Tensor]:
+                      wm: torch.Tensor, w_occ: torch.Tensor | None = None,
+                      *, threshold: float = 0.0, bm: int = 128,
+                      bk: int = 128, bn: int = 128
+                      ) -> tuple[torch.Tensor, torch.Tensor]:
     """The simulator's event backend entry point: the value matmul
     ``x @ w`` and the counter matmul ``m @ wm`` (``m`` the 0/1 wire-event
     mask, ``wm`` the nnz mask of ``w``), each skipping its own event-free
-    activation tiles and both skipping the same unoccupied weight tiles —
-    which keeps the counter matmul bit-identical to the dense one."""
+    activation tiles.  With ``w_occ`` both also skip the same unoccupied
+    weight tiles (:func:`event_matmul2`); without it both are 1-D
+    products (:func:`event_matmul`).  Skipped tiles are exact zeros either
+    way, which keeps the counter matmul bit-identical to the dense one.
+    Returns ``(y, macs)`` in ``x.dtype`` and ``m.dtype``."""
     if m.shape != x.shape or wm.shape != w.shape:
         raise ValueError(f"shape mismatch: {tuple(x.shape)}/"
                          f"{tuple(m.shape)} @ {tuple(w.shape)}/"
                          f"{tuple(wm.shape)}")
-    y = event_matmul2(x, w, w_occ, threshold=threshold, bm=bm, bk=bk, bn=bn)
-    macs = event_matmul2(m, wm, w_occ, threshold=0.0, bm=bm, bk=bk, bn=bn)
+    kw = dict(bm=bm, bk=bk, bn=bn)
+    y = event_matmul(x, w, w_occ, threshold=threshold, **kw)
+    macs = event_matmul(m, wm, w_occ, threshold=0.0, **kw)
     return y, macs

@@ -1,4 +1,9 @@
-"""Wrapper for the windowed delta reconstruction of sigma-delta streams.
+"""Wrappers for the sigma-delta encoder and the windowed delta
+reconstruction of sigma-delta streams.
+
+:func:`sigma_delta_encode` launches the fused encoder
+(``csrc/sigma_delta.cu``) on CUDA tensors and runs
+:func:`..ref.sigma_delta_ref` on CPU tensors.
 
 :func:`window_reconstruct` splits a (T, n) delta batch into ``window``-step
 temporal tiles: the per-window bases and the carried accumulator are
@@ -14,7 +19,60 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import build
-from repro_torch.kernels.sigma_delta.ref import window_cumsum_ref
+from repro_torch.kernels.sigma_delta.ref import (sigma_delta_ref,
+                                                 window_cumsum_ref)
+
+#: Operand types the encoder is compiled for, by its ``bf16`` flag.
+_ENCODER_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def sigma_delta_encode(a: torch.Tensor, s: torch.Tensor, *, theta: float,
+                       bm: int = 256, bd: int = 512
+                       ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Sigma-delta encode activations ``a`` (..., D) against the
+    reconstruction state ``s`` (same shape): returns the quantized delta
+    messages ``q`` (zero where |a - s| < theta) and the new state
+    ``s + q``, in a's and s's types.  ``bm`` and ``bd`` (the TPU kernel's
+    tile) are accepted for signature parity and change nothing.
+
+    CPU tensors run :func:`..ref.sigma_delta_ref`; CUDA tensors launch the
+    kernel (float32 or bfloat16, one type for both), counted in
+    ``sigma_delta_encode.launches``."""
+    if theta <= 0:
+        raise ValueError("theta must be positive")
+    if a.shape != s.shape:
+        raise ValueError(f"shape mismatch: {tuple(a.shape)} vs "
+                         f"{tuple(s.shape)}")
+    if a.device != s.device:
+        raise ValueError("operands on different devices")
+    if a.device.type == "cpu":
+        return sigma_delta_ref(a, s, theta=theta)
+    if a.device.type != "cuda":
+        raise ValueError(f"sigma_delta_encode: unsupported device "
+                         f"{a.device}")
+    if a.dtype != s.dtype or a.dtype not in _ENCODER_DTYPES:
+        raise TypeError(f"sigma_delta_encode takes float32 or bfloat16 "
+                        f"operands of one type, got {a.dtype}, {s.dtype}")
+    # the kernel moves 16 bytes per access: inputs start on a 16-byte
+    # boundary (fresh outputs always do)
+    a, s = (t.contiguous() for t in (a, s))
+    a, s = (t if t.data_ptr() % 16 == 0 else t.clone() for t in (a, s))
+    q, s_new = torch.empty_like(a), torch.empty_like(s)
+    if a.numel() == 0:
+        return q, s_new
+    lib = build.load()
+    with torch.cuda.device(a.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.sigma_delta_launch(a.data_ptr(), s.data_ptr(),
+                                     q.data_ptr(), s_new.data_ptr(),
+                                     a.numel(), float(theta),
+                                     _ENCODER_DTYPES[a.dtype], stream)
+    build.check(err, "sigma_delta_encode")
+    sigma_delta_encode.launches += 1
+    return q, s_new
+
+
+sigma_delta_encode.launches = 0
 
 
 def window_cumsum(x: torch.Tensor, live: torch.Tensor, *,

@@ -1,9 +1,25 @@
-"""Plain PyTorch versions of the windowed delta reconstruction."""
+"""Plain PyTorch versions of the sigma-delta encoder and of the windowed
+delta reconstruction."""
 
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+
+
+def sigma_delta_ref(a: torch.Tensor, s: torch.Tensor, *, theta: float
+                    ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Fused sigma-delta encoder in float32: ``delta = a - s``; ``q =
+    round(delta / theta) * theta`` where ``|delta| >= theta``, else 0;
+    ``s' = s + q``.  Returns ``(q, s')`` cast to a's and s's types (s' is
+    the float32 sum, rounded once).  ``theta`` is rounded to float32 and
+    held in a 0-d tensor on the operands' device: on CUDA, dividing by a
+    host scalar would multiply by its reciprocal instead."""
+    a32, s32 = a.to(torch.float32), s.to(torch.float32)
+    th = torch.tensor(theta, dtype=torch.float32, device=a.device)
+    delta = a32 - s32
+    q = torch.where(delta.abs() >= th, torch.round(delta / th) * th, 0.0)
+    return q.to(a.dtype), (s32 + q).to(s.dtype)
 
 
 def window_cumsum_ref(x: torch.Tensor, live: torch.Tensor, *,

@@ -14,18 +14,25 @@ from repro_torch.neuromorphic.network import (BatchCounters, CounterMaps,
                                               fc_network, make_inputs,
                                               network_from_numpy,
                                               programmed_fc_network)
-from repro_torch.neuromorphic.noc import (Mapping, ordered_mapping,
+from repro_torch.neuromorphic.noc import (Mapping, flow_matrix_population,
+                                          flow_structures_rows,
+                                          incidence_tables, ordered_mapping,
                                           random_mapping, route_batch,
-                                          route_step, strided_mapping)
+                                          route_step,
+                                          router_incidence_population,
+                                          strided_mapping)
 from repro_torch.neuromorphic.partition import (Partition, minimal_partition,
                                                 validate_partition)
 from repro_torch.neuromorphic.platform import (NEURON_COST, PROFILES,
                                                ChipProfile, akd1000_like,
                                                loihi2_like, speck_like)
-from repro_torch.neuromorphic.timestep import (PricingCache, SimReport,
+from repro_torch.neuromorphic.timestep import (PopulationPricer,
+                                               PricingCache, SimReport,
                                                layer_stage_times,
                                                precompute_pricing,
-                                               price_candidate, simulate)
+                                               price_candidate,
+                                               price_population_device,
+                                               simulate, simulate_population)
 
 __all__ = [
     "DEFAULT_COMPUTE", "DenseCompute", "EventCompute", "LayerCompute",
@@ -34,11 +41,13 @@ __all__ = [
     "compile_network", "excluded_params", "lowering_spec",
     "BatchCounters", "CounterMaps", "SimLayer", "SimNetwork", "fc_network",
     "make_inputs", "network_from_numpy", "programmed_fc_network",
-    "Mapping", "ordered_mapping", "random_mapping", "route_batch",
-    "route_step", "strided_mapping",
+    "Mapping", "flow_matrix_population", "flow_structures_rows",
+    "incidence_tables", "ordered_mapping", "random_mapping", "route_batch",
+    "route_step", "router_incidence_population", "strided_mapping",
     "Partition", "minimal_partition", "validate_partition",
     "NEURON_COST", "PROFILES", "ChipProfile", "akd1000_like", "loihi2_like",
     "speck_like",
-    "PricingCache", "SimReport", "layer_stage_times", "precompute_pricing",
-    "price_candidate", "simulate",
+    "PopulationPricer", "PricingCache", "SimReport", "layer_stage_times",
+    "precompute_pricing", "price_candidate", "price_population_device",
+    "simulate", "simulate_population",
 ]

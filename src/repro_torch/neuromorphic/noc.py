@@ -13,6 +13,9 @@ deliveries under dimension-ordered (X-then-Y) routing.
 The routing tables (path incidence, hop counts, per-candidate flow
 matrices) are small integer tables kept as host numpy; the per-step
 message counts they are applied to are float64 tensors on the device.
+The population functions build every candidate's routing structures at
+once, as batched float64 tensors on the device; every entry is an exact
+small-integer count, so they equal the per-candidate tables bit for bit.
 """
 
 from __future__ import annotations
@@ -23,6 +26,7 @@ import functools
 import numpy as np
 import torch
 
+from repro_torch.device import resolve_device
 from repro_torch.neuromorphic.partition import Partition
 from repro_torch.neuromorphic.platform import ChipProfile
 
@@ -133,6 +137,138 @@ def incidence_tables(grid: tuple[int, int]) -> tuple[np.ndarray, np.ndarray]:
     inc3 = _path_incidence(grid).astype(np.float64).reshape(R, R, R)
     hops2 = _pair_hops(grid).astype(np.float64).reshape(R, R)
     return inc3, hops2
+
+
+def _layer_dest(lid: torch.Tensor, router: torch.Tensor,
+                alive: torch.Tensor, last: torch.Tensor, n_layers: int,
+                R: int) -> torch.Tensor:
+    """(K, n_layers, R) float64 destination-router core counts of a source
+    core of each layer: the next layer's live cores per router, and for a
+    candidate's last layer (``last`` (K,)) the chip I/O port at router 0.
+    ``lid``/``router``/``alive`` are (K, Ncap) per-slot layer ids, router
+    ids and float live flags (dead slots carry in-range ids)."""
+    K = lid.shape[0]
+    cnt = torch.zeros((K, (n_layers + 1) * R), dtype=torch.float64,
+                      device=lid.device)
+    cnt.scatter_add_(1, lid * R + router, alive)
+    nxt = cnt.reshape(K, n_layers + 1, R)[:, 1:]
+    io = torch.zeros(R, dtype=torch.float64, device=lid.device)
+    io[0] = 1.0
+    l = torch.arange(n_layers, device=lid.device)
+    return torch.where((l[None, :] == last[:, None])[..., None], io, nxt)
+
+
+def _fold(lid, router, alive, last, n_layers: int, inc3: torch.Tensor,
+          hops2: torch.Tensor):
+    """(PL, ph, dup) of padded (K, Ncap) slot rows: each layer's
+    destination counts folded through the routing geometry once (L x R x
+    R work per candidate, not a per-core gather), then gathered per core.
+    Exact in float64: every entry is a small-integer count."""
+    K, ncap = lid.shape
+    R = inc3.shape[0]
+    dest = _layer_dest(lid, router, alive, last, n_layers, R)  # (K, L, R)
+    M = torch.einsum("kld,sdr->klsr", dest, inc3)               # (K, L, R, R)
+    at = lid * R + router
+    PL = M.reshape(K, n_layers * R, R).gather(
+        1, at[..., None].expand(K, ncap, R)) * alive[..., None]
+    ph = (dest @ hops2.T).reshape(K, -1).gather(1, at) * alive
+    dup = dest.sum(dim=2).gather(1, lid) * alive
+    return PL, ph, dup
+
+
+def flow_structures_rows(lid: torch.Tensor, router: torch.Tensor,
+                         alive: torch.Tensor, n_layers: int,
+                         inc3: torch.Tensor, hops2: torch.Tensor
+                         ) -> tuple[torch.Tensor, torch.Tensor,
+                                    torch.Tensor]:
+    """Candidates' routing structures, built on their device: given padded
+    per-slot layer ids ``lid``, router ids ``router`` and float live flags
+    ``alive`` ((K, Ncap), or (Ncap,) for one candidate) of networks with
+    ``n_layers`` layers, returns ``(PL, ph, dup)``: per-core router-load
+    incidence (router loads are ``msgs @ PL``), per-core hop factors
+    (total hops ``msgs @ ph``) and unicast duplication factors, shaped
+    (K, Ncap, R) / (K, Ncap) / (K, Ncap), or without K.  ``inc3`` and
+    ``hops2`` are :func:`incidence_tables` as float64 tensors.  The
+    results equal :func:`router_incidence_population`'s bit for bit; dead
+    slots (which must carry in-range ids) get zero rows."""
+    one = lid.dim() == 1
+    if one:
+        lid, router, alive = lid[None], router[None], alive[None]
+    last = torch.full((lid.shape[0],), n_layers - 1, device=lid.device)
+    PL, ph, dup = _fold(lid, router, alive, last, n_layers, inc3, hops2)
+    return (PL[0], ph[0], dup[0]) if one else (PL, ph, dup)
+
+
+def _genome_slots(cores_rows, phys_rows, grid: tuple[int, int],
+                  n_cores_phys: int, n_pad: int, dev: torch.device):
+    """Ragged (cores, expressed physical slots) rows -> padded (K, n_pad)
+    layer ids, router ids and float live flags, plus each candidate's last
+    layer index (K,) and the widest layer count."""
+    rows, cols = grid
+    cpr = max(1, n_cores_phys // (rows * cols))
+    K = len(cores_rows)
+    if K != len(phys_rows):
+        raise ValueError("cores_rows and phys_rows disagree on K")
+    L = max(len(c) for c in cores_rows)
+    lid = np.zeros((K, n_pad), np.int64)
+    router = np.zeros((K, n_pad), np.int64)
+    alive = np.zeros((K, n_pad), np.float64)
+    for k, (cores, phys) in enumerate(zip(cores_rows, phys_rows)):
+        cores = np.asarray(cores, np.int64)
+        n = int(cores.sum())
+        lid[k, :n] = np.repeat(np.arange(len(cores)), cores)
+        router[k, :n] = np.asarray(phys, np.int64)[:n] // cpr
+        alive[k, :n] = 1.0
+    last = [len(c) - 1 for c in cores_rows]
+    on = lambda a: torch.as_tensor(a, device=dev)
+    return on(lid), on(router), on(alive), on(np.asarray(last)), L
+
+
+def flow_matrix_population(cores_rows, phys_rows, grid: tuple[int, int],
+                           n_cores_phys: int, n_pad: int, *,
+                           device: "str | torch.device" = "cuda"
+                           ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Batched :func:`_flow_matrix`: every candidate's routing structure
+    at once.  ``cores_rows`` holds K per-candidate layer core counts (any
+    layer count), ``phys_rows`` the K expressed physical slot assignments
+    (row k of length ``sum(cores_rows[k])``), ``n_pad`` the logical-core
+    padding width.  Returns ``(P, dup)`` on ``device``: (K, n_pad, R*R)
+    and (K, n_pad) float64, row k equal to candidate k's ``_flow_matrix``
+    and zero beyond its logical cores.  A core's flow row is the one-hot
+    of its router times its layer's destination counts, so the whole
+    population is one scatter."""
+    dev = resolve_device(device)
+    R = grid[0] * grid[1]
+    lid, router, alive, last, L = _genome_slots(
+        cores_rows, phys_rows, grid, n_cores_phys, n_pad, dev)
+    dest = _layer_dest(lid, router, alive, last, L, R)           # (K, L, R)
+    K = lid.shape[0]
+    rowd = dest.gather(1, lid[..., None].expand(K, n_pad, R)) \
+        * alive[..., None]                                       # (K, n, R)
+    P = torch.zeros((K, n_pad, R, R), dtype=torch.float64, device=dev)
+    P.scatter_(2, router[..., None, None].expand(K, n_pad, 1, R),
+               rowd[:, :, None, :])
+    dup = dest.sum(dim=2).gather(1, lid) * alive
+    return P.reshape(K, n_pad, R * R), dup
+
+
+def router_incidence_population(cores_rows, phys_rows,
+                                grid: tuple[int, int], n_cores_phys: int,
+                                n_pad: int, *,
+                                device: "str | torch.device" = "cuda"
+                                ) -> tuple[torch.Tensor, torch.Tensor,
+                                           torch.Tensor]:
+    """Path-incidence-folded :func:`flow_matrix_population`: ``(PL, ph,
+    dup)`` with ``PL = P @ path_incidence`` (K, n_pad, R) (router loads
+    are ``msgs @ PL``; the (T, R*R) flow tensor never materializes),
+    ``ph = P @ pair_hops`` (K, n_pad) and the duplication factors, float64
+    on ``device``.  Integer counts make the fold exact."""
+    dev = resolve_device(device)
+    lid, router, alive, last, L = _genome_slots(
+        cores_rows, phys_rows, grid, n_cores_phys, n_pad, dev)
+    inc3, hops2 = (torch.as_tensor(t, device=dev)
+                   for t in incidence_tables(grid))
+    return _fold(lid, router, alive, last, L, inc3, hops2)
 
 
 def _on(a: np.ndarray, like: torch.Tensor) -> torch.Tensor:

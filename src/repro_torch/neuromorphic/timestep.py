@@ -19,6 +19,11 @@ Two engines price a workload:
 All per-step and per-neuron pricing arrays are float64 tensors on the
 network's device; integer counts stay exact in float64, so the priced
 report matches the JAX package's NumPy pricing to float64 roundoff.
+
+:func:`simulate_population` prices many (partition, mapping) candidates
+from one functional run: per candidate through :func:`price_candidate`
+(``backend="numpy"``), or all at once in one batched float64 program on
+the device whose input is the stacked genome rows (``backend="device"``).
 """
 
 from __future__ import annotations
@@ -30,9 +35,13 @@ import torch
 
 from repro_torch.core.metrics import LoadStats, WorkloadMetrics
 from repro_torch.neuromorphic.network import CounterMaps, SimNetwork
-from repro_torch.neuromorphic.noc import (Mapping, ordered_mapping,
+from repro_torch.neuromorphic.noc import (Mapping, cores_per_router,
+                                          flow_structures_rows,
+                                          incidence_tables, ordered_mapping,
                                           route_batch, route_step)
-from repro_torch.neuromorphic.partition import Partition, minimal_partition
+from repro_torch.neuromorphic.partition import (Partition,
+                                                max_cores_for_layer,
+                                                minimal_partition)
 from repro_torch.neuromorphic.platform import ChipProfile
 
 #: Engine used when :func:`simulate` is called without ``engine=``.
@@ -245,11 +254,15 @@ class LayerPricing:
 @dataclasses.dataclass
 class PricingCache:
     """Everything :func:`price_candidate` needs that does not depend on
-    the candidate: the functional outputs plus per-layer pricing state."""
+    the candidate: the functional outputs plus per-layer pricing state.
+    ``device_pricer`` lazily holds the population pricer of the
+    ``backend="device"`` path (a cache is bound to one workload)."""
 
     outputs: torch.Tensor
     T: int
     layers: list[LayerPricing]
+    device_pricer: object = dataclasses.field(default=None, repr=False,
+                                              compare=False)
 
 
 def _neuron_csum(per_neuron: torch.Tensor) -> torch.Tensor:
@@ -401,6 +414,360 @@ def price_candidate(net: SimNetwork, profile: ChipProfile,
         max_link_steps=max_link_steps,
         total_msgs=total_msgs, total_neuron_steps=total_neuron_steps,
         stage_votes=stage_votes)
+
+
+# ---------------------------------------------------------------- population
+
+#: The population backends :func:`simulate_population` takes.  ``"vmap"``
+#: and ``"sharded"`` (the JAX package's jitted-vmap and device-mesh
+#: pricers) are not ported: the batched ``"device"`` program takes the
+#: place of ``"vmap"``, and a sharded pricer waits for ROADMAP queue
+#: item 2's remainder.
+POPULATION_BACKENDS = ("numpy", "device")
+
+
+def population_pad_width(net: SimNetwork, profile: ChipProfile) -> int:
+    """Logical-core padding width for (net, profile): every feasible
+    candidate fits."""
+    cap = sum(min(max_cores_for_layer(net, l), profile.n_cores)
+              for l in range(len(net.layers)))
+    return min(cap, profile.n_cores)
+
+
+def simulate_population(net: SimNetwork, xs, profile: ChipProfile,
+                        candidates, *, precomputed: tuple | None = None,
+                        cache: PricingCache | None = None,
+                        backend: str = "numpy", compute=None,
+                        sparsity_profile=None) -> list[SimReport]:
+    """Price many (partition, mapping) candidates from ONE functional run.
+
+    ``candidates`` is an iterable of ``(Partition, Mapping)`` pairs.  The
+    functional run and the per-layer counter cumsums happen once (or come
+    from ``cache`` / ``precomputed``); then:
+
+    * ``backend="numpy"`` — each candidate is priced by
+      :func:`price_candidate`, the batched engine's own pricer, so every
+      report is bit-identical to ``simulate(net, xs, profile, part,
+      mapping)``.  (The JAX package first gathers the whole population's
+      segment sums in one stacked indexing operation; the port keeps the
+      one pricing path.)
+    * ``backend="device"`` — the candidates become stacked genome rows,
+      (K, n_layers) core counts and (K, n_slots) slot permutations, and
+      one batched float64 program derives every candidate's segment
+      bounds and NoC structures and prices them all
+      (:func:`price_population_device`).  Agrees with ``"numpy"`` to
+      float64 roundoff (rtol 1e-9): sums run in another order.
+
+    ``"vmap"`` and ``"sharded"`` raise ``NotImplementedError``;
+    ``sparsity_profile`` is not ported yet and raises likewise.
+    """
+    if sparsity_profile is not None:
+        raise NotImplementedError("sparsity profiles are not ported yet")
+    if backend in ("vmap", "sharded"):
+        raise NotImplementedError(
+            f"population backend {backend!r} is not ported (ROADMAP queue "
+            "item 2): use 'numpy' or 'device'")
+    if backend not in POPULATION_BACKENDS:
+        raise ValueError(f"unknown population backend {backend!r}")
+    cands = list(candidates)
+    if not cands:
+        return []
+    for k, (part, mapping) in enumerate(cands):
+        if len(mapping.phys) != part.total_cores:
+            raise ValueError(
+                f"candidate {k}: mapping places {len(mapping.phys)} logical "
+                f"cores but the partition allocates {part.total_cores} "
+                f"(cores={tuple(part.cores)}); partition and mapping must "
+                "agree before pricing")
+    cache = cache or precompute_pricing(net, xs, profile,
+                                        precomputed=precomputed,
+                                        compute=compute)
+    if backend == "device":
+        cores, perm = _pairs_to_rows(cands, len(cache.layers),
+                                     profile.n_cores)
+        return price_population_device(net, profile, cache, cores, perm)
+    return [price_candidate(net, profile, cache, p, m) for p, m in cands]
+
+
+def _pairs_to_rows(pairs, n_layers: int,
+                   n_slots: int) -> tuple[np.ndarray, np.ndarray]:
+    """(Partition, Mapping) pairs -> stacked fixed-shape genome rows:
+    (K, n_layers) core counts and (K, n_slots) slot permutations whose
+    tail (the unexpressed slots) is filled ascending."""
+    K = len(pairs)
+    cores = np.zeros((K, n_layers), np.int64)
+    perm = np.zeros((K, n_slots), np.int64)
+    for k, (part, mapping) in enumerate(pairs):
+        cores[k] = part.cores
+        used = [int(p) for p in mapping.phys]
+        taken = set(used)
+        perm[k] = used + [s for s in range(n_slots) if s not in taken]
+    return cores, perm
+
+
+#: Largest (candidates x T x padded cores) block the device pricer works
+#: on at once; a larger population is priced in row blocks of this size
+#: (pricing is row-independent, so the blocks' results are the same).
+_BLOCK_ELEMS = 1 << 24
+
+
+class PopulationPricer:
+    """Batched population pricer bound to one :class:`PricingCache`.
+
+    Holds the workload's constants on the cache's device — the counter
+    cumsums of every layer concatenated, per-layer cost coefficients, the
+    routing geometry — and prices stacked genome rows: ``cores`` (K,
+    n_layers) and ``perm`` (K, n_slots).  A candidate's segment bounds,
+    layer ids, routers and NoC structures are all derived from its rows
+    on the device; the K axis is written out (it is the JAX package's
+    ``vmap`` axis).  Boundaries reproduce ``np.linspace(0, n, c + 1)
+    .astype(int)`` exactly: ``int(i * (n / c))`` in float64, the last one
+    pinned to ``n``."""
+
+    def __init__(self, net: SimNetwork, profile: ChipProfile,
+                 cache: PricingCache):
+        p = self.profile = profile
+        self.T = cache.T
+        self.n_layers = len(cache.layers)
+        self.n_pad = population_pad_width(net, profile)
+        self.cpr = cores_per_router(profile)
+        self.weight_density = (sum(l.w_nnz for l in net.layers)
+                               / max(sum(l.n_weights for l in net.layers),
+                                     1))
+        dev = self.device = cache.layers[0].csum_macs.device
+        # per-layer coefficients, folded with the same Python-float
+        # arithmetic as core_times() and price_candidate()
+        mem_msg, mem_syn, ncost, sparse_f, e_act_c = [], [], [], [], []
+        for l, lp in enumerate(cache.layers):
+            model = net.layers[l].neuron_model
+            if lp.sparse:
+                mem_msg.append(p.c_msg_recv + p.c_decode_msg)
+                mem_syn.append(p.c_fetch + p.c_decode_word + p.c_mac)
+            else:
+                mem_msg.append(p.c_msg_recv)
+                mem_syn.append(p.c_fetch + p.c_mac)
+            ncost.append(p.neuron_cost(model))
+            sparse_f.append(1.0 if lp.sparse else 0.0)
+            e_act_c.append(p.e_act * (p.neuron_cost(model) / p.c_act))
+        on = lambda v: torch.as_tensor(v, dtype=_F64, device=dev)
+        self.coefs = tuple(on(v) for v in (mem_msg, mem_syn, ncost,
+                                           sparse_f, e_act_c))
+        self.csums = tuple(torch.cat([getattr(lp, f) for lp in cache.layers],
+                                     dim=1)
+                           for f in ("csum_macs", "csum_fetches",
+                                     "csum_acts", "csum_msgs"))
+        self.msgs_in = torch.stack([lp.msgs_in for lp in cache.layers],
+                                   dim=1)                     # (T, L)
+        widths = [lp.n_neurons + 1 for lp in cache.layers]
+        self.block_off = torch.as_tensor(
+            np.concatenate([[0], np.cumsum(widths)])[:-1], device=dev)
+        self.n_neurons = torch.as_tensor(
+            [lp.n_neurons for lp in cache.layers], device=dev)
+        self.inc3, self.hops2 = (on(t) for t in incidence_tables(
+            profile.grid))
+
+    def structures(self, cores: torch.Tensor, perm: torch.Tensor):
+        """(K, n_layers) cores + (K, n_slots) perm -> the padded (K, Ncap)
+        per-core pricing structures: live mask, layer ids, cumsum gather
+        bounds, neurons per core, and the NoC ``(PL, ph, dup)``."""
+        L, ncap = self.n_layers, self.n_pad
+        K = cores.shape[0]
+        csum = torch.cumsum(cores, dim=1)                         # (K, L)
+        j = torch.arange(ncap, device=cores.device).repeat(K, 1)
+        alive = j < csum[:, -1:]
+        lid = torch.searchsorted(csum, j, right=True).clamp_max(L - 1)
+        within = j - (csum - cores).gather(1, lid)                # in layer
+        n_l = self.n_neurons[lid]
+        c_l = cores.gather(1, lid)
+        # the same float64 arithmetic as np.linspace(0, n, c+1).astype(int)
+        step = n_l.to(_F64) / c_l.to(_F64)
+        lo_loc = (within.to(_F64) * step).to(torch.int64)
+        hi_loc = torch.where(within + 1 == c_l, n_l,
+                             ((within + 1).to(_F64) * step).to(torch.int64))
+        zero = torch.zeros((), dtype=torch.int64, device=cores.device)
+        lid = torch.where(alive, lid, zero)
+        seg_lo = torch.where(alive, self.block_off[lid] + lo_loc, zero)
+        seg_hi = torch.where(alive, self.block_off[lid] + hi_loc, zero)
+        neurons = torch.where(alive, hi_loc - lo_loc, zero).to(_F64)
+        mask = alive.to(_F64)
+        router = torch.where(alive, perm[:, :ncap] // self.cpr, zero)
+        PL, ph, dup = flow_structures_rows(lid, router, mask, L, self.inc3,
+                                           self.hops2)
+        return mask, lid, seg_lo, seg_hi, neurons, PL, ph, dup
+
+    def price(self, cores: torch.Tensor, perm: torch.Tensor) -> dict:
+        """Price stacked int64 genome rows on the pricer's device; returns
+        a dict of tensors there with a leading population axis."""
+        rows = max(1, _BLOCK_ELEMS // (self.T * self.n_pad))
+        parts = [self._price_block(cores[i:i + rows], perm[i:i + rows])
+                 for i in range(0, cores.shape[0], rows)]
+        return {k: torch.cat([o[k] for o in parts]) for k in parts[0]}
+
+    def _price_block(self, cores: torch.Tensor, perm: torch.Tensor) -> dict:
+        p = self.profile
+        T = self.T
+        mask, lid, seg_lo, seg_hi, neurons, PL, ph, dup = \
+            self.structures(cores, perm)
+        mem_msg, mem_syn, ncost, sparse_f, e_act_c = self.coefs
+
+        def seg(cs):                                      # (K, T, Ncap)
+            return (cs[:, seg_hi] - cs[:, seg_lo]).permute(1, 0, 2)
+
+        macs, fetches, acts, msgs = (seg(cs) for cs in self.csums)
+        sp_c = sparse_f[lid][:, None, :]                  # (K, 1, Ncap)
+        synops = torch.where(sp_c > 0, macs, fetches)
+        live = mask[:, None, :]
+        msgs_in_c = self.msgs_in[:, lid].permute(1, 0, 2) * live
+        mem = msgs_in_c * mem_msg[lid][:, None, :] \
+            + synops * mem_syn[lid][:, None, :]
+        act = acts * ncost[lid][:, None, :]
+        core_time = (torch.maximum(mem, act) + p.t_core_fixed) * live
+
+        e_events = (p.e_fetch * synops.sum(dim=2)
+                    + p.e_mac * macs.sum(dim=2)
+                    + p.e_decode * (synops * sp_c).sum(dim=2)
+                    + (acts * e_act_c[lid][:, None, :]).sum(dim=2))
+
+        loads = torch.bmm(msgs, PL)                       # (K, T, R)
+        hops = torch.bmm(msgs, ph[..., None])[..., 0]     # (K, T)
+        inject = msgs * dup[:, None, :]
+        max_link = loads.amax(dim=2)
+        traffic_time = (p.c_route * max_link
+                        + p.c_inject * inject.amax(dim=2))
+
+        n_logical = mask.sum(dim=1)                       # (K,)
+        zeros = torch.zeros_like(n_logical, dtype=torch.int64)
+        if p.synchronous:
+            t_compute = core_time.amax(dim=2)
+            times = torch.maximum(t_compute, traffic_time) + p.t_barrier
+            tb = traffic_time > t_compute
+            mb = mem.amax(dim=2) >= act.amax(dim=2)
+            votes = torch.stack([(~tb & mb).sum(dim=1),
+                                 (~tb & ~mb).sum(dim=1), tb.sum(dim=1),
+                                 zeros], dim=1)
+        else:
+            val = torch.maximum(mem, act) * live
+            K = val.shape[0]
+            per_layer = torch.zeros((K, T, self.n_layers), dtype=_F64,
+                                    device=val.device).scatter_reduce(
+                2, lid[:, None, :].expand_as(val), val, "amax")
+            times = (per_layer.sum(dim=2)
+                     + p.c_msg_hop * hops
+                     / n_logical.clamp_min(1.0)[:, None])
+            votes = torch.stack([zeros + T, zeros, zeros, zeros], dim=1)
+
+        n_active = (((synops + msgs) > 0) & (live > 0)).sum(dim=2).to(_F64)
+        n_active = torch.where(n_active == 0, n_logical[:, None], n_active)
+        energies = (times * (p.p_idle + p.p_core * n_active)
+                    + e_events + p.e_msg_hop * hops)
+
+        mean_synops = synops.sum(dim=1) / T               # (K, Ncap)
+        mean_acts = acts.sum(dim=1) / T
+        mean_msgs = msgs.sum(dim=1) / T
+        return dict(
+            times=times, energies=energies,
+            time_per_step=times.mean(dim=1),
+            energy_per_step=energies.mean(dim=1),
+            max_synops=synops.amax(dim=2).mean(dim=1),
+            max_acts=acts.amax(dim=2).mean(dim=1),
+            max_link_load=max_link.mean(dim=1),
+            mean_synops=mean_synops, mean_acts=mean_acts,
+            mean_msgs=mean_msgs,
+            syn_total=mean_synops.sum(dim=1),
+            syn_max=mean_synops.amax(dim=1),
+            syn_nact=(mean_synops > 0).sum(dim=1),
+            act_total=mean_acts.sum(dim=1), act_max=mean_acts.amax(dim=1),
+            act_nact=(mean_acts > 0).sum(dim=1),
+            votes=votes, total_msgs=msgs.sum(dim=(1, 2)),
+            total_neuron_steps=T * neurons.sum(dim=1))
+
+
+def _rows(a, device: torch.device) -> torch.Tensor:
+    """Genome rows (a numpy array or a tensor anywhere) as int64 on
+    ``device``."""
+    if isinstance(a, torch.Tensor):
+        return a.to(device=device, dtype=torch.int64)
+    return torch.as_tensor(np.asarray(a, np.int64), device=device)
+
+
+def price_population_device(net: SimNetwork, profile: ChipProfile,
+                            cache: PricingCache, cores,
+                            perm) -> list[SimReport]:
+    """Price stacked genome rows — ``cores`` (K, n_layers), ``perm`` (K,
+    n_slots), host or device arrays — with the cache's
+    :class:`PopulationPricer` (built on first use) and assemble the
+    reports."""
+    n_layers, n_slots = len(cache.layers), int(profile.n_cores)
+    if (np.ndim(cores) != 2 or np.ndim(perm) != 2
+            or cores.shape[1] != n_layers or perm.shape[1] != n_slots
+            or cores.shape[0] != perm.shape[0]):
+        raise ValueError(
+            f"genome rows must be cores (K, {n_layers}) and perm "
+            f"(K, {n_slots}) for this (network, profile); got "
+            f"cores {tuple(np.shape(cores))} and perm "
+            f"{tuple(np.shape(perm))}")
+    if cache.device_pricer is None:
+        cache.device_pricer = PopulationPricer(net, profile, cache)
+    pricer: PopulationPricer = cache.device_pricer
+    cores = _rows(cores, pricer.device)
+    out = pricer.price(cores, _rows(perm, pricer.device))
+    return _assemble_reports(out, _host(cores.sum(dim=1)), cache,
+                             pricer.weight_density)
+
+
+_STAGES = ("memory", "compute", "traffic", "barrier")
+_SCALARS = ("time_per_step", "energy_per_step", "max_synops", "max_acts",
+            "max_link_load", "syn_total", "syn_max", "syn_nact",
+            "act_total", "act_max", "act_nact", "votes", "total_msgs",
+            "total_neuron_steps")
+
+
+def _assemble_reports(out: dict, n_logical: np.ndarray, cache: PricingCache,
+                      w_density: float) -> list[SimReport]:
+    """One :class:`SimReport` per candidate from the pricer's batched
+    dict.  The scalar fields come to the host in one transfer each; the
+    per-step and per-core arrays stay on the device, as views of the
+    batch."""
+    T = cache.T
+    h = {k: _host(out[k]) for k in _SCALARS}
+
+    def stats(total, mx, n_act, n):
+        total, mx, n_act = float(total), float(mx), int(n_act)
+        mean = total / max(n_act, 1)
+        return LoadStats(total=total, max=mx, mean=mean,
+                         imbalance=(mx / mean) if mean > 0 else 1.0,
+                         n_units=n, n_active=n_act)
+
+    reports = []
+    for k, n in enumerate(int(v) for v in n_logical):
+        link = float(h["max_link_load"][k])
+        total_msgs = float(h["total_msgs"][k])
+        metrics = WorkloadMetrics(
+            synops=stats(h["syn_total"][k], h["syn_max"][k],
+                         h["syn_nact"][k], n),
+            acts=stats(h["act_total"][k], h["act_max"][k],
+                       h["act_nact"][k], n),
+            traffic=LoadStats(total=link, max=link,
+                              mean=link if link > 0 else 0.0,
+                              imbalance=1.0, n_units=1,
+                              n_active=int(link > 0)),
+            msgs_total=total_msgs / T,
+            weight_density=w_density,
+            act_density=(total_msgs
+                         / max(float(h["total_neuron_steps"][k]), 1.0)))
+        reports.append(SimReport(
+            time_per_step=float(h["time_per_step"][k]),
+            energy_per_step=float(h["energy_per_step"][k]),
+            times=out["times"][k], energies=out["energies"][k],
+            metrics=metrics,
+            max_synops=float(h["max_synops"][k]),
+            max_acts=float(h["max_acts"][k]),
+            max_link_load=link, n_cores_active=n, outputs=cache.outputs,
+            per_core_synops=out["mean_synops"][k, :n],
+            per_core_acts=out["mean_acts"][k, :n],
+            per_core_msgs_out=out["mean_msgs"][k, :n],
+            bottleneck_stage=_STAGES[int(np.argmax(h["votes"][k]))]))
+    return reports
 
 
 @dataclasses.dataclass(frozen=True)

@@ -26,6 +26,8 @@ MODULES = {
     "timestep": "repro.neuromorphic.timestep",
     "floorline": "repro.core.floorline",
     "partitioner": "repro.core.partitioner",
+    "guidance": "repro.core.guidance",
+    "kernels": "repro.kernels",
     "em_ops": "repro.kernels.event_matmul.ops",
     "em_ref": "repro.kernels.event_matmul.ref",
     "sd_ops": "repro.kernels.sigma_delta.ops",

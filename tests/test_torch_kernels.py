@@ -3,8 +3,13 @@
 On CPU tensors each wrapper runs its plain PyTorch version; the JAX side
 runs its Pallas kernels in interpret mode, as its own tests do.  Inputs are
 made with numpy from a seed and handed to both.  Tolerances: integer
-counter products exact; float products rtol 1e-6 with an atol 1e-6 floor
-for entries that cancel to near zero (contraction order differs).
+counter products and the sigma-delta encoder exact; float32 products rtol
+1e-6 with an atol floor (1e-6 for the joint kernel's operands, 1e-5 for
+the 1-D kernel's unit-normal ones) for entries that cancel to near zero
+(contraction order differs); bfloat16 products 2e-2, the reference's own
+tolerance for them.  Weights are scaled by 1 / sqrt(K), as the network
+builders draw them, so outputs are of order one and the atol floor is
+relative to them.
 """
 
 import numpy as np
@@ -12,13 +17,19 @@ import pytest
 import torch
 
 from _repro_reference import reference
+import repro_torch.kernels
 from repro_torch.kernels.event_matmul import ops as em
-from repro_torch.kernels.event_matmul.ref import event_matmul2_ref
+from repro_torch.kernels.event_matmul.ref import (event_matmul2_ref,
+                                                  event_matmul_ref,
+                                                  event_stats_ref)
 from repro_torch.kernels.sigma_delta import ops as sd
-from repro_torch.kernels.sigma_delta.ref import (window_cumsum_ref,
+from repro_torch.kernels.sigma_delta.ref import (sigma_delta_ref,
+                                                 window_cumsum_ref,
                                                  window_reconstruct_ref)
 
 FLOAT_TOL = dict(rtol=1e-6, atol=1e-6)
+EM_TOL = {"float32": dict(rtol=1e-6, atol=1e-5),
+          "bfloat16": dict(rtol=2e-2, atol=2e-2)}
 
 
 @pytest.fixture(scope="module")
@@ -161,3 +172,227 @@ def test_wrappers_validate_and_count_only_launches():
         sd.window_cumsum(x, torch.ones(2, dtype=torch.int32), window=3)
     with pytest.raises(TypeError):
         sd.window_cumsum(x, torch.ones(1), window=4)
+
+
+# ------------------------------------------- the 1-D kernel's public API
+
+
+def _block_sparse(rng, m, k, density, bm, bk):
+    """float32 activations with a controlled fraction of live (bm, bk)
+    tiles (the reference test sweep's generator)."""
+    x = rng.normal(size=(m, k)).astype(np.float32)
+    keep = rng.random((-(-m // bm), -(-k // bk))) < density
+    return x * np.repeat(np.repeat(keep, bm, 0), bk, 1)[:m, :k]
+
+
+def _both(a: np.ndarray, dtype: str):
+    """The same numbers as a jax array and a torch tensor of ``dtype``."""
+    import jax.numpy as jnp
+    return (jnp.asarray(a, getattr(jnp, dtype)),
+            torch.from_numpy(a).to(getattr(torch, dtype)))
+
+
+def _np(a) -> np.ndarray:
+    """float32 numpy view of a jax array or torch tensor (bf16 widened)."""
+    if isinstance(a, torch.Tensor):
+        return a.to(torch.float32).numpy()
+    return np.asarray(a, np.float32)
+
+
+@pytest.mark.parametrize("M,K,N", [(128, 128, 128), (256, 512, 256),
+                                   (384, 256, 640), (130, 257, 100),
+                                   (8, 1024, 128), (1, 128, 128)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_event_matmul_1d_matches_reference(ref, M, K, N, dtype):
+    rng = np.random.default_rng(M * 7 + K + N)
+    x_r, x_p = _both(_block_sparse(rng, M, K, 0.5, 128, 128), dtype)
+    w_r, w_p = _both(rng.normal(0, 1 / np.sqrt(K), (K, N))
+                     .astype(np.float32), dtype)
+    y_r = ref.em_ops.event_matmul(x_r, w_r, threshold=0.0)
+    y_p = repro_torch.kernels.event_matmul(x_p, w_p, threshold=0.0)
+    assert y_p.dtype == x_p.dtype and tuple(y_p.shape) == (M, N)
+    np.testing.assert_allclose(_np(y_p), _np(y_r), **EM_TOL[dtype])
+    xp = em._pad_to(x_p, (128, 128))
+    wp = em._pad_to(w_p, (128, 128))
+    assert torch.equal(y_p, event_matmul_ref(xp, wp, threshold=0.0, bm=128,
+                                             bk=128)[:M, :N])
+
+
+@pytest.mark.parametrize("blocks", [(128, 128, 128), (256, 128, 256),
+                                    (8, 128, 128)])
+def test_event_matmul_block_sizes_match_reference(ref, blocks):
+    import jax.numpy as jnp
+    bm, bk, bn = blocks
+    rng = np.random.default_rng(3)
+    x = _block_sparse(rng, 2 * bm, 4 * bk, 0.4, bm, bk)
+    w = rng.normal(0, 1 / np.sqrt(4 * bk), (4 * bk, 2 * bn)) \
+        .astype(np.float32)
+    y_r = ref.em_ops.event_matmul(jnp.asarray(x), jnp.asarray(w),
+                                  threshold=0.0, bm=bm, bk=bk, bn=bn)
+    y_p = em.event_matmul(torch.from_numpy(x), torch.from_numpy(w),
+                          threshold=0.0, bm=bm, bk=bk, bn=bn)
+    np.testing.assert_allclose(y_p.numpy(), np.asarray(y_r),
+                               **EM_TOL["float32"])
+    y_rr = ref.em_ref.event_matmul_ref(jnp.asarray(x), jnp.asarray(w),
+                                       threshold=0.0, bm=bm, bk=bk)
+    np.testing.assert_allclose(y_p.numpy(), np.asarray(y_rr),
+                               **EM_TOL["float32"])
+
+
+def test_event_matmul_threshold_and_dense_cases(ref):
+    import jax.numpy as jnp
+    rng = np.random.default_rng(5)
+    small = (rng.normal(size=(128, 256)) * 0.01).astype(np.float32)
+    w = rng.normal(size=(256, 128)).astype(np.float32)
+    y = em.event_matmul(torch.from_numpy(small), torch.from_numpy(w),
+                        threshold=1.0)            # everything sub-threshold
+    assert bool((y == 0).all())
+    # one entry above the threshold keeps its whole (bm, bk) tile, the
+    # sub-threshold entries included: block granularity
+    small[3, 200] = 2.0
+    y = em.event_matmul(torch.from_numpy(small), torch.from_numpy(w),
+                        threshold=1.0)
+    y_r = ref.em_ops.event_matmul(jnp.asarray(small), jnp.asarray(w),
+                                  threshold=1.0)
+    kept = small.copy()
+    kept[:, :128] = 0.0
+    np.testing.assert_allclose(y.numpy(), np.asarray(y_r), **FLOAT_TOL)
+    np.testing.assert_allclose(y.numpy(), kept @ w, **FLOAT_TOL)
+    rng = np.random.default_rng(6)
+    x = rng.normal(size=(256, 384)).astype(np.float32)
+    w = rng.normal(0, 1 / np.sqrt(384), (384, 256)).astype(np.float32)
+    y = em.event_matmul(torch.from_numpy(x), torch.from_numpy(w))
+    np.testing.assert_allclose(y.numpy(), x @ w, **EM_TOL["float32"])
+    with pytest.raises(ValueError):
+        em.event_matmul(torch.zeros(8, 16), torch.zeros(32, 8))
+
+
+@pytest.mark.parametrize("act_d", [0.1, 0.5, 1.0])
+def test_event_matmul_pair_without_occupancy_matches_reference(ref, act_d):
+    """Without ``w_occ`` both products go through the 1-D kernel; the
+    counter product stays bit-identical to the dense ``m @ wm``."""
+    import jax.numpy as jnp
+    rng = np.random.default_rng(int(act_d * 10))
+    M, K, N = 200, 300, 260
+    x = _tiled(rng, (M, K), 128, act_d, 0.4)
+    m = (x != 0).astype(np.float32)
+    w = _tiled(rng, (K, N), 128, 0.7, 0.6, scale=1 / np.sqrt(K))
+    wm = (w != 0).astype(np.float32)
+    y_r, macs_r = ref.em_ops.event_matmul_pair(
+        jnp.asarray(x), jnp.asarray(m), jnp.asarray(w), jnp.asarray(wm))
+    before = em.event_matmul.launches
+    y_p, macs_p = em.event_matmul_pair(
+        torch.from_numpy(x), torch.from_numpy(m), torch.from_numpy(w),
+        torch.from_numpy(wm))
+    assert em.event_matmul.launches == before      # plain version on CPU
+    assert np.array_equal(macs_p.numpy(), np.asarray(macs_r))
+    assert np.array_equal(macs_p.numpy(), m @ wm)
+    np.testing.assert_allclose(y_p.numpy(), np.asarray(y_r), **FLOAT_TOL)
+    # with an all-ones occupancy the joint kernel computes the same pair
+    ones = torch.ones((3, 3), dtype=torch.bool)
+    y2, macs2 = em.event_matmul_pair(
+        torch.from_numpy(x), torch.from_numpy(m), torch.from_numpy(w),
+        torch.from_numpy(wm), ones)
+    assert torch.equal(macs2, macs_p)
+    np.testing.assert_allclose(y2.numpy(), y_p.numpy(), **FLOAT_TOL)
+
+
+def test_block_activity_and_stats_match_reference(ref):
+    import jax.numpy as jnp
+    rng = np.random.default_rng(9)
+    x = _block_sparse(rng, 256, 512, 0.25, 128, 128)
+    act_r = ref.em_ops.block_activity(jnp.asarray(x), 0.0)
+    act_p = repro_torch.kernels.block_activity(torch.from_numpy(x), 0.0)
+    assert np.array_equal(np.asarray(act_r), act_p.numpy())
+    ragged = x[:130, :200]
+    assert np.array_equal(
+        np.asarray(ref.em_ops.block_activity(jnp.asarray(ragged), 0.0,
+                                             128, 64)),
+        em.block_activity(torch.from_numpy(ragged), 0.0, 128, 64).numpy())
+    st_r = ref.em_ref.event_stats_ref(jnp.asarray(x), 0.0, 128, 128)
+    st_p = event_stats_ref(torch.from_numpy(x), 0.0, 128, 128)
+    assert int(st_p["active_blocks"]) == int(st_r["active_blocks"]) \
+        == int(act_p.sum())
+    assert st_p["total_blocks"] == int(st_r["total_blocks"])
+    for key in ("block_density", "element_density",
+                "skipped_weight_bytes_frac"):
+        np.testing.assert_allclose(float(st_p[key]), float(st_r[key]),
+                                   rtol=1e-6)
+
+
+def test_public_kernel_api_matches_reference(ref):
+    import repro.kernels
+    assert repro_torch.kernels.__all__ == repro.kernels.__all__
+    for name in repro_torch.kernels.__all__:
+        assert callable(getattr(repro_torch.kernels, name)), name
+
+
+# ----------------------------------------------- the sigma-delta encoder
+
+
+@pytest.mark.parametrize("shape", [(32, 512), (7, 300), (4, 16, 128),
+                                   (1, 1)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_sigma_delta_encode_matches_reference_exactly(ref, shape, dtype):
+    rng = np.random.default_rng(sum(shape))
+    a_r, a_p = _both(rng.normal(size=shape).astype(np.float32), dtype)
+    s_r, s_p = _both(rng.normal(size=shape).astype(np.float32), dtype)
+    q_r, sn_r = ref.sd_ops.sigma_delta_encode(a_r, s_r, theta=0.1)
+    q_p, sn_p = repro_torch.kernels.sigma_delta_encode(a_p, s_p, theta=0.1)
+    assert q_p.dtype == sn_p.dtype == a_p.dtype
+    assert tuple(q_p.shape) == shape
+    assert np.array_equal(_np(q_p), _np(q_r))
+    assert np.array_equal(_np(sn_p), _np(sn_r))
+    q_o, sn_o = ref.sd_ref.sigma_delta_ref(a_r, s_r, theta=0.1)
+    assert np.array_equal(_np(q_p), _np(q_o))
+    assert np.array_equal(_np(sn_p), _np(sn_o))
+    if q_p.numel() > 1:
+        assert (q_p != 0).any() and (q_p == 0).any()
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("theta", [0.25, 0.1])
+def test_sigma_delta_encode_edge_cases_match_reference(ref, dtype, theta):
+    """|delta| == theta exactly, half-integer delta / theta (half to even),
+    negative deltas, and deltas one ulp either side of theta."""
+    t32 = np.float32(theta)
+    above = np.nextafter(t32, np.float32(1))
+    below = np.nextafter(t32, np.float32(0))
+    delta = np.array([t32, -t32, above, below, -below, 0.0,
+                      0.375, 0.625, -0.375, -0.625, 0.875, -0.875,
+                      2.5 * t32, -2.5 * t32, 3.5 * t32, -1.5 * t32],
+                     np.float32)
+    s = np.linspace(-1.0, 1.0, delta.size).astype(np.float32)
+    s[:6] = 0.0                           # exact deltas where it matters
+    a = (s + delta).astype(np.float32)
+    a = np.stack([a, -a, a * 4])          # negative and larger deltas
+    s = np.stack([s, -s, s * 4])
+    a_r, a_p = _both(a, dtype)
+    s_r, s_p = _both(s, dtype)
+    q_r, sn_r = ref.sd_ops.sigma_delta_encode(a_r, s_r, theta=theta)
+    q_p, sn_p = sd.sigma_delta_encode(a_p, s_p, theta=theta)
+    assert np.array_equal(_np(q_p), _np(q_r))
+    assert np.array_equal(_np(sn_p), _np(sn_r))
+    if dtype == "float32":
+        q = q_p.numpy()
+        assert q[0, 0] == t32 and q[0, 1] == -t32     # |delta| == theta
+        assert q[0, 2] == t32 and q[0, 3] == 0.0      # one ulp either side
+        if theta == 0.25:                             # delta / theta exact
+            # 1.5 -> 2, 2.5 -> 2, -1.5 -> -2, -2.5 -> -2, 3.5 -> 4
+            assert list(q[0, 6:12] / t32) == [2, 2, -2, -2, 4, -4]
+
+
+def test_sigma_delta_encode_validates_and_counts_only_launches(ref):
+    a = torch.ones(4, 4)
+    before = sd.sigma_delta_encode.launches
+    q, s_new = sd.sigma_delta_encode(a, torch.zeros_like(a), theta=0.05)
+    assert sd.sigma_delta_encode.launches == before   # plain version
+    q2, _ = sd.sigma_delta_encode(a, s_new, theta=0.05)
+    assert bool((q2 == 0).all())                      # steady state: silent
+    for theta in (0.0, -0.1):
+        with pytest.raises(ValueError):
+            sd.sigma_delta_encode(a, a, theta=theta)
+    with pytest.raises(ValueError):
+        sd.sigma_delta_encode(a, torch.zeros(4, 5), theta=0.1)
+    assert torch.equal(q, sigma_delta_ref(a, torch.zeros_like(a),
+                                          theta=0.05)[0])
