@@ -10,26 +10,37 @@ Phases, each printing one JSON line:
   (b) main_path — a chip-filling Loihi-2 deployment at full width:
                   fc 1024-2048-1024-1024-512, sd_relu (threshold 0.05),
                   weight density 0.5, T = 1024 steps at input density 0.1.
-                  Functional run through the event backend's kernel mode,
-                  single-candidate pricing into a SimReport, a floorline
-                  fit over five input densities, and the greedy §VI-B
-                  partitioner.  Kernel launch counts are zeroed just before
-                  and read just after; every kernel must have launched.
+                  Functional run through the event backend's kernel mode
+                  (float32 values, int8 counters, value-only base rows: 11
+                  ``event_matmul2`` launches per run_batch), single-
+                  candidate pricing into a SimReport, a floorline fit over
+                  five input densities, and the greedy §VI-B partitioner.
+                  Kernel launch counts are zeroed just before and read just
+                  after; every kernel must have launched.
   profile       — one more run_batch under torch.profiler: device busy
                   time, the device's idle share, the top kernels.
   (c) kernels   — every kernel against its plain PyTorch version on the
-                  card, teacher-forced at the main path's own operands, on
-                  a strided conv stack through im2col, and on edge cases.
+                  card, teacher-forced at the main path's own operands
+                  (values in float32 and, joint, in bfloat16; counters as
+                  float and as int8 masks; the value-only base rows), on a
+                  strided conv stack through im2col, and on edge cases
+                  (bm = 64 with a threshold); two launches of each of the
+                  six instances (1-D and joint, float32 / bfloat16 / int8)
+                  bit for bit, with and without a split k list.
   (d) dense     — the same workload through the dense backend.
   (e) times     — CUDA-event times of each kernel's launch alone (``ms``),
-                  of its wrapper (compaction included), of its plain
-                  version and of one PyTorch call computing the same
-                  function, beside the card's bound for the same work.
+                  of its wrappers (the public one, which lays the weights
+                  out per call, and the event backend's on cached
+                  weights), of its plain version and of one PyTorch call
+                  computing the same function, beside the card's bound for
+                  the same work: by the method the kernel uses (3xTF32 at
+                  the TF32 rate, int8, bytes) and at the fp32 FMA rate.
                   ``event_matmul2`` is timed at the largest value and
-                  counter launches, the narrowest layer, a discarded
-                  base-row counter launch, and the largest delta stream
-                  with half its windows quiet (dead activation tiles); the
-                  share of live tile products of every main-path launch is
+                  counter launches, the narrowest layer, a base-row value
+                  launch, the largest delta stream with half its windows
+                  quiet (dead activation tiles) and whisper-base's fc2 at
+                  M = 448 (448x2048 @ 2048x512, a split k list); the share
+                  of live tile products of every main-path launch is
                   printed too.  ``window_cumsum`` at the widest stream.
   (f) frontend  — the model-zoo frontend at full width: whisper-base's full
                   config compiled at its decoder context (seq_len 448; 97
@@ -39,7 +50,8 @@ Phases, each printing one JSON line:
                   before the compile and read after the run; every MAC
                   counter equals 448 * macs_per_token and every counter is
                   bit-identical to a dense run.  One more kernel-mode run
-                  is traced as in ``profile``.
+                  is traced as in ``profile``, with the device time of each
+                  kernel family.
   (g) pricing   — four compiled smoke archs (gemma2, mamba2, olmoe, whisper)
                   priced on loihi2_like through kernel mode and dense; the
                   per-layer counters equal ``tests/golden/model_*.json``.
@@ -68,7 +80,7 @@ Phases, each printing one JSON line:
                   value product (fc1, 1024x2048 @ 2048x1024, on the encoded
                   messages), and at fc0 (1024x1024 @ 1024x2048) float32
                   with every tile live, 25% of the tiles live in float32
-                  and bfloat16;
+                  and bfloat16, and whisper-base's fc2 shape at M = 448;
                   the pair on fc0's teacher-forced operands (counters equal
                   to dense and to ``event_matmul2``'s).  The encoder bit for
                   bit against its plain version at fc0's stream and at
@@ -108,11 +120,13 @@ ROOT = pathlib.Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
 # Published H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit):
-# HBM3 bandwidth, the float32 rate outside the tensor cores (the value
-# products' type) and the int8 tensor-core rate (0/1 counter products are
-# exact in int8 with int32 sums).
+# HBM3 bandwidth, the float32 rate outside the tensor cores, and the
+# tensor-core rates: TF32 (the float32 value products run as 3xTF32:
+# three TF32 products per multiply-add), bf16 and int8 (0/1 counter
+# products are exact in int8 with int32 sums).
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FP32_FLOPS = 67e12
+PEAK_TF32_FLOPS = 495e12
 PEAK_BF16_FLOPS = 989e12
 PEAK_INT8_OPS = 1979e12
 TILE = 128
@@ -255,10 +269,18 @@ def time_ms_cold(fn, reps: int = 20) -> float:
     return statistics.median(per_call)
 
 
+#: Kernel families in a trace, by substrings of their kernels' names: the
+#: block-sparse matmul is its tile body plus the split-sum pass.
+FAMILIES = {"event_matmul": ("event_matmul_kernel", "reduce_splits"),
+            "flash_attn": ("flash_attn",),
+            "window_cumsum": ("window_cumsum",),
+            "sigma_delta": ("sigma_delta",)}
+
+
 def traced(fn) -> dict:
-    """Wall time, device busy time, the device's idle share and the top
-    kernels of one call of ``fn`` under torch.profiler (ending in a
-    synchronise)."""
+    """Wall time, device busy time, the device's idle share, the device
+    time of each kernel family and the top kernels of one call of ``fn``
+    under torch.profiler (ending in a synchronise)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
@@ -276,10 +298,14 @@ def traced(fn) -> dict:
                         if e.device_type == torch.autograd.DeviceType.CUDA
                         and dev_us(e) > 0), key=lambda r: -r[1])
     busy_s = sum(us for _, us, _ in by_kernel) * 1e-6
+    families = {f: sum(us for k, us, _ in by_kernel
+                       if any(p in k for p in parts)) * 1e-6
+                for f, parts in FAMILIES.items()}
     return {"wall_s": wall,
             "device_busy_s": busy_s if busy_s else "not measured",
             "device_idle_share": (1 - busy_s / wall) if busy_s
             else "not measured",
+            "family_device_s": families if busy_s else "not measured",
             "top_kernels": [{"name": k[:90], "device_s": us * 1e-6,
                              "calls": n} for k, us, n in by_kernel[:10]]}
 
@@ -306,9 +332,11 @@ def main() -> int:
     from repro_torch.core.partitioner import (SimEvaluator,
                                               optimize_partitioning)
     from repro_torch.kernels.event_matmul.ops import (
-        _compact_indices, _compact_indices_joint, _pad_to, block_activity,
-        event_matmul, event_matmul2, event_matmul_pair, pad_compact,
-        weight_block_occupancy)
+        KernelWeights, _compact_indices_joint, _pad_to, block_activity,
+        event_matmul, event_matmul2, event_matmul_packed, event_matmul_pair,
+        pad_compact, weight_block_occupancy)
+    from repro_torch.kernels.event_matmul.ops import (
+        bind_launch as em_bind_launch)
     from repro_torch.kernels.event_matmul.ref import (event_matmul2_ref,
                                                       event_matmul_ref)
     from repro_torch.kernels.flash_attn.ops import (bind_launch,
@@ -354,15 +382,20 @@ def main() -> int:
     # -------------------------------------------------------- (b) main path
     class Recorder(EventCompute):
         """Kernel-mode event backend that keeps every synaptic forward's
-        operands, for the teacher-forced checks of phase (c)."""
+        operands and every value-only pass's, for the teacher-forced
+        checks of phase (c)."""
 
         def __init__(self):
             super().__init__(mode="kernel")
-            self.calls, self.deltas = [], []
+            self.calls, self.deltas, self.bases = [], [], []
 
         def forward(self, layer, x_eff, act_mask, msgs_in):
             self.calls.append((layer, x_eff, act_mask, msgs_in))
             return super().forward(layer, x_eff, act_mask, msgs_in)
+
+        def value_forward(self, layer, x_eff):
+            self.bases.append((layer, x_eff))
+            return super().value_forward(layer, x_eff)
 
         def delta_forward(self, layer, x_in, in_acc, act_mask, msgs_in):
             self.deltas.append((layer, x_in, in_acc.clone()))
@@ -380,7 +413,9 @@ def main() -> int:
     prof = loihi2_like()
     part = minimal_partition(net, prof)
     n_delta = len(net.layers) - 1          # every layer after an sd_relu one
-    expect = {"event_matmul2": 2 * len(net.layers) + 2 * n_delta,
+    # a value and a counter launch per layer, one value-only launch for
+    # each delta layer's base rows
+    expect = {"event_matmul2": 2 * len(net.layers) + n_delta,
               "window_cumsum": n_delta}
     counters = {"event_matmul2": event_matmul2,
                 "window_cumsum": window_cumsum}
@@ -451,20 +486,26 @@ def main() -> int:
     checks = 0
 
     def check_matmul(x, w, occ, what, mask_operand=False):
+        """The joint kernel against its plain version: masks exactly, as
+        float32 (the float32 instance) and as int8 (the int8 one)."""
         nonlocal checks
-        y = event_matmul2(x, w, occ)
         M, N = x.shape[0], w.shape[1]
-        y_ref = event_matmul2_ref(_pad_to(x, (TILE, TILE)),
-                                  _pad_to(w, (TILE, TILE)), occ,
-                                  threshold=0.0, bm=TILE, bk=TILE,
-                                  bn=TILE)[:M, :N]
-        if mask_operand:
-            exact(y, y_ref, what)
-        else:
-            max_err["event_matmul2"] = max(
-                max_err["event_matmul2"],
-                close(y, y_ref, PRE_RTOL, PRE_ATOL, what))
-        checks += 1
+        ops = [(x, w)] + ([(x.to(torch.int8), w.to(torch.int8))]
+                          if mask_operand else [])
+        for xo, wo in ops:
+            y = event_matmul2(xo, wo, occ)
+            y_ref = event_matmul2_ref(_pad_to(xo, (TILE, TILE)),
+                                      _pad_to(wo, (TILE, TILE)), occ,
+                                      threshold=0.0, bm=TILE, bk=TILE,
+                                      bn=TILE)[:M, :N]
+            require(y.dtype == torch.float32, f"{what}: type {y.dtype}")
+            if mask_operand:
+                exact(y, y_ref, f"{what} ({xo.dtype})")
+            else:
+                max_err["event_matmul2"] = max(
+                    max_err["event_matmul2"],
+                    close(y, y_ref, PRE_RTOL, PRE_ATOL, what))
+            checks += 1
         return y
 
     def check_forward(layer, x, m, msgs, what):
@@ -484,6 +525,24 @@ def main() -> int:
         check_matmul(x, layer.weights, occ, f"fc call {i} values")
         check_matmul(m, layer.w_mask, occ, f"fc call {i} counters",
                      mask_operand=True)
+    for layer, xb in rec.bases:            # the value-only base rows
+        close(kernel_cc.value_forward(layer, xb), xb @ layer.weights,
+              PRE_RTOL, PRE_ATOL, f"{layer.name} base rows")
+        checks += 1
+    # the joint product in bfloat16, on fc0's operands
+    fc0_layer, fc0_x, _, _ = next(c for c in rec.calls
+                                  if c[0] is net.layers[0]
+                                  and c[1].shape[0] == T)
+    fc0_w = fc0_layer.weights
+    fc0_occ = weight_block_occupancy(fc0_w)
+    xb, wb = fc0_x.to(torch.bfloat16), fc0_w.to(torch.bfloat16)
+    yb = event_matmul2(xb, wb, fc0_occ)
+    require(yb.dtype == torch.bfloat16, f"bf16 joint: type {yb.dtype}")
+    bf16_err = close(yb.float(), event_matmul2_ref(
+        xb, wb, fc0_occ, threshold=0.0, bm=TILE, bk=TILE, bn=TILE,
+        out_dtype=torch.bfloat16).float(), *EM_TOL["bfloat16"],
+        "fc0 joint bfloat16")
+    checks += 1
     for layer, x_in, acc in rec.deltas:
         bases, xwin, new_acc = window_reconstruct(x_in, acc, window=TILE)
         rb, rx, ra = window_reconstruct_ref(x_in, acc, window=TILE)
@@ -554,10 +613,55 @@ def main() -> int:
             xwin, rx, WIN_RTOL, WIN_ATOL, f"ragged T={T_edge} window"))
         exact(bases, rb, "ragged bases")
         checks += 1
+    # tiles other than the kernel's 128 (bm = 64): the dead tiles of x
+    # are zeroed, then the 128-tile product runs at threshold 0.  Rows
+    # 64-127 of the first m-block hold only sub-threshold entries.
+    x64 = fc0_x.clone()
+    x64[64:128] = (0.01 * torch.randn((64, x64.shape[1]), generator=g)
+                   ).clamp(-0.04, 0.04).to(dev)
+    bm64 = {}
+    for what, fn in (("1-D", lambda: event_matmul(
+            x64, fc0_w, threshold=THETA, bm=64, bk=TILE)),
+                     ("joint", lambda: event_matmul2(
+            x64, fc0_w, torch.ones_like(fc0_occ), threshold=THETA, bm=64,
+            bk=TILE, bn=TILE))):
+        y64 = fn()
+        y64_ref = event_matmul_ref(x64, fc0_w, threshold=THETA, bm=64,
+                                   bk=TILE)
+        require(bool((y64[64:128] == 0).all()),
+                "bm = 64: a dead tile is not exact zeros")
+        bm64[what] = close(y64, y64_ref, *EM_TOL["float32"],
+                           f"bm = 64 {what}")
+        checks += 1
+    # two launches of each instance, bit for bit: fc0's operands (one
+    # block per output tile) and whisper-base's fc2 at M = 448 (a split
+    # k list)
+    xw = torch.relu(torch.randn((448, 2048), generator=g)).to(dev)
+    ww = (torch.randn((2048, 512), generator=g) / 2048 ** 0.5).to(dev)
+    repeats = {}
+    for shape, (xs_, ws_) in (("fc0", (fc0_x, fc0_w)),
+                              ("whisper fc2, M 448", (xw, ww))):
+        occ_ = weight_block_occupancy(ws_)
+        for dt in (torch.float32, torch.bfloat16, torch.int8):
+            xo, wo = ((xs_ != 0).to(dt), (ws_ != 0).to(dt)) \
+                if dt == torch.int8 else (xs_.to(dt), ws_.to(dt))
+            for kind, o in (("1-D", None), ("joint", occ_)):
+                launch, out = em_bind_launch(xo, KernelWeights(wo, o))
+                build.check(launch(), f"{shape} {kind} {dt}")
+                first = out.clone()
+                build.check(launch(), f"{shape} {kind} {dt}")
+                torch.cuda.synchronize()
+                exact(out, first, f"{shape} {kind} {dt}: two launches")
+                repeats[f"{shape} {kind} {str(dt)[6:]}"] = launch.splits
+                checks += 1
     torch.cuda.synchronize()
     emit({"phase": "kernels", "checks": checks, "max_abs_err": max_err,
+          "bf16_joint_max_abs_err": bf16_err, "bm64_max_abs_err": bm64,
+          "repeat_launches_bit_identical": repeats,
           "tolerances": {"pre": [PRE_RTOL, PRE_ATOL],
                          "window_cumsum": [WIN_RTOL, WIN_ATOL],
+                         "bfloat16": list(EM_TOL["bfloat16"]),
+                         "bm64": list(EM_TOL["float32"]),
                          "counters": "bit-identical"},
           "wall_s": time.perf_counter() - t0})
 
@@ -592,42 +696,67 @@ def main() -> int:
         occ = weight_block_occupancy(w)
         return active[:, None, :] & occ.T[None, :, :], xp, active, occ
 
+    def matmul_bound(M: int, N: int, live, elt: int, out_elt: int,
+                     rate: float, products: int) -> dict:
+        """Bytes and operations of one block-sparse product, from this
+        call's live (Mb, Nb, Kb) tile products: every operand tile some
+        live product needs read once (``elt`` bytes an element), the
+        activity and occupancy bytes, the (M, N) output written once
+        (``out_elt`` bytes), and ``products`` multiply-adds per live MAC at
+        ``rate`` (3 at the TF32 rate for 3xTF32).  Also the bound at the
+        fp32 FMA rate (one multiply-add per MAC)."""
+        mb, nb, kb = live.shape
+        macs = TILE ** 3 * int(live.sum())
+        nbytes = elt * TILE * TILE * (int(live.any(dim=1).sum())
+                                      + int(live.any(dim=0).sum()))
+        nbytes += out_elt * M * N + mb * kb + kb * nb
+        t_bytes = nbytes / PEAK_BYTES_PER_S
+        t_ops = 2 * products * macs / rate
+        return {"bytes": nbytes, "ops": 2 * products * macs,
+                "bound_ms": 1e3 * max(t_bytes, t_ops),
+                "bound_by": "bytes" if t_bytes > t_ops else "operations",
+                "fp32_fma_bound_ms": 1e3 * max(
+                    t_bytes, 2 * macs / PEAK_FP32_FLOPS)}
+
     def time_matmul(x, w, counter: bool, what: str, name: str) -> dict:
         """Launch-alone, wrapper, plain and library times of one
-        event_matmul2 call, with its bound from this call's live tiles:
-        operand tiles read once, the output written once, and the live
-        products at the fp32 rate (values) or the int8 rate (counters)."""
+        event_matmul2 call, with its bounds from this call's live tiles.
+        Values are float32 (3xTF32), counters int8 0/1 masks (int8 rate,
+        float32 out); the library call is ``torch.matmul`` for values and
+        ``torch._int_mm`` for counters (``torch.matmul`` of the float
+        masks beside it)."""
         live, xp, active, occ = live_tiles(x, w)
         wp = _pad_to(w, (TILE, TILE))
-        idx, cnt = _compact_indices_joint(active, occ)
-        mb, nb, kb = live.shape
-        out = torch.empty((xp.shape[0], wp.shape[1]), device=dev)
-        n_live = int(live.sum())
-        nbytes = 4 * TILE * TILE * (int(live.any(dim=1).sum())
-                                    + int(live.any(dim=0).sum()))
-        nbytes += 4 * xp.shape[0] * wp.shape[1] + 4 * (mb * nb * (kb + 1))
-        ops = 2 * TILE ** 3 * n_live
-        t_bytes = nbytes / PEAK_BYTES_PER_S
-        t_ops = ops / (PEAK_INT8_OPS if counter else PEAK_FP32_FLOPS)
-        row = {"what": what, "layer": name, "M": x.shape[0],
-               "K": x.shape[1], "N": w.shape[1],
-               "live_tile_products": n_live, "tile_products": live.numel(),
-               "bytes": nbytes, "ops": ops,
-               "ops_rate": "int8" if counter else "fp32",
-               "ms": time_ms(lambda: lib.event_matmul2_launch(
-                   xp.data_ptr(), wp.data_ptr(), idx.data_ptr(),
-                   cnt.data_ptr(), out.data_ptr(), mb, nb, kb, xp.shape[1],
-                   wp.shape[1], stream)),
-               "wrapper_ms": time_ms(lambda: event_matmul2(x, w, occ)),
-               "plain_ms": time_ms(lambda: event_matmul2_ref(
-                   xp, wp, occ, threshold=0.0, bm=TILE, bk=TILE, bn=TILE)),
-               "bound_ms": 1e3 * max(t_bytes, t_ops),
-               "bound_by": "bytes" if t_bytes > t_ops else "operations",
-               "library_ms": time_ms(lambda: torch.matmul(xp, wp))}
         if counter:
-            # the same exact counter product on the int8 tensor cores
-            x8, w8 = xp.to(torch.int8), wp.to(torch.int8)
-            row["int8_mm_ms"] = time_ms(lambda: torch._int_mm(x8, w8))
+            x, w = (x != 0).to(torch.int8), (w != 0).to(torch.int8)
+        kw = KernelWeights(w, occ)
+        launch, _ = em_bind_launch(x, kw)
+        M, N = x.shape[0], w.shape[1]
+        row = {"what": what, "layer": name, "M": M, "K": x.shape[1],
+               "N": N, "dtype": str(x.dtype)[6:],
+               "live_tile_products": int(live.sum()),
+               "tile_products": live.numel(), "splits": launch.splits,
+               **matmul_bound(M, N, live, x.element_size(), 4,
+                              PEAK_INT8_OPS if counter else PEAK_TF32_FLOPS,
+                              1 if counter else 3),
+               "method": "int8" if counter else "3xTF32",
+               "ms": time_ms(launch),
+               "wrapper_ms": time_ms(lambda: event_matmul2(x, w, occ)),
+               "packed_wrapper_ms": time_ms(
+                   lambda: event_matmul_packed(x, kw)),
+               "plain_ms": time_ms(lambda: event_matmul2_ref(
+                   _pad_to(x, (TILE, TILE)), _pad_to(w, (TILE, TILE)), occ,
+                   threshold=0.0, bm=TILE, bk=TILE, bn=TILE))}
+        if counter and M > 16:
+            x8, w8 = _pad_to(x, (TILE, TILE)), _pad_to(w, (TILE, TILE))
+            row["library_ms"] = time_ms(lambda: torch._int_mm(x8, w8))
+            row["library_call"] = "torch._int_mm"
+            xf, wf = xp != 0, wp != 0
+            xf, wf = xf.to(torch.float32), wf.to(torch.float32)
+            row["matmul_f32_ms"] = time_ms(lambda: torch.matmul(xf, wf))
+        else:
+            row["library_ms"] = time_ms(lambda: torch.matmul(xp, wp))
+            row["library_call"] = "torch.matmul"
         return row
 
     # every main-path launch: (value, counter) live share per forward call
@@ -647,9 +776,9 @@ def main() -> int:
                                                    -c[1].shape[0]))
     mm_rows.append(time_matmul(x, layer.weights, False, "narrowest layer",
                                layer.name))
-    layer, _, m, _ = next(c for c in rec.calls if c[1].shape[0] < TILE)
-    mm_rows.append(time_matmul(m, layer.w_mask, True,
-                               "base-row counter (discarded)", layer.name))
+    layer, xb = rec.bases[0]
+    mm_rows.append(time_matmul(xb, layer.weights, False,
+                               "base-row value launch", layer.name))
     widest = max(rec.deltas, key=lambda d: d[1].numel())[0]
     layer, x, _, _ = next(c for c in rec.calls
                           if c[0] is widest and c[1].shape[0] == T)
@@ -658,13 +787,17 @@ def main() -> int:
     mm_rows.append(time_matmul(xq.reshape(T, -1), layer.weights, False,
                                "widest xwin, half its windows quiet",
                                layer.name))
+    mm_rows.append(time_matmul(xw, ww, False, "whisper-base fc2 shape, "
+                               "M = 448 (random operands, seed 11)",
+                               "whisper fc2"))
     mm = {"name": "event_matmul2", "route": "cuda",
           "source": "src/repro_torch/csrc/event_matmul.cu",
           "replaces": "src/repro/kernels/event_matmul/kernel.py:52",
           "launches": launches["event_matmul2"],
           "max_abs_err": max_err["event_matmul2"]}
     mm.update({k: mm_rows[0][k] for k in ("ms", "plain_ms", "bound_ms",
-                                          "bound_by", "library_ms")})
+                                          "bound_by", "library_ms",
+                                          "fp32_fma_bound_ms", "method")})
 
     # window_cumsum at the main path's widest delta stream
     layer, x_in, _ = max(rec.deltas, key=lambda d: d[1].numel())
@@ -698,6 +831,7 @@ def main() -> int:
     emit({"phase": "times", "card": card,
           "peaks": {"bytes_per_s": PEAK_BYTES_PER_S,
                     "fp32_flops_per_s": PEAK_FP32_FLOPS,
+                    "tf32_flops_per_s": PEAK_TF32_FLOPS,
                     "int8_ops_per_s": PEAK_INT8_OPS,
                     "source": "NVIDIA H100 SXM data sheet"},
           "event_matmul2": mm_rows,
@@ -999,11 +1133,17 @@ def main() -> int:
     keep = torch.as_tensor(rng.random((T // TILE, sizes[0] // TILE)) < 0.25,
                            device=dev)
     x_q = x0 * keep.repeat_interleave(TILE, 0).repeat_interleave(TILE, 1)
+    gw = torch.Generator(device=dev).manual_seed(23)
     em_cases = {"fc0 float32, all live": (x0, layer0.weights),
                 "fc0 float32, 25% live": (x_q, layer0.weights),
                 "fc0 bfloat16, 25% live": (x_q.to(torch.bfloat16),
                                            layer0.weights.to(
-                                               torch.bfloat16))}
+                                               torch.bfloat16)),
+                "whisper-base fc2 shape, M = 448, float32": (
+                    torch.relu(torch.randn((448, 2048), generator=gw,
+                                           device=dev)),
+                    torch.randn((2048, 512), generator=gw, device=dev)
+                    / 2048 ** 0.5)}
     em_rows = {}
     # phase (j)'s value product: fc1's shape on the encoded message stream
     em_err["float32"] = close(y_q, event_matmul_ref(
@@ -1041,7 +1181,6 @@ def main() -> int:
         "counters": "bit-identical to dense m @ wm and to event_matmul2",
         "values_bit_identical_to_event_matmul2": bool(torch.equal(y1, y2))}
     # kernel 4: fc0's activation stream and whisper-base's widest map
-    gw = torch.Generator(device=dev).manual_seed(23)
     a_w = torch.relu(torch.randn((1500, 2048), generator=gw, device=dev))
     s_w = torch.cat([torch.zeros_like(a_w[:1]), a_w[:-1]])
     sd_cases = {"fc0 activations (1024, 2048) float32": (a_fc0, s_fc0),
@@ -1069,45 +1208,33 @@ def main() -> int:
           "wall_s": time.perf_counter() - t0})
 
     # ------------------------------------------ (l) kernel 3 and 4 times
-    peak_of = {torch.float32: PEAK_FP32_FLOPS, torch.bfloat16: PEAK_BF16_FLOPS}
-
     def time_em(what, x, w) -> dict:
         """Launch-alone, wrapper, plain and torch.matmul times of one 1-D
-        event_matmul call, with its bound from this call's live tiles:
-        live x tiles read once, every w k-strip some live tile needs read
-        once, the output written once, and the live tile products at the
-        operand type's rate."""
+        event_matmul call, with its bounds from this call's live tiles
+        (:func:`matmul_bound`: every n tile of a live activation tile is
+        live; float32 by 3xTF32 at the TF32 rate, bfloat16 at its own).
+        The wrapper lays the weights out per call; ``ms`` is the launch
+        alone on weights laid out once."""
         xp, wp = _pad_to(x, (TILE, TILE)), _pad_to(w, (TILE, TILE))
         active = block_activity(xp, 0.0)
-        idx, cnt = _compact_indices(active)
-        mb, kb = active.shape
         nb = wp.shape[1] // TILE
-        out = torch.empty((xp.shape[0], wp.shape[1]), dtype=x.dtype,
-                          device=dev)
-        elt = x.element_size()
-        n_live = int(active.sum())
-        nbytes = elt * (TILE * TILE * n_live
-                        + TILE * wp.shape[1] * int(active.any(dim=0).sum())
-                        + xp.shape[0] * wp.shape[1]) + 4 * (mb * kb + mb)
-        ops = 2 * TILE * TILE * wp.shape[1] * n_live
-        t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S, ops / peak_of[x.dtype]
-        bf = int(x.dtype == torch.bfloat16)
-
-        def launch():
-            return lib.event_matmul_launch(
-                xp.data_ptr(), wp.data_ptr(), idx.data_ptr(),
-                cnt.data_ptr(), out.data_ptr(), mb, nb, kb, xp.shape[1],
-                wp.shape[1], bf, stream)
+        live = active[:, None, :].expand(-1, nb, -1)
+        bf = x.dtype == torch.bfloat16
+        launch, _ = em_bind_launch(x, KernelWeights(w))
         return {"what": what, "M": x.shape[0], "K": x.shape[1],
                 "N": w.shape[1], "dtype": str(x.dtype).split(".")[-1],
-                "live_tiles": n_live, "tiles": active.numel(),
-                "bytes": nbytes, "ops": ops, "ms": time_ms(launch),
+                "live_tiles": int(active.sum()), "tiles": active.numel(),
+                "splits": launch.splits,
+                **matmul_bound(x.shape[0], w.shape[1], live,
+                               x.element_size(), x.element_size(),
+                               PEAK_BF16_FLOPS if bf else PEAK_TF32_FLOPS,
+                               1 if bf else 3),
+                "method": "bf16" if bf else "3xTF32",
+                "ms": time_ms(launch),
                 "cold_l2_ms": time_ms_cold(launch),
                 "wrapper_ms": time_ms(lambda: event_matmul(x, w)),
                 "plain_ms": time_ms(lambda: event_matmul_ref(
                     xp, wp, threshold=0.0, bm=TILE, bk=TILE)),
-                "bound_ms": 1e3 * max(t_bytes, t_ops),
-                "bound_by": "bytes" if t_bytes > t_ops else "operations",
                 "library_ms": time_ms(lambda: torch.matmul(xp, wp)),
                 "library_call": "torch.matmul"}
 
@@ -1149,6 +1276,7 @@ def main() -> int:
     emit({"phase": "times_api", "card": card,
           "peaks": {"bytes_per_s": PEAK_BYTES_PER_S,
                     "fp32_flops_per_s": PEAK_FP32_FLOPS,
+                    "tf32_flops_per_s": PEAK_TF32_FLOPS,
                     "bf16_flops_per_s": PEAK_BF16_FLOPS,
                     "source": "NVIDIA H100 SXM data sheet"},
           "event_matmul": em_times, "sigma_delta_encode": sd_times})
@@ -1158,7 +1286,8 @@ def main() -> int:
            "launches": launches_j["event_matmul"],
            "max_abs_err": em_err["float32"]}
     em1.update({k: em_times[0][k] for k in ("ms", "plain_ms", "bound_ms",
-                                            "bound_by", "library_ms")})
+                                            "bound_by", "library_ms",
+                                            "fp32_fma_bound_ms", "method")})
     sdk = {"name": "sigma_delta_encode", "route": "cuda",
            "source": "src/repro_torch/csrc/sigma_delta.cu",
            "replaces": "src/repro/kernels/sigma_delta/kernel.py:27",

@@ -1,5 +1,5 @@
 // Block-sparse event-driven matmuls for Hopper (sm_90a): one tile body,
-// two TPU kernels.
+// two TPU kernels, three operand kinds.
 //
 // Replaces `_event_matmul_kernel` / `event_matmul_pallas` (the 1-D kernel)
 // and `_event_matmul2_kernel` / `event_matmul2_pallas` (the joint kernel)
@@ -7,204 +7,489 @@
 // over 128 x 128 x 128 tiles, where the (m, n) output tile sums only the
 // k-tiles in its live list and every skipped tile product is an exact
 // zero; a tile whose list is empty writes zeros.  The two differ only in
-// where the list lives:
-//   1-D   (kPerPair = false): idx[m, :cnt[m]], the activation tiles of
-//         m-block m that hold an event, shared by every n;
-//   joint (kPerPair = true):  idx[m, n, :cnt[m, n]], the k steps whose
-//         activation tile has an event AND whose weight tile a nonzero.
-// Operands are float32 or bfloat16 (one type for x, w and the output; the
-// joint entry point takes float32 only).  Products accumulate in float32
-// with one FMA each (a bf16 x bf16 product is exact in float32) and the sum
-// is rounded to the operand type once, at the end.
+// how the list is built:
+//   1-D   (kPerPair = false): the k tiles of m-block m that hold an event,
+//         shared by every n;
+//   joint (kPerPair = true):  the k tiles whose activation tile has an
+//         event AND whose weight tile (k, n) a nonzero.
 //
-// What bounds it on this card: operations.  Every live tile product is
-// 2 * 128^3 flops against 2 * 64 KiB (float32) of operands, and the
-// products run in plain fp32 FMA (no TF32, no tensor cores), whose peak is
-// ~67 TFLOP/s -- so the compute roof sits far below the 3.35 TB/s memory
-// roof.  fp32 FMA is required for the float32 value matmul, which must stay
-// within rtol 1e-6 of a float32 reference (TF32 would not).  The counter
-// matmul multiplies 0/1 masks: fp32 keeps its integer sums exact below
-// 2^24, but so would int8 tensor-core products with int32 sums, at a far
-// higher rate; bf16 operands would allow the 989 TFLOP/s tensor cores.
-// This first version uses neither.
+// Operand kinds (one instance each; x and w of one type):
+//   F32  -- float32 values, 3xTF32 on the TF32 tensor cores: each operand
+//           is split as hi = tf32_rna(v), lo = tf32_rna(v - hi), and each
+//           k step of 8 accumulates a_lo*b_hi + a_hi*b_lo, then a_hi*b_hi.
+//           The tensor core sums one stage (32 k) from zero; the stage's
+//           sum joins the float32 accumulator through a rounded add.  Kept
+//           in the tensor core across the whole list, the sum truncates at
+//           every step, drifts one way, and missed float32 by 2.8e-5 at
+//           K = 1024 (limit 1e-5); a stage's partial has a random sign, so
+//           its truncations do not add up.  About float32 accuracy (the
+//           dropped a_lo*b_lo term is ~2^-22 relative); float32 out.
+//   BF16 -- bfloat16 operands, float32 accumulation, rounded once at the
+//           store; bfloat16 out.
+//   I8   -- int8 0/1 masks (the counter products), int32 accumulation,
+//           converted to float32 at the store: exact while a sum stays
+//           below 2^24.
 //
-// Design: one 256-thread block per (m, n) output tile (Hopper has no
-// scalar prefetch, so the block reads its own cnt and k list).  The k loop
-// runs only over the live list, so dead tiles are never loaded.  Each live
-// k-tile is staged through shared memory 8 k-rows at a time, double
-// buffered: while the block multiplies one stage, every thread holds its
-// share of the next stage (4 consecutive elements of one x row and of one
-// w row: a float4, or 8 bytes of bf16, converted to float32) in registers
-// and stores it to the other buffer afterwards, so one barrier per stage
-// suffices.  x is stored transposed (xs[k][row]) so both operands are read
-// as float4s.  Each thread owns an 8 x 8 register block of the output
-// (rows ty*4 + {0..3} and 64 + ty*4 + {0..3}, likewise columns), read
-// conflict-free, and accumulates with one FMA per product in ascending k
-// order -- the same order in both instances, so with an all-ones weight
-// occupancy the joint and the 1-D product give the same bits.  Operands
-// arrive padded to tile multiples and 16-byte aligned.
+// What bounds it on this card: operations for F32 (3 products per MAC at
+// the 495 TFLOP/s TF32 rate) and BF16 at full tile liveness; bytes for I8
+// (the float32 output outweighs its int8 operands) and for sparse BF16.
+// The design answers each limit of the first version (SIMT fp32 FMA,
+// synchronous staging, one block per 128 x 128 tile, host-built lists):
+//
+// * Tensor cores through mma.sync (m16n8k8 tf32, m16n8k16 bf16, m16n8k32
+//   s8), not wgmma: a first tensor-core design.  With both operands
+//   K-major (x as (M, K), w transposed to (N, K) by the wrapper) the three
+//   kinds read their fragments at the same 32-bit word positions, so one
+//   body serves all three: a k step is 8 words (k8 tf32, k16 bf16, k32 s8).
+// * A ring of kStages = 4 shared-memory stages filled by 16-byte
+//   cp.async: a stage is 128 bytes of k for the block's 64 x rows and 128
+//   w rows (24 KB), 16-byte chunks XOR-swizzled by row so that fragment
+//   reads are conflict-free.  The copies for stage q+3 are in flight while
+//   stage q is multiplied; one barrier per stage.  96 KB of dynamic shared
+//   memory per block, two blocks per SM.
+// * 64-row output tiles (the activity granularity stays 128: a tile reads
+//   the list of its 128-row block), four warps of 32 x 64 outputs each.
+//   Where the output tiles alone would leave the card under one wave, the
+//   wrapper asks for `splits` blocks per tile: block s takes live entries
+//   [s*cnt/splits, (s+1)*cnt/splits) of the list and writes a float32
+//   partial; a second pass sums the partials in split order.  No atomics
+//   and a fixed k order: repeated launches give the same bits.
+// * The block builds its own live list (the Hopper form of the TPU's
+//   scalar prefetch): warp 0 reads the (Mb, Kb) activity bytes and, for
+//   the joint kernel, the (Kb, Nb) occupancy bytes, and compacts the live
+//   k steps in ascending order into shared memory with a ballot and a
+//   popcount prefix, 32 k tiles per step.
+//
+// Operands arrive zero-padded to 128-tile multiples, 16-byte aligned.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include <cstddef>
+#include <cstdint>
+
 namespace {
 
-constexpr int kTile = 128;              // bm = bk = bn
-constexpr int kStep = 8;                // k rows per shared-memory stage
-constexpr int kStages = kTile / kStep;  // stages per live k-tile
-constexpr int kThreads = 256;           // 16 x 16 threads, 8 x 8 outputs each
+constexpr int kTile = 128;     // activity block, k tile and n tile
+constexpr int kRows = 64;      // output rows per block
+constexpr int kThreads = 128;  // four warps, 2 x 2, 32 x 64 outputs each
+constexpr int kNT = 8;         // 8-column slices per warp
+constexpr int kWords = 32;     // 32-bit words of k per staged row (128 B)
+constexpr int kStages = 4;     // depth of the shared-memory ring
+constexpr int kStageWords = (kRows + kTile) * kWords;
+constexpr int kStageBytes = kStageWords * 4;
+constexpr int kChunks = (kRows + kTile) * 8 / kThreads;  // 16 B copies
 
-__device__ __forceinline__ float4 load4(const float* p) {
-  return *reinterpret_cast<const float4*>(p);
+// kPromote: each stage's sum starts at zero in the tensor core and joins
+// the accumulator through a rounded float32 add
+struct F32 {
+  using T = float;
+  using Acc = float;
+  using Out = float;
+  static constexpr bool kPromote = true;
+};
+struct BF16 {
+  using T = __nv_bfloat16;
+  using Acc = float;
+  using Out = __nv_bfloat16;
+  static constexpr bool kPromote = false;
+};
+struct I8 {
+  using T = int8_t;
+  using Acc = int;
+  using Out = float;
+  static constexpr bool kPromote = false;
+};
+
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst),
+               "l"(src)
+               : "memory");
 }
 
-__device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
-  const uint2 raw = *reinterpret_cast<const uint2*>(p);
-  const float2 lo =
-      __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.x));
-  const float2 hi =
-      __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.y));
-  return make_float4(lo.x, lo.y, hi.x, hi.y);
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
 }
 
-__device__ __forceinline__ void store4(float* p, float a, float b, float c,
-                                       float d) {
-  *reinterpret_cast<float4*>(p) = make_float4(a, b, c, d);
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
-__device__ __forceinline__ void store4(__nv_bfloat16* p, float a, float b,
-                                       float c, float d) {
-  const __nv_bfloat162 lo = __floats2bfloat162_rn(a, b);
-  const __nv_bfloat162 hi = __floats2bfloat162_rn(c, d);
+__device__ __forceinline__ uint32_t to_tf32(float v) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(v));
+  return r;
+}
+
+__device__ __forceinline__ void split_tf32(uint32_t raw, uint32_t& hi,
+                                           uint32_t& lo) {
+  const float v = __uint_as_float(raw);
+  hi = to_tf32(v);
+  lo = to_tf32(v - __uint_as_float(hi));
+}
+
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
+                                         const uint32_t (&b)[2]) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
+                                         const uint32_t (&b)[2]) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+__device__ __forceinline__ void mma_s8(int (&d)[4], const uint32_t (&a)[4],
+                                       const uint32_t (&b)[2]) {
+  asm("mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// One k step (8 words) of a warp's 32 x 64 tile: a[i] holds the A
+// fragments of its two 16-row slices, b[j] the B fragments of its eight
+// 8-column slices, as raw words of the operand type.
+__device__ __forceinline__ void warp_step(float (&acc)[2][kNT][4],
+                                          const uint32_t (&a)[2][4],
+                                          const uint32_t (&b)[kNT][2], F32) {
+  uint32_t ah[2][4], al[2][4];
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int r = 0; r < 4; ++r) split_tf32(a[i][r], ah[i][r], al[i][r]);
+#pragma unroll
+  for (int j = 0; j < kNT; ++j) {
+    uint32_t bh[2], bl[2];
+    split_tf32(b[j][0], bh[0], bl[0]);
+    split_tf32(b[j][1], bh[1], bl[1]);
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      mma_tf32(acc[i][j], al[i], bh);
+      mma_tf32(acc[i][j], ah[i], bl);
+      mma_tf32(acc[i][j], ah[i], bh);
+    }
+  }
+}
+
+__device__ __forceinline__ void warp_step(float (&acc)[2][kNT][4],
+                                          const uint32_t (&a)[2][4],
+                                          const uint32_t (&b)[kNT][2], BF16) {
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < kNT; ++j) mma_bf16(acc[i][j], a[i], b[j]);
+}
+
+__device__ __forceinline__ void warp_step(int (&acc)[2][kNT][4],
+                                          const uint32_t (&a)[2][4],
+                                          const uint32_t (&b)[kNT][2], I8) {
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < kNT; ++j) mma_s8(acc[i][j], a[i], b[j]);
+}
+
+__device__ __forceinline__ void store2(float* p, float a, float b) {
+  *reinterpret_cast<float2*>(p) = make_float2(a, b);
+}
+
+__device__ __forceinline__ void store2(float* p, int a, int b) {
+  store2(p, static_cast<float>(a), static_cast<float>(b));
+}
+
+__device__ __forceinline__ void store2(__nv_bfloat16* p, float a, float b) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
+}
+
+__device__ __forceinline__ void store4(float* p, float4 v) {
+  *reinterpret_cast<float4*>(p) = v;
+}
+
+__device__ __forceinline__ void store4(__nv_bfloat16* p, float4 v) {
+  const __nv_bfloat162 lo = __floats2bfloat162_rn(v.x, v.y);
+  const __nv_bfloat162 hi = __floats2bfloat162_rn(v.z, v.w);
   uint2 raw;
   raw.x = *reinterpret_cast<const unsigned*>(&lo);
   raw.y = *reinterpret_cast<const unsigned*>(&hi);
   *reinterpret_cast<uint2*>(p) = raw;
 }
 
-template <typename T, bool kPerPair>
-__global__ void __launch_bounds__(kThreads)
-event_matmul_kernel(const T* __restrict__ x, const T* __restrict__ w,
-                    const int* __restrict__ idx, const int* __restrict__ cnt,
-                    T* __restrict__ out, int nb, int kb, int K, int N) {
+// Grid (nb, mp / 64, splits), 128 threads.  x (mp, K) and wt (nb*128, K)
+// row-major, K = kb * 128; act (mp / 128, kb) and occ (kb, nb) bytes;
+// out (mp, nb*128), or with splits > 1 the partials part (splits, mp,
+// nb*128) float32.  Rows at or past m_rows are padding: their tiles skip.
+template <class Kind, bool kPerPair>
+__global__ void __launch_bounds__(kThreads, 2)
+event_matmul_kernel(const typename Kind::T* __restrict__ x,
+                    const typename Kind::T* __restrict__ wt,
+                    const unsigned char* __restrict__ act,
+                    const unsigned char* __restrict__ occ,
+                    typename Kind::Out* __restrict__ out,
+                    float* __restrict__ part, int m_rows, int nb, int kb) {
+  using T = typename Kind::T;
+  using Acc = typename Kind::Acc;
+  constexpr int kSub = static_cast<int>(sizeof(T));  // stages per k tile
+
+  extern __shared__ __align__(1024) uint32_t smem[];
+  int* list = reinterpret_cast<int*>(smem + kStages * kStageWords);
+
   const int n = blockIdx.x;
-  const int m = blockIdx.y;
+  const int row0 = blockIdx.y * kRows;
+  const int split = blockIdx.z;
+  const int splits = gridDim.z;
   const int tid = threadIdx.x;
-  const int tx = tid % 16;
-  const int ty = tid / 16;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
 
-  __shared__ __align__(16) float xs[2][kStep][kTile];   // xs[.][k][row]
-  __shared__ __align__(16) float ws[2][kStep][kTile];   // ws[.][k][col]
-
-  const int slot = kPerPair ? m * nb + n : m;   // whose k list
-  const int total = cnt[slot] * kStages;
-  const int* list = idx + static_cast<size_t>(slot) * kb;
-
-  // this thread's share of a stage: 4 consecutive k of one x row, and
-  // 4 consecutive columns of one w row
-  const int xr = tid / 2, xc = (tid % 2) * 4;
-  const int wr = tid / 32, wc = (tid % 32) * 4;
-  const T* xrow = x + (static_cast<size_t>(m) * kTile + xr) * K + xc;
-  const T* wrow = w + static_cast<size_t>(wr) * N
-                + static_cast<size_t>(n) * kTile + wc;
-
-  float4 xv, wv;
-  auto fetch = [&](int q) {
-    const int k = list[q / kStages] * kTile + (q % kStages) * kStep;
-    xv = load4(xrow + k);
-    wv = load4(wrow + static_cast<size_t>(k) * N);
-  };
-  auto stash = [&](int buf) {
-    xs[buf][xc + 0][xr] = xv.x;
-    xs[buf][xc + 1][xr] = xv.y;
-    xs[buf][xc + 2][xr] = xv.z;
-    xs[buf][xc + 3][xr] = xv.w;
-    *reinterpret_cast<float4*>(&ws[buf][wr][wc]) = wv;
-  };
-
-  float acc[8][8];
-#pragma unroll
-  for (int i = 0; i < 8; ++i)
-#pragma unroll
-    for (int j = 0; j < 8; ++j) acc[i][j] = 0.0f;
-
-  if (total > 0) {
-    fetch(0);
-    stash(0);
+  // the live list, ascending: a ballot over 32 k tiles at a time
+  if (warp == 0) {
+    int count = 0;
+    if (row0 < m_rows) {
+      const unsigned char* arow = act + static_cast<size_t>(row0 / kTile) * kb;
+      for (int base = 0; base < kb; base += 32) {
+        const int k = base + lane;
+        bool live = k < kb && arow[k] != 0;
+        if (kPerPair) live = live && occ[static_cast<size_t>(k) * nb + n] != 0;
+        const unsigned bits = __ballot_sync(0xffffffffu, live);
+        if (live) list[count + __popc(bits & ((1u << lane) - 1u))] = k;
+        count += __popc(bits);
+      }
+    }
+    if (lane == 0) list[kb] = count;
   }
   __syncthreads();
-  for (int q = 0; q < total; ++q) {
-    const int buf = q & 1;
-    if (q + 1 < total) fetch(q + 1);
+  const int cnt = list[kb];
+  const int lo = static_cast<int>(static_cast<long long>(split) * cnt / splits);
+  const int hi =
+      static_cast<int>(static_cast<long long>(split + 1) * cnt / splits);
+  const int total = (hi - lo) * kSub;
+
+  // stage q: 128 bytes of k (sub-step q % kSub of live tile lo + q / kSub)
+  // for the 64 x rows (stage rows 0..63) and 128 w rows (64..191); chunk c
+  // of stage row r lands at chunk c ^ (r % 8) of that row
+  const size_t row_bytes = static_cast<size_t>(kb) * kTile * sizeof(T);
+  const char* xbase =
+      reinterpret_cast<const char*>(x) + static_cast<size_t>(row0) * row_bytes;
+  const char* wbase = reinterpret_cast<const char*>(wt) +
+                      static_cast<size_t>(n) * kTile * row_bytes;
+  const uint32_t ring = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
+  auto load = [&](int q) {
+    const size_t koff =
+        static_cast<size_t>(list[lo + q / kSub]) * kTile * sizeof(T) +
+        static_cast<size_t>(q % kSub) * 128;
+    const uint32_t slot = ring + (q % kStages) * kStageBytes;
 #pragma unroll
-    for (int k = 0; k < kStep; ++k) {
-      const float4 a0 = *reinterpret_cast<const float4*>(&xs[buf][k][ty * 4]);
-      const float4 a1 =
-          *reinterpret_cast<const float4*>(&xs[buf][k][64 + ty * 4]);
-      const float4 b0 = *reinterpret_cast<const float4*>(&ws[buf][k][tx * 4]);
-      const float4 b1 =
-          *reinterpret_cast<const float4*>(&ws[buf][k][64 + tx * 4]);
-      const float a[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
-      const float b[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
-#pragma unroll
-      for (int i = 0; i < 8; ++i)
-#pragma unroll
-        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
+    for (int i = 0; i < kChunks; ++i) {
+      const int id = tid + i * kThreads;
+      const int r = id >> 3;
+      const int c = id & 7;
+      const char* src = (r < kRows ? xbase + r * row_bytes
+                                   : wbase + (r - kRows) * row_bytes) +
+                        koff + c * 16;
+      cp_async16(slot + (r * kWords + ((c ^ (r & 7)) << 2)) * 4, src);
     }
-    if (q + 1 < total) stash(buf ^ 1);
-    __syncthreads();
+  };
+
+#pragma unroll
+  for (int s = 0; s < kStages - 1; ++s) {
+    if (s < total) load(s);
+    cp_async_commit();
   }
 
-  T* oblk = out + static_cast<size_t>(m) * kTile * N
-          + static_cast<size_t>(n) * kTile;
+  Acc acc[2][kNT][4];
 #pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    const int row = (i < 4 ? 0 : 64) + ty * 4 + (i % 4);
-    T* o = oblk + static_cast<size_t>(row) * N;
-    store4(o + tx * 4, acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
-    store4(o + 64 + tx * 4, acc[i][4], acc[i][5], acc[i][6], acc[i][7]);
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < kNT; ++j)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) acc[i][j][r] = 0;
+
+  const int g = lane >> 2;  // fragment row (A) / column (B) in its slice
+  const int t = lane & 3;   // fragment word within a k step
+  const int wm = warp & 1;   // warp's 32-row half of the block
+  const int wn = warp >> 1;  // and its 64-column half
+  for (int q = 0; q < total; ++q) {
+    cp_async_wait<kStages - 2>();
+    __syncthreads();  // stage q landed; stage q - 1's slot is free
+    if (q + kStages - 1 < total) load(q + kStages - 1);
+    cp_async_commit();
+    const uint32_t* stage = smem + (q % kStages) * kStageWords;
+    const uint32_t* sa = stage + (wm * 32 + g) * kWords;
+    const uint32_t* sb = stage + (kRows + wn * 8 * kNT + g) * kWords;
+    auto k_steps = [&](Acc(&dst)[2][kNT][4]) {
+#pragma unroll
+      for (int s = 0; s < 4; ++s) {
+        // words 8s + t and 8s + t + 4 sit in chunks 2s and 2s + 1; every
+        // fragment row is g modulo 8
+        const int c0 = (((2 * s) ^ g) << 2) + t;
+        const int c1 = (((2 * s + 1) ^ g) << 2) + t;
+        uint32_t a[2][4], b[kNT][2];
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          const uint32_t* r = sa + i * 16 * kWords;
+          a[i][0] = r[c0];
+          a[i][1] = r[8 * kWords + c0];
+          a[i][2] = r[c1];
+          a[i][3] = r[8 * kWords + c1];
+        }
+#pragma unroll
+        for (int j = 0; j < kNT; ++j) {
+          const uint32_t* r = sb + j * 8 * kWords;
+          b[j][0] = r[c0];
+          b[j][1] = r[c1];
+        }
+        warp_step(dst, a, b, Kind{});
+      }
+    };
+    if constexpr (Kind::kPromote) {
+      Acc stage_sum[2][kNT][4];
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int j = 0; j < kNT; ++j)
+#pragma unroll
+          for (int r = 0; r < 4; ++r) stage_sum[i][j][r] = 0;
+      k_steps(stage_sum);
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int j = 0; j < kNT; ++j)
+#pragma unroll
+          for (int r = 0; r < 4; ++r) acc[i][j][r] += stage_sum[i][j][r];
+    } else {
+      k_steps(acc);
+    }
+  }
+
+  const size_t N = static_cast<size_t>(nb) * kTile;
+  const size_t col0 = static_cast<size_t>(n) * kTile + wn * 8 * kNT + 2 * t;
+  float* pbase = part + static_cast<size_t>(split) * gridDim.y * kRows * N;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const size_t row = row0 + wm * 32 + i * 16 + g;
+#pragma unroll
+    for (int j = 0; j < kNT; ++j) {
+      const size_t col = col0 + j * 8;
+      if (splits == 1) {
+        store2(out + row * N + col, acc[i][j][0], acc[i][j][1]);
+        store2(out + (row + 8) * N + col, acc[i][j][2], acc[i][j][3]);
+      } else {
+        store2(pbase + row * N + col, acc[i][j][0], acc[i][j][1]);
+        store2(pbase + (row + 8) * N + col, acc[i][j][2], acc[i][j][3]);
+      }
+    }
   }
 }
 
-template <typename T, bool kPerPair>
-int launch(const T* x, const T* w, const int* idx, const int* cnt, T* out,
-           int mb, int nb, int kb, int K, int N, void* stream) {
-  if (mb <= 0 || nb <= 0) return static_cast<int>(cudaGetLastError());
-  dim3 grid(nb, mb);
-  event_matmul_kernel<T, kPerPair>
-      <<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-          x, w, idx, cnt, out, nb, kb, K, N);
+// out = part[0] + part[1] + ... in split order, rounded once to Out.
+template <typename Out>
+__global__ void reduce_splits(const float* __restrict__ part,
+                              Out* __restrict__ out, size_t n4, int splits) {
+  const float4* p = reinterpret_cast<const float4*>(part);
+  for (size_t i = blockIdx.x * static_cast<size_t>(blockDim.x) + threadIdx.x;
+       i < n4; i += static_cast<size_t>(gridDim.x) * blockDim.x) {
+    float4 s = p[i];
+    for (int k = 1; k < splits; ++k) {
+      const float4 v = p[k * n4 + i];
+      s.x += v.x;
+      s.y += v.y;
+      s.z += v.z;
+      s.w += v.w;
+    }
+    store4(out + 4 * i, s);
+  }
+}
+
+template <class Kind, bool kPerPair>
+int launch(const void* x, const void* wt, const unsigned char* act,
+           const unsigned char* occ, void* out, float* part, int m_rows,
+           int mp, int nb, int kb, int splits, cudaStream_t stream) {
+  using T = typename Kind::T;
+  using Out = typename Kind::Out;
+  if (mp <= 0 || nb <= 0 || kb <= 0)
+    return static_cast<int>(cudaGetLastError());
+  if (mp % kTile || splits < 1 || (splits > 1 && part == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  auto kernel = event_matmul_kernel<Kind, kPerPair>;
+  const int smem = kStages * kStageBytes + (kb + 1) * 4;
+  static int smem_set = 0;  // per instance: raise the limit once
+  if (smem > smem_set) {
+    cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err == cudaSuccess)
+      err = cudaFuncSetAttribute(
+          kernel, cudaFuncAttributePreferredSharedMemoryCarveout, 100);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    smem_set = smem;
+  }
+  const dim3 grid(nb, mp / kRows, splits);
+  kernel<<<grid, kThreads, smem, stream>>>(
+      static_cast<const T*>(x), static_cast<const T*>(wt), act, occ,
+      static_cast<Out*>(out), part, m_rows, nb, kb);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess || splits == 1) return static_cast<int>(err);
+  const size_t n4 = static_cast<size_t>(mp) * nb * kTile / 4;
+  size_t blocks = (n4 + 255) / 256;
+  if (blocks > 4096) blocks = 4096;
+  reduce_splits<Out><<<static_cast<unsigned>(blocks), 256, 0, stream>>>(
+      part, static_cast<Out*>(out), n4, splits);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <bool kPerPair>
+int dispatch(int kind, const void* x, const void* wt,
+             const unsigned char* act, const unsigned char* occ, void* out,
+             float* part, int m_rows, int mp, int nb, int kb, int splits,
+             void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (kind) {
+    case 0:
+      return launch<F32, kPerPair>(x, wt, act, occ, out, part, m_rows, mp,
+                                   nb, kb, splits, s);
+    case 1:
+      return launch<BF16, kPerPair>(x, wt, act, occ, out, part, m_rows, mp,
+                                    nb, kb, splits, s);
+    case 2:
+      return launch<I8, kPerPair>(x, wt, act, occ, out, part, m_rows, mp, nb,
+                                  kb, splits, s);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 }  // namespace
 
-// The 1-D product.  x (mb*128, K), w (K, N), out (mb*128, N): row-major,
-// float32 (bf16 == 0) or bfloat16 (bf16 == 1), 16-byte aligned, K and N
-// multiples of 128.  idx (mb, kb) and cnt (mb,): int32.  Launches on
-// `stream` and returns the launch's cudaError_t.
-extern "C" int event_matmul_launch(const void* x, const void* w,
-                                   const int* idx, const int* cnt, void* out,
-                                   int mb, int nb, int kb, int K, int N,
-                                   int bf16, void* stream) {
-  using bf = __nv_bfloat16;
-  if (bf16)
-    return launch<bf, false>(static_cast<const bf*>(x),
-                             static_cast<const bf*>(w), idx, cnt,
-                             static_cast<bf*>(out), mb, nb, kb, K, N, stream);
-  return launch<float, false>(static_cast<const float*>(x),
-                              static_cast<const float*>(w), idx, cnt,
-                              static_cast<float*>(out), mb, nb, kb, K, N,
-                              stream);
+// The 1-D product.  x (mp, K) and wt (nb*128, K), the weights transposed
+// (K-major): row-major, of one kind -- 0 float32 (3xTF32), 1 bfloat16,
+// 2 int8 (0/1 masks) -- 16-byte aligned, mp and K = kb*128 multiples of
+// 128.  act (mp/128, kb): 1 where the activation tile holds an event.  out
+// (mp, nb*128): float32, bfloat16, float32.  With splits > 1, part
+// (splits, mp, nb*128) float32 scratch.  m_rows: rows of x that are not
+// padding.  Launches on `stream` and returns the first cudaError_t.
+extern "C" int event_matmul_launch(const void* x, const void* wt,
+                                   const unsigned char* act, void* out,
+                                   float* part, int m_rows, int mp, int nb,
+                                   int kb, int splits, int kind,
+                                   void* stream) {
+  return dispatch<false>(kind, x, wt, act, nullptr, out, part, m_rows, mp, nb,
+                         kb, splits, stream);
 }
 
-// The joint product.  x (mb*128, K), w (K, N), out (mb*128, N): row-major
-// float32, 16-byte aligned, K and N multiples of 128.  idx (mb, nb, kb) and
-// cnt (mb, nb): int32.  Launches on `stream` and returns the launch's
-// cudaError_t.
-extern "C" int event_matmul2_launch(const float* x, const float* w,
-                                    const int* idx, const int* cnt,
-                                    float* out, int mb, int nb, int kb,
-                                    int K, int N, void* stream) {
-  return launch<float, true>(x, w, idx, cnt, out, mb, nb, kb, K, N, stream);
+// The joint product: as above, and occ (kb, nb): 1 where the weight tile
+// holds a nonzero.
+extern "C" int event_matmul2_launch(const void* x, const void* wt,
+                                    const unsigned char* act,
+                                    const unsigned char* occ, void* out,
+                                    float* part, int m_rows, int mp, int nb,
+                                    int kb, int splits, int kind,
+                                    void* stream) {
+  return dispatch<true>(kind, x, wt, act, occ, out, part, m_rows, mp, nb, kb,
+                        splits, stream);
 }

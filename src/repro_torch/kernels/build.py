@@ -34,10 +34,11 @@ _P, _I, _L, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
 #: ``c_void_p``, ints as ``c_int`` or ``c_longlong``, floats as
 #: ``c_float``); every one returns ``cudaError_t``.
 SIGNATURES = {
-    # x, w, idx, cnt, out, mb, nb, kb, K, N, bf16, stream
+    # x, wt, act, out, part, m_rows, mp, nb, kb, splits, kind, stream
     "event_matmul_launch": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
-    # x, w, idx, cnt, out, mb, nb, kb, K, N, stream
-    "event_matmul2_launch": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # x, wt, act, occ, out, part, m_rows, mp, nb, kb, splits, kind, stream
+    "event_matmul2_launch": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                             _P],
     # a, s, q, s_out, n, theta, bf16, stream
     "sigma_delta_launch": [_P, _P, _P, _P, _L, _F, _I, _P],
     # x, live, out, n_windows, D, window, stream

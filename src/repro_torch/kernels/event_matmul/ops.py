@@ -2,17 +2,25 @@
 :func:`event_matmul` / :func:`event_matmul_pair` API and the two kernels
 behind it.
 
-The tile bookkeeping — padding, the activity map, the weight-tile
-occupancy map and the compacted k lists — is plain torch on the operands'
-device.  Both kernels are instances of one tile body
-(``csrc/event_matmul.cu``).  Without a weight-tile occupancy map the
-product goes through the 1-D kernel (one k list per m-block, shared by
-every n); with one, through the joint kernel :func:`event_matmul2` (one k
-list per (m, n) tile pair).  CUDA tensors launch the kernel or raise; CPU
-tensors run the plain versions in :mod:`.ref`.
+Both kernels are instances of one tile body (``csrc/event_matmul.cu``),
+for float32 (3xTF32), bfloat16 and int8 0/1-mask operands (exact counts,
+float32 out).  Without a weight-tile occupancy map the product goes
+through the 1-D kernel (one k list per m-block, shared by every n); with
+one, through the joint kernel :func:`event_matmul2` (one k list per
+(m, n) tile pair).  On CUDA the host does one pad and one activity map
+per call; each block of the kernel intersects the activity map with the
+occupancy and compacts its own live list.  The kernel reads the weights
+transposed, (N, K), and zero-padded to 128-tile multiples:
+:class:`KernelWeights`, built per call by the public wrappers and once
+per layer by the event backend.  CUDA tensors launch the kernel or
+raise; CPU tensors run the plain versions in :mod:`.ref`.  The host
+compaction (:func:`pad_compact`, ``_compact_indices*``) serves the
+reference's API and the tests; no CUDA path calls it.
 """
 
 from __future__ import annotations
+
+import functools
 
 import torch
 import torch.nn.functional as F
@@ -20,10 +28,21 @@ import torch.nn.functional as F
 from repro_torch.kernels import build
 from repro_torch.kernels.event_matmul.ref import (block_activity_ref,
                                                   event_matmul2_ref,
-                                                  event_matmul_ref)
+                                                  event_matmul_ref,
+                                                  zero_dead_tiles_ref)
 
-#: The tile edge the CUDA kernel is compiled for (bm = bk = bn).
+#: The tile edge of the CUDA kernel's activity map, k steps and output
+#: columns (bm = bk = bn).
 KERNEL_TILE = 128
+#: Output rows per block of the CUDA kernel (two per 128-row m-block).
+KERNEL_ROWS = 64
+#: Most blocks that share one output tile's live list.
+MAX_SPLITS = 8
+#: Operand types the kernel is compiled for: its ``kind`` flag and the
+#: output type.  int8 operands are 0/1 masks; their products are counts.
+KERNEL_KINDS = {torch.float32: (0, torch.float32),
+                torch.bfloat16: (1, torch.bfloat16),
+                torch.int8: (2, torch.float32)}
 
 
 def _pad_to(a: torch.Tensor, mult: tuple[int, int]) -> torch.Tensor:
@@ -99,18 +118,145 @@ def _compact_indices_joint(active: torch.Tensor, w_occ: torch.Tensor
     return idx.reshape(mb, nb, kb), cnt.reshape(mb, nb)
 
 
+def _out_dtype(dtype: torch.dtype) -> torch.dtype:
+    """Result type of a product of ``dtype`` operands: int8 masks count
+    in float32, every other type is kept."""
+    return KERNEL_KINDS.get(dtype, (None, dtype))[1]
+
+
+def _tiles_to_elements(tiles: torch.Tensor, b0: int, b1: int,
+                       shape) -> torch.Tensor:
+    """A (rows, cols) tile map expanded to the elements of ``shape``."""
+    return (tiles.repeat_interleave(b0, 0).repeat_interleave(b1, 1)
+            [:shape[0], :shape[1]])
+
+
+def kernel_layout(w: torch.Tensor) -> torch.Tensor:
+    """(K, N) weights as the kernel reads them: zero-padded to 128-tile
+    multiples and transposed, (Np, Kp) contiguous (K-major, the layout of
+    the tensor cores' B fragments)."""
+    return _pad_to(w, (KERNEL_TILE, KERNEL_TILE)).T.contiguous()
+
+
+class KernelWeights:
+    """One (K, N) weight matrix prepared for the kernel at 128-wide tiles:
+    ``wt`` its :func:`kernel_layout` copy and ``occ`` the (Kb, Nb) weight-
+    tile occupancy as bytes (None: the 1-D kernel, no weight skipping),
+    both built only for CUDA weights.  ``w`` and ``w_occ`` are kept for the
+    plain version on the CPU."""
+
+    __slots__ = ("w", "w_occ", "wt", "occ")
+
+    def __init__(self, w: torch.Tensor, w_occ: torch.Tensor | None = None):
+        kb, nb = -(-w.shape[0] // KERNEL_TILE), -(-w.shape[1] // KERNEL_TILE)
+        if w_occ is not None and tuple(w_occ.shape) != (kb, nb):
+            raise ValueError(f"occupancy {tuple(w_occ.shape)} does not fit "
+                             f"weights {tuple(w.shape)}")
+        self.w, self.w_occ = w, w_occ
+        self.wt = self.occ = None
+        if w.device.type == "cuda":
+            self.wt = kernel_layout(w)
+            if w_occ is not None:
+                self.occ = w_occ.to(torch.uint8).contiguous()
+
+
+def kernel_splits(tiles: int, kb: int, sms: int) -> int:
+    """Blocks per output tile: 1 when the ``tiles`` output tiles fill the
+    ``sms`` SMs; else enough for about two blocks per SM, at most
+    :data:`MAX_SPLITS` and at most half the ``kb`` k tiles, so that each
+    block still walks two live tiles on average when all are live."""
+    if tiles >= sms or tiles == 0:
+        return 1
+    return max(1, min(MAX_SPLITS, kb // 2, -(-2 * sms // tiles)))
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def bind_launch(x: torch.Tensor, kw: KernelWeights,
+                threshold: float = 0.0):
+    """Pad CUDA ``x`` to 128-tile multiples, take its (Mb, Kb) activity map
+    and bind one kernel launch to it and ``kw`` (the 1-D kernel when
+    ``kw.occ`` is None, else the joint one).  Returns ``(launch, out)``:
+    ``launch()``, called with the device current, runs the kernel on the
+    current stream into ``out``, the padded (Mp, Np) product whose first
+    (M, N) entries are the result, and returns the status code; it neither
+    checks nor counts the launch."""
+    if x.dtype not in KERNEL_KINDS or kw.wt is None or (
+            kw.wt.dtype != x.dtype):
+        raise TypeError(f"the kernel takes float32, bfloat16 or int8 CUDA "
+                        f"operands of one type, got {x.dtype} @ "
+                        f"{kw.w.dtype}")
+    if x.device != kw.wt.device:
+        raise ValueError("operands on different devices")
+    kind, out_dtype = KERNEL_KINDS[x.dtype]
+    xp = _pad_to(x, (KERNEL_TILE, KERNEL_TILE))
+    if xp.shape[1] != kw.wt.shape[1]:
+        raise ValueError(f"contraction mismatch: {tuple(x.shape)} @ "
+                         f"{tuple(kw.w.shape)}")
+    # cp.async copies 16 bytes: operands start on a 16-byte boundary
+    xp = xp if xp.data_ptr() % 16 == 0 else xp.clone()
+    active = block_activity_ref(xp, threshold, KERNEL_TILE, KERNEL_TILE)
+    M = x.shape[0]
+    mp, kp = xp.shape
+    np_ = kw.wt.shape[0]
+    nb, kb = np_ // KERNEL_TILE, kp // KERNEL_TILE
+    splits = kernel_splits(-(-M // KERNEL_ROWS) * nb, kb,
+                           _sm_count(x.device.index or 0))
+    out = torch.empty((mp, np_), dtype=out_dtype, device=x.device)
+    part = (torch.empty((splits, mp, np_), dtype=torch.float32,
+                        device=x.device) if splits > 1 else None)
+    lib = build.load()
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+
+    def launch() -> int:                    # holds the operands alive
+        pp = part.data_ptr() if part is not None else None
+        if kw.occ is None:
+            return lib.event_matmul_launch(
+                xp.data_ptr(), kw.wt.data_ptr(), active.data_ptr(),
+                out.data_ptr(), pp, M, mp, nb, kb, splits, kind, stream)
+        return lib.event_matmul2_launch(
+            xp.data_ptr(), kw.wt.data_ptr(), active.data_ptr(),
+            kw.occ.data_ptr(), out.data_ptr(), pp, M, mp, nb, kb, splits,
+            kind, stream)
+    launch.splits = splits
+    return launch, out
+
+
+def _launch(x: torch.Tensor, kw: KernelWeights,
+            threshold: float) -> torch.Tensor:
+    """Launch the kernel on CUDA ``x`` and count it: ``event_matmul2``'s
+    count for the joint kernel, ``event_matmul``'s for the 1-D one.
+    Returns the (M, N) product."""
+    launch, out = bind_launch(x, kw, threshold)
+    with torch.cuda.device(x.device):
+        err = launch()
+    name, fn = (("event_matmul", event_matmul) if kw.occ is None
+                else ("event_matmul2", event_matmul2))
+    build.check(err, name)
+    fn.launches += 1
+    return out[:x.shape[0], :kw.w.shape[1]]
+
+
 def event_matmul2(x: torch.Tensor, w: torch.Tensor, w_occ: torch.Tensor, *,
                   threshold: float = 0.0, bm: int = 128, bk: int = 128,
                   bn: int = 128) -> torch.Tensor:
     """``y = x @ w`` over (bm, bk, bn) tiles, skipping every tile product
     whose activation tile is event-free (all |x| <= threshold) or whose
     weight tile is unoccupied in ``w_occ`` ((Kb, Nb) bool on the padded
-    grid).  Skipped products are exact zeros.  Ragged M, K, N are
-    zero-padded here and the result cropped to (M, N) float32.
+    grid).  Skipped products are exact zeros.  Operands are float32,
+    bfloat16 or int8 (0/1 masks), both of one type; ragged M, K, N are
+    zero-padded here and the result cropped to (M, N), float32 for
+    float32 and int8 operands, bfloat16 for bfloat16.
 
     CPU tensors run :func:`..ref.event_matmul2_ref`; CUDA tensors launch
-    the kernel (tiles of 128 only) and count the launch in
-    ``event_matmul2.launches``."""
+    the joint kernel and count the launch in ``event_matmul2.launches``.
+    The kernel's tiles are 128 wide: other (bm, bk) first zero the dead
+    activation tiles of ``x`` (:func:`..ref.zero_dead_tiles_ref`) and run
+    at threshold 0, other (bk, bn) zero the unoccupied weight tiles of
+    ``w`` and take their 128-tile occupancy -- both exact."""
     M, K = x.shape
     K2, N = w.shape
     kb, nb = -(-K // bk), -(-N // bn)
@@ -118,79 +264,28 @@ def event_matmul2(x: torch.Tensor, w: torch.Tensor, w_occ: torch.Tensor, *,
         raise ValueError(f"shape mismatch: {tuple(x.shape)} @ "
                          f"{tuple(w.shape)} with occupancy "
                          f"{tuple(w_occ.shape)}")
-    if x.dtype != torch.float32 or w.dtype != torch.float32:
-        raise TypeError("event_matmul2 takes float32 operands")
+    if x.dtype != w.dtype or x.dtype not in KERNEL_KINDS:
+        raise TypeError(f"event_matmul2 takes float32, bfloat16 or int8 "
+                        f"operands of one type, got {x.dtype} @ {w.dtype}")
     if not (x.device == w.device == w_occ.device):
         raise ValueError("operands on different devices")
-    xp, wp = _pad_to(x, (bm, bk)), _pad_to(w, (bk, bn))
     if x.device.type == "cpu":
-        return event_matmul2_ref(xp, wp, w_occ, threshold=threshold, bm=bm,
-                                 bk=bk, bn=bn)[:M, :N]
+        return event_matmul2_ref(_pad_to(x, (bm, bk)), _pad_to(w, (bk, bn)),
+                                 w_occ, threshold=threshold, bm=bm, bk=bk,
+                                 bn=bn, out_dtype=_out_dtype(x.dtype))[:M, :N]
     if x.device.type != "cuda":
         raise ValueError(f"event_matmul2: unsupported device {x.device}")
-    if not bm == bk == bn == KERNEL_TILE:
-        raise ValueError(f"the CUDA kernel is built for {KERNEL_TILE}-wide "
-                         f"tiles, got bm={bm} bk={bk} bn={bn}")
-    active = block_activity_ref(xp, threshold, bm, bk)
-    # the kernel reads float4s: operands must start on a 16-byte boundary
-    xp, wp = (a if a.data_ptr() % 16 == 0 else a.clone() for a in (xp, wp))
-    idx, cnt = _compact_indices_joint(active, w_occ.to(torch.bool))
-    mb = xp.shape[0] // bm
-    out = torch.empty((xp.shape[0], wp.shape[1]), dtype=torch.float32,
-                      device=x.device)
-    lib = build.load()
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = lib.event_matmul2_launch(
-            xp.data_ptr(), wp.data_ptr(), idx.data_ptr(), cnt.data_ptr(),
-            out.data_ptr(), mb, nb, kb, xp.shape[1], wp.shape[1], stream)
-    build.check(err, "event_matmul2")
-    event_matmul2.launches += 1
-    return out[:M, :N]
+    w_occ = w_occ.to(torch.bool)
+    if (bm, bk) != (KERNEL_TILE, KERNEL_TILE):
+        x, threshold = zero_dead_tiles_ref(x, threshold, bm, bk), 0.0
+    if (bk, bn) != (KERNEL_TILE, KERNEL_TILE):
+        w = torch.where(_tiles_to_elements(w_occ, bk, bn, w.shape), w,
+                        torch.zeros((), dtype=w.dtype, device=w.device))
+        w_occ = weight_block_occupancy(w)
+    return _launch(x, KernelWeights(w, w_occ), threshold)
 
 
 event_matmul2.launches = 0
-
-
-#: Operand types the 1-D kernel is compiled for, by its ``bf16`` flag.
-_KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-
-
-def _event_matmul_launch(xp: torch.Tensor, w: torch.Tensor,
-                         active: torch.Tensor, bm: int,
-                         bk: int) -> torch.Tensor:
-    """Launch the 1-D kernel on CUDA operands: ``xp`` padded to (bm, bk),
-    ``active`` its (Mb, Kb) activity map.  The kernel's tiles are 128 wide,
-    so a (bm, bk) activity map is expanded to them (exact: a 128-tile of an
-    active (bm, bk) tile is active, of an inactive one all dead).  Returns
-    the padded (Mp, Np) product in the operands' type."""
-    if bm % KERNEL_TILE or bk % KERNEL_TILE:
-        raise ValueError(f"the CUDA kernel takes tiles that are multiples "
-                         f"of {KERNEL_TILE}, got bm={bm} bk={bk}")
-    if xp.dtype != w.dtype or xp.dtype not in _KERNEL_DTYPES:
-        raise TypeError(f"event_matmul takes float32 or bfloat16 operands "
-                        f"of one type, got {xp.dtype} @ {w.dtype}")
-    wp = _pad_to(w, (bk, KERNEL_TILE))
-    active = (active.repeat_interleave(bm // KERNEL_TILE, 0)
-              .repeat_interleave(bk // KERNEL_TILE, 1))
-    # the kernel reads 4 elements per thread in one load: 16 bytes in
-    # float32, 8 in bfloat16, so operands start on a 16-byte boundary
-    xp, wp = (a if a.data_ptr() % 16 == 0 else a.clone() for a in (xp, wp))
-    idx, cnt = _compact_indices(active)
-    mb, kb = active.shape
-    nb = wp.shape[1] // KERNEL_TILE
-    out = torch.empty((xp.shape[0], wp.shape[1]), dtype=xp.dtype,
-                      device=xp.device)
-    lib = build.load()
-    with torch.cuda.device(xp.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = lib.event_matmul_launch(
-            xp.data_ptr(), wp.data_ptr(), idx.data_ptr(), cnt.data_ptr(),
-            out.data_ptr(), mb, nb, kb, xp.shape[1], wp.shape[1],
-            _KERNEL_DTYPES[xp.dtype], stream)
-    build.check(err, "event_matmul")
-    event_matmul.launches += 1
-    return out
 
 
 def event_matmul(x: torch.Tensor, w: torch.Tensor,
@@ -203,11 +298,12 @@ def event_matmul(x: torch.Tensor, w: torch.Tensor,
 
     With ``w_occ`` (the (Kb, Nb) occupancy from
     :func:`weight_block_occupancy`) the sparsity goes 2-D through
-    :func:`event_matmul2` (float32 only).  Without it, CPU tensors run
+    :func:`event_matmul2`.  Without it, CPU tensors run
     :func:`..ref.event_matmul_ref` and CUDA tensors launch the 1-D kernel
-    (float32 or bfloat16, float32 accumulation; bm and bk multiples of 128),
-    counted in ``event_matmul.launches``.  ``bn`` does not change the
-    result.  Returns (M, N) in ``x.dtype``."""
+    (float32, bfloat16 or int8 0/1 masks; other (bm, bk) than 128 zero
+    the dead tiles first), counted in ``event_matmul.launches``.  ``bn``
+    does not change the result.  Returns (M, N) in ``x.dtype``, float32
+    for int8 masks."""
     M, K = x.shape
     K2, N = w.shape
     if K != K2:
@@ -218,17 +314,34 @@ def event_matmul(x: torch.Tensor, w: torch.Tensor,
     if w_occ is not None:
         return event_matmul2(x, w, w_occ, threshold=threshold, bm=bm, bk=bk,
                              bn=bn)
-    xp = _pad_to(x, (bm, bk))
     if x.device.type == "cpu":
-        return event_matmul_ref(xp, _pad_to(w, (bk, bn)), threshold=threshold,
-                                bm=bm, bk=bk)[:M, :N]
+        return event_matmul_ref(_pad_to(x, (bm, bk)), _pad_to(w, (bk, bn)),
+                                threshold=threshold, bm=bm, bk=bk,
+                                out_dtype=_out_dtype(x.dtype))[:M, :N]
     if x.device.type != "cuda":
         raise ValueError(f"event_matmul: unsupported device {x.device}")
-    active = block_activity_ref(xp, threshold, bm, bk)
-    return _event_matmul_launch(xp, w, active, bm, bk)[:M, :N]
+    if x.dtype != w.dtype or x.dtype not in KERNEL_KINDS:
+        raise TypeError(f"event_matmul takes float32, bfloat16 or int8 "
+                        f"operands of one type, got {x.dtype} @ {w.dtype}")
+    if (bm, bk) != (KERNEL_TILE, KERNEL_TILE):
+        x, threshold = zero_dead_tiles_ref(x, threshold, bm, bk), 0.0
+    return _launch(x, KernelWeights(w), threshold)
 
 
 event_matmul.launches = 0
+
+
+def event_matmul_packed(x: torch.Tensor, kw: KernelWeights) -> torch.Tensor:
+    """``x @ w`` at 128-wide tiles and threshold 0 for weights already in
+    the kernel's layout: the event backend's entry point, with one
+    :class:`KernelWeights` per layer.  The joint kernel when ``kw`` has an
+    occupancy map, else the 1-D one; CPU tensors run the same plain
+    versions as :func:`event_matmul`."""
+    if x.device.type == "cpu":
+        return event_matmul(x, kw.w, kw.w_occ)
+    if x.device.type != "cuda":
+        raise ValueError(f"event_matmul: unsupported device {x.device}")
+    return _launch(x, kw, 0.0)
 
 
 def event_matmul_pair(x: torch.Tensor, m: torch.Tensor, w: torch.Tensor,
@@ -242,8 +355,10 @@ def event_matmul_pair(x: torch.Tensor, m: torch.Tensor, w: torch.Tensor,
     activation tiles.  With ``w_occ`` both also skip the same unoccupied
     weight tiles (:func:`event_matmul2`); without it both are 1-D
     products (:func:`event_matmul`).  Skipped tiles are exact zeros either
-    way, which keeps the counter matmul bit-identical to the dense one.
-    Returns ``(y, macs)`` in ``x.dtype`` and ``m.dtype``."""
+    way, which keeps the counter matmul bit-identical to the dense one:
+    float masks go through the float kernel (3xTF32 is exact on 0/1
+    values), int8 masks through the int8 one.  Returns ``(y, macs)`` in
+    ``x.dtype`` and ``m.dtype`` (float32 for int8 masks)."""
     if m.shape != x.shape or wm.shape != w.shape:
         raise ValueError(f"shape mismatch: {tuple(x.shape)}/"
                          f"{tuple(m.shape)} @ {tuple(w.shape)}/"

@@ -3,6 +3,7 @@
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 
 def block_activity_ref(x: torch.Tensor, threshold: float, bm: int,
@@ -29,19 +30,78 @@ def event_matmul_ref(x: torch.Tensor, w: torch.Tensor, *, threshold: float,
 
 
 def event_matmul2_ref(x: torch.Tensor, w: torch.Tensor, w_occ: torch.Tensor,
-                      *, threshold: float, bm: int, bk: int,
-                      bn: int) -> torch.Tensor:
+                      *, threshold: float, bm: int, bk: int, bn: int,
+                      out_dtype=torch.float32) -> torch.Tensor:
     """2-D (activation x weight tile) sparsity: a (m, n, k) tile product
     contributes iff the activation tile is active AND the weight tile is
     occupied; both failures contribute exact zeros.  Zeroes inactive
     activation tiles and unoccupied weight tiles, then one dense float32
-    ``torch.matmul``.  Shapes must be multiples of the tiles."""
+    ``torch.matmul``, cast to ``out_dtype``.  Shapes must be multiples of
+    the tiles."""
     active = block_activity_ref(x, threshold, bm, bk)
     amask = active.repeat_interleave(bm, 0).repeat_interleave(bk, 1)
     wmask = w_occ.repeat_interleave(bk, 0).repeat_interleave(bn, 1)
     x_masked = torch.where(amask, x, 0.0).to(torch.float32)
     w_masked = torch.where(wmask, w, 0.0).to(torch.float32)
-    return x_masked @ w_masked
+    return (x_masked @ w_masked).to(out_dtype)
+
+
+def zero_dead_tiles_ref(x: torch.Tensor, threshold: float, bm: int,
+                        bk: int) -> torch.Tensor:
+    """``x`` with its event-free (bm, bk) tiles (all |x| <= threshold; the
+    ragged edge tiles padded with zeros for the test) set to zero, same
+    shape.  A product of the result at 128-wide tiles and threshold 0 is
+    the (bm, bk) product exactly: a dead tile is zero, a live one keeps
+    every entry, sub-threshold ones included."""
+    M, K = x.shape
+    xp = F.pad(x, (0, (-K) % bk, 0, (-M) % bm))
+    active = block_activity_ref(xp, threshold, bm, bk)
+    keep = active.repeat_interleave(bm, 0).repeat_interleave(bk, 1)[:M, :K]
+    return torch.where(keep, x, torch.zeros((), dtype=x.dtype,
+                                            device=x.device))
+
+
+def live_lists_ref(active: torch.Tensor, w_occ: torch.Tensor | None = None
+                   ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The CUDA kernel's in-block live lists, built as a block builds its
+    own: per (m, n) output tile, the k steps live in ``active`` (Mb, Kb)
+    and, when given, in ``w_occ`` (Kb, Nb) (all n share one list without
+    it), compacted in ascending k order 32 at a time -- a live k lands at
+    the count so far plus the popcount of the live lanes below it (ballot
+    and popcount prefix).  Returns ``idx`` (Mb, Nb, Kb) int32 and ``cnt``
+    (Mb, Nb) int32, Nb = 1 without ``w_occ``.  The kernel never reads
+    past ``cnt``; here the tail repeats the last live index (0 when there
+    is none), as the reference's compaction pads it."""
+    mb, kb = active.shape
+    live = active[:, None, :] if w_occ is None else (
+        active[:, None, :] & w_occ.T[None, :, :])
+    nb = live.shape[1]
+    idx = torch.zeros((mb, nb, kb + 1), dtype=torch.int32,
+                      device=active.device)
+    cnt = torch.zeros((mb, nb), dtype=torch.int32, device=active.device)
+    for base in range(0, kb, 32):
+        lanes = live[:, :, base:base + 32].to(torch.int32)   # one ballot
+        below = torch.cumsum(lanes, dim=2) - lanes          # popc(bits & lt)
+        dest = torch.where(lanes.bool(), cnt[:, :, None] + below, kb)
+        ks = torch.arange(base, base + lanes.shape[2], dtype=torch.int32,
+                          device=active.device).expand_as(lanes)
+        idx.scatter_(2, dest.to(torch.int64), ks)
+        cnt += lanes.sum(dim=2, dtype=torch.int32)
+    idx = idx[:, :, :kb]
+    last = idx.gather(2, (cnt.to(torch.int64) - 1).clamp_min(0)[:, :, None])
+    pos = torch.arange(kb, device=active.device)
+    return torch.where(pos < cnt[:, :, None], idx, last), cnt
+
+
+def split_bounds_ref(cnt: torch.Tensor, splits: int
+                     ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The live entries ``[lo, hi)`` of each list that block ``s`` of
+    ``splits`` takes: ``lo = s * cnt // splits``, ``hi = (s + 1) * cnt //
+    splits``, each of shape ``(splits, *cnt.shape)``."""
+    s = torch.arange(splits + 1, device=cnt.device).reshape(
+        -1, *([1] * cnt.ndim))
+    bounds = (s * cnt.to(torch.int64)[None]) // splits
+    return bounds[:-1], bounds[1:]
 
 
 def event_stats_ref(x: torch.Tensor, threshold: float, bm: int,

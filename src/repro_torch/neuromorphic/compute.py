@@ -15,8 +15,10 @@ model prices.  :class:`SimLayer` delegates it to a :class:`LayerCompute`:
 
   - ``"kernel"`` — the hand-written CUDA kernels: the joint (activation x
     weight tile) block-sparse matmul
-    (:func:`repro_torch.kernels.event_matmul.ops.event_matmul_pair`) and
-    the windowed delta reconstruction
+    (:func:`repro_torch.kernels.event_matmul.ops.event_matmul_packed`),
+    float32 for the values and int8 0/1 masks for the exact counters, on
+    weights transposed and padded once per layer, and the windowed delta
+    reconstruction
     (:func:`repro_torch.kernels.sigma_delta.ops.window_reconstruct`).  On
     CPU tensors the kernel wrappers run their plain PyTorch versions.
   - ``"gather"`` — the column-granular host expression of the same
@@ -34,8 +36,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from repro_torch.kernels.event_matmul.ops import (KERNEL_TILE,
-                                                  event_matmul_pair,
+from repro_torch.kernels.event_matmul.ops import (KERNEL_TILE, KernelWeights,
+                                                  event_matmul_packed,
                                                   weight_block_occupancy)
 from repro_torch.kernels.sigma_delta.ops import window_reconstruct
 
@@ -183,25 +185,38 @@ def _patch_weights(layer) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
 
 
 class _WeightBlocks:
-    """Block-CSR weight-sparsity structure for one 2-D weight matrix:
-    ``live`` (K,) bool marks weight rows with >= 1 nonzero; ``occ`` is the
-    (Kb, Nb) bool :data:`KERNEL_TILE`-square weight-tile occupancy map on
-    the weights' device."""
+    """Block-CSR weight-sparsity structure for one 2-D weight matrix
+    ``w``: ``live`` (K,) bool marks weight rows with >= 1 nonzero; ``occ``
+    is the (Kb, Nb) bool :data:`KERNEL_TILE`-square weight-tile occupancy
+    map on the weights' device."""
 
-    __slots__ = ("live", "occ")
+    __slots__ = ("w", "live", "occ", "_kernel")
 
     def __init__(self, w2: torch.Tensor):
+        self.w = w2
         self.live = (w2 != 0).any(dim=1)
         self.occ = weight_block_occupancy(w2, KERNEL_TILE, KERNEL_TILE)
+        self._kernel = None
 
     @classmethod
     def rows_only(cls, live: torch.Tensor) -> "_WeightBlocks":
         """Row-liveness-only structure (conv gather, where the patch-weight
         feature axis is compacted per call)."""
         wb = cls.__new__(cls)
+        wb.w = wb._kernel = None
         wb.live = live
         wb.occ = torch.ones((1, 1), dtype=torch.bool, device=live.device)
         return wb
+
+    def kernel_weights(self) -> tuple[KernelWeights, KernelWeights]:
+        """The value weights (float32) and their nnz mask (int8) in the
+        kernel's layout, both with ``occ``: built at first use, then
+        cached with this structure, i.e. once per layer."""
+        if self._kernel is None:
+            self._kernel = (
+                KernelWeights(self.w.to(torch.float32), self.occ),
+                KernelWeights((self.w != 0).to(torch.int8), self.occ))
+        return self._kernel
 
 
 def _fc_weight_blocks(layer) -> _WeightBlocks:
@@ -297,15 +312,26 @@ class EventCompute(LayerCompute):
                 out[i0:i1] = x[i0:i1, cols] @ w[cols]
         return out
 
+    def _values(self, x, w, wb: _WeightBlocks):
+        """``x @ w`` through the selected kernel mode (``wb`` holds
+        ``w``'s structures)."""
+        if self._kernel_mode(x.device) == "gather":
+            return self._gather_matmul(x, w, wb=wb)
+        return event_matmul_packed(x.to(torch.float32),
+                                   wb.kernel_weights()[0])
+
     def _pair(self, x, m, w, wm, wb: _WeightBlocks):
         """(pre, macs) through the selected kernel mode; ``wm`` is the nnz
         mask of ``w``, so both contractions share one occupancy map and
-        skip exactly the same tiles."""
+        skip exactly the same tiles.  Kernel mode counts with the int8
+        instance: the 0/1 event mask ``m != 0`` against the cached int8
+        nnz mask, exact."""
         if self._kernel_mode(x.device) == "gather":
             return (self._gather_matmul(x, w, wb=wb),
                     self._gather_matmul(m, wm, wb=wb))
-        return event_matmul_pair(x.to(torch.float32), m.to(torch.float32),
-                                 w, wm, wb.occ)
+        return (self._values(x, w, wb),
+                event_matmul_packed((m != 0).to(torch.int8),
+                                    wb.kernel_weights()[1]))
 
     # ------------------------------------------------------------ layer kinds
     def fc_forward(self, layer, x_eff, act_mask, msgs_in):
@@ -350,14 +376,12 @@ class EventCompute(LayerCompute):
         weight-nnz mask over each window's events and ``fetches_dense``
         counts every event in the window once per output channel."""
         T = x_eff.shape[0]
-        h, w = layer.in_hw
-        cin = layer.weights.shape[2]
         kh, kw = layer.weights.shape[:2]
         oh, ow = layer.out_hw
         cout = layer.weights.shape[3]
         wf, wfm, wlive = _patch_weights(layer)
-        x4 = x_eff.to(torch.float32).reshape(T, cin, h, w)
-        m4 = act_mask.to(torch.float32).reshape(T, cin, h, w)
+        x4 = _conv_input(layer, x_eff)
+        m4 = _conv_input(layer, act_mask)
         if self._kernel_mode(x_eff.device) == "gather":
             pre, _ = self._conv_gather(x4, wf, layer, wlive)
             macs, fetch_rows = self._conv_gather(m4, wfm, layer, wlive)
@@ -368,10 +392,26 @@ class EventCompute(LayerCompute):
                                    _conv_weight_blocks(layer))
             fetch_rows = mpat.sum(dim=1)
         fetches = fetch_rows[:, None].expand(T * oh * ow, cout)
-        # (T*oh*ow, cout) -> channel-major (T, cout * oh * ow) flat maps
-        to_flat = lambda a: a.reshape(T, oh, ow, cout).permute(
-            0, 3, 1, 2).reshape(T, -1)
-        return to_flat(pre), to_flat(macs), to_flat(fetches)
+        return (_conv_flat(layer, pre, T), _conv_flat(layer, macs, T),
+                _conv_flat(layer, fetches, T))
+
+    def value_forward(self, layer, x_eff: torch.Tensor) -> torch.Tensor:
+        """The ``(T, n_out)`` pre-activations alone, no counters: the same
+        value contraction as :meth:`forward`'s (the delta path's base
+        rows, whose counters nobody reads)."""
+        if layer.kind == "fc":
+            return self._values(x_eff, layer.weights,
+                                _fc_weight_blocks(layer))
+        kh, kw = layer.weights.shape[:2]
+        oh, ow = layer.out_hw
+        wf, _, wlive = _patch_weights(layer)
+        x4 = _conv_input(layer, x_eff)
+        if self._kernel_mode(x_eff.device) == "gather":
+            pre, _ = self._conv_gather(x4, wf, layer, wlive)
+        else:
+            pre = self._values(_im2col(x4, kh, kw, layer.stride, oh, ow),
+                               wf, _conv_weight_blocks(layer))
+        return _conv_flat(layer, pre, x_eff.shape[0])
 
     # --------------------------------------------- temporal-tile delta path
     def delta_forward(self, layer, x_in, in_acc, act_mask, msgs_in):
@@ -383,8 +423,9 @@ class EventCompute(LayerCompute):
 
         ``xwin`` is exactly zero through quiet windows, so its event
         matmul skips them; the ``T / window`` base rows pay one small
-        value-only contraction.  Counters come from the unchanged
-        ``act_mask`` / ``msgs_in`` and stay bit-identical."""
+        value-only contraction (:meth:`value_forward`, no counter
+        product).  Counters come from the unchanged ``act_mask`` /
+        ``msgs_in`` and stay bit-identical."""
         T = x_in.shape[0]
         window = self._delta_window_size(x_in.device)
         if T <= window:
@@ -398,14 +439,25 @@ class EventCompute(LayerCompute):
             bases, xwin, new_acc = _window_reconstruct_host(x_in, in_acc,
                                                             window)
         pre_w, macs, fetches = self.forward(layer, xwin, act_mask, msgs_in)
-        # value-only pass over the base rows: a zero event mask yields zero
-        # counters, which are discarded
-        zmask = torch.zeros_like(bases)
-        zmsgs = torch.zeros(bases.shape[0], dtype=torch.float32,
-                            device=bases.device)
-        pre_b, _, _ = self.forward(layer, bases, zmask, zmsgs)
+        pre_b = self.value_forward(layer, bases)
         pre = pre_w + pre_b.repeat_interleave(window, dim=0)[:T]
         return pre, macs, fetches, new_acc
+
+
+def _conv_input(layer, a: torch.Tensor) -> torch.Tensor:
+    """A ``(T, cin * h * w)`` channel-major flat map as ``(T, cin, h, w)``
+    float32."""
+    h, w = layer.in_hw
+    return a.to(torch.float32).reshape(a.shape[0], layer.weights.shape[2],
+                                       h, w)
+
+
+def _conv_flat(layer, a: torch.Tensor, T: int) -> torch.Tensor:
+    """``(T * oh * ow, cout)`` im2col rows -> the channel-major ``(T,
+    cout * oh * ow)`` flat map."""
+    oh, ow = layer.out_hw
+    return a.reshape(T, oh, ow, layer.weights.shape[3]).permute(
+        0, 3, 1, 2).reshape(T, -1)
 
 
 def _window_reconstruct_host(x_in: torch.Tensor, acc: torch.Tensor,

@@ -21,7 +21,10 @@ import repro_torch.kernels
 from repro_torch.kernels.event_matmul import ops as em
 from repro_torch.kernels.event_matmul.ref import (event_matmul2_ref,
                                                   event_matmul_ref,
-                                                  event_stats_ref)
+                                                  event_stats_ref,
+                                                  live_lists_ref,
+                                                  split_bounds_ref,
+                                                  zero_dead_tiles_ref)
 from repro_torch.kernels.sigma_delta import ops as sd
 from repro_torch.kernels.sigma_delta.ref import (sigma_delta_ref,
                                                  window_cumsum_ref,
@@ -325,6 +328,160 @@ def test_public_kernel_api_matches_reference(ref):
     assert repro_torch.kernels.__all__ == repro.kernels.__all__
     for name in repro_torch.kernels.__all__:
         assert callable(getattr(repro_torch.kernels, name)), name
+
+
+# ------------------------------- the tensor-core tile body's host contract
+
+
+@pytest.mark.parametrize("act_d", [0.0, 0.3, 1.0])
+@pytest.mark.parametrize("w_d", [0.0, 0.3, 1.0])
+@pytest.mark.parametrize("tile", [32, 128])
+def test_int8_counter_route_matches_reference(ref, act_d, w_d, tile):
+    """Counters through int8 0/1 masks (the kernel's int8 instance on the
+    card) equal the reference's ``event_matmul_pair`` counters bit for
+    bit, in float32; at 128-wide tiles also through the event backend's
+    prepared weights."""
+    import jax.numpy as jnp
+    rng = np.random.default_rng(int(act_d * 10 + w_d * 100 + tile) + 7)
+    M, K, N = 200, 300, 260
+    x = _tiled(rng, (M, K), tile, act_d, 0.4)
+    m = (x != 0).astype(np.float32)
+    w = _tiled(rng, (K, N), tile, w_d, 0.6, scale=1 / np.sqrt(K))
+    wm = (w != 0).astype(np.float32)
+    occ_r = ref.em_ops.weight_block_occupancy(jnp.asarray(w), tile, tile)
+    _, macs_r = ref.em_ops.event_matmul_pair(
+        jnp.asarray(x), jnp.asarray(m), jnp.asarray(w), jnp.asarray(wm),
+        occ_r, bm=tile, bk=tile, bn=tile)
+    m8 = torch.from_numpy(m).to(torch.int8)
+    wm8 = torch.from_numpy(wm).to(torch.int8)
+    occ = torch.from_numpy(np.array(occ_r))
+    _, macs_p = em.event_matmul_pair(torch.from_numpy(x), m8,
+                                     torch.from_numpy(w), wm8, occ,
+                                     bm=tile, bk=tile, bn=tile)
+    assert macs_p.dtype == torch.float32
+    assert np.array_equal(macs_p.numpy(), np.asarray(macs_r))
+    assert np.array_equal(macs_p.numpy(), m @ wm)
+    if tile == 128:
+        for kw in (em.KernelWeights(wm8, occ), em.KernelWeights(wm8)):
+            macs_k = em.event_matmul_packed(m8, kw)
+            assert np.array_equal(macs_k.numpy(), np.asarray(macs_r))
+
+
+@pytest.mark.parametrize("w_d", [0.3, 1.0])
+@pytest.mark.parametrize("M,K,N", [(256, 384, 256), (200, 300, 260)])
+def test_event_matmul2_bf16_matches_pallas(ref, w_d, M, K, N):
+    """The joint product in bfloat16 (new on the card) against the
+    reference's joint Pallas kernel in bfloat16, at its 2e-2."""
+    import jax.numpy as jnp
+    rng = np.random.default_rng(int(w_d * 10) + M)
+    x = _tiled(rng, (M, K), 128, 0.6, 0.5)
+    w = _tiled(rng, (K, N), 128, w_d, 0.6, scale=1 / np.sqrt(K))
+    x_r, x_p = _both(x, "bfloat16")
+    w_r, w_p = _both(w, "bfloat16")
+    occ_r = ref.em_ops.weight_block_occupancy(w_r)
+    xp_r, active, _, _ = ref.em_ops.pad_compact(x_r, 0.0)
+    idx, cnt = ref.em_ops._compact_indices_joint(active, occ_r)
+    y_r = ref.em_ops.event_matmul2_pallas(
+        xp_r, ref.em_ops._pad_to(w_r, (128, 128)), idx, cnt, bm=128,
+        bk=128, bn=128, interpret=True)[:M, :N]
+    y_p = em.event_matmul2(x_p, w_p, torch.from_numpy(np.array(occ_r)))
+    assert y_p.dtype == torch.bfloat16 and tuple(y_p.shape) == (M, N)
+    np.testing.assert_allclose(_np(y_p), _np(y_r), **EM_TOL["bfloat16"])
+    y_k = em.event_matmul_packed(x_p, em.KernelWeights(
+        w_p, torch.from_numpy(np.array(occ_r))))
+    assert torch.equal(y_k, y_p)
+
+
+@pytest.mark.parametrize("mb,kb,nb", [(5, 7, 4), (3, 70, 5), (1, 1, 1),
+                                      (4, 33, 2)])
+def test_live_lists_match_compaction(ref, mb, kb, nb):
+    """The plain model of the in-block live list (ballot and popcount
+    prefix, 32 k tiles at a time) equals the host compaction and the
+    reference's, cnt == 0 pairs and ragged Kb included; the split bounds
+    cover each list once, in order."""
+    import jax.numpy as jnp
+    rng = np.random.default_rng(mb * 100 + kb)
+    active = rng.random((mb, kb)) < 0.4
+    active[0] = False                              # an all-dead m-block
+    occ = rng.random((kb, nb)) < 0.5
+    occ[:, -1] = False                             # an all-dead n-block
+    idx, cnt = live_lists_ref(torch.from_numpy(active),
+                              torch.from_numpy(occ))
+    idx_h, cnt_h = em._compact_indices_joint(torch.from_numpy(active),
+                                             torch.from_numpy(occ))
+    idx_r, cnt_r = ref.em_ops._compact_indices_joint(jnp.asarray(active),
+                                                     jnp.asarray(occ))
+    assert torch.equal(idx, idx_h) and torch.equal(cnt, cnt_h)
+    assert np.array_equal(idx.numpy(), np.asarray(idx_r))
+    assert np.array_equal(cnt.numpy(), np.asarray(cnt_r))
+    assert int((cnt == 0).sum()) >= mb
+    idx1, cnt1 = live_lists_ref(torch.from_numpy(active))
+    idx1_r, cnt1_r = ref.em_ops._compact_indices(jnp.asarray(active))
+    assert idx1.shape == (mb, 1, kb)
+    assert np.array_equal(idx1[:, 0].numpy(), np.asarray(idx1_r))
+    assert np.array_equal(cnt1[:, 0].numpy(), np.asarray(cnt1_r))
+    for splits in (1, 3, 8):
+        lo, hi = split_bounds_ref(cnt, splits)
+        assert torch.equal(lo[0], torch.zeros_like(lo[0]))
+        assert torch.equal(hi[-1], cnt.to(torch.int64))
+        assert torch.equal(lo[1:], hi[:-1]) and bool((hi >= lo).all())
+
+
+@pytest.mark.parametrize("bm", [8, 32, 64])
+def test_masked_x_route_matches_reference(ref, bm):
+    """Tiles other than the kernel's 128: zero the event-free (bm, 128)
+    tiles of x, then the 128-tile product at threshold 0, as the CUDA
+    wrappers do; with a threshold above 0 it equals the reference's
+    (bm, 128) product and the port's own (bm, 128) plain version."""
+    import jax.numpy as jnp
+    rng = np.random.default_rng(bm)
+    M, K, N = 200, 300, 140
+    x = (rng.normal(size=(M, K)) * 0.05).astype(np.float32)
+    for i, j in zip(*np.nonzero(rng.random((-(-M // bm), -(-K // 128)))
+                                < 0.4)):          # one event per live tile
+        r, c = i * bm + rng.integers(bm), j * 128 + rng.integers(128)
+        x[min(r, M - 1), min(c, K - 1)] = 2.0
+    w = rng.normal(0, 1 / np.sqrt(K), (K, N)).astype(np.float32)
+    thr = 0.5
+    xm = zero_dead_tiles_ref(torch.from_numpy(x), thr, bm, 128)
+    assert xm.shape == (M, K)
+    live = em.block_activity(torch.from_numpy(x), thr, bm, 128)
+    assert 0 < int(live.sum()) < live.numel()
+    y_p = event_matmul_ref(em._pad_to(xm, (128, 128)),
+                           em._pad_to(torch.from_numpy(w), (128, 128)),
+                           threshold=0.0, bm=128, bk=128)[:M, :N]
+    y_r = ref.em_ops.event_matmul(jnp.asarray(x), jnp.asarray(w),
+                                  threshold=thr, bm=bm, bk=128, bn=128)
+    np.testing.assert_allclose(y_p.numpy(), np.asarray(y_r), **FLOAT_TOL)
+    y_w = em.event_matmul(torch.from_numpy(x), torch.from_numpy(w),
+                          threshold=thr, bm=bm, bk=128)
+    np.testing.assert_allclose(y_p.numpy(), y_w.numpy(), **FLOAT_TOL)
+    occ = em.weight_block_occupancy(torch.from_numpy(w), 128, 128)
+    y_j = em.event_matmul2(torch.from_numpy(x), torch.from_numpy(w), occ,
+                           threshold=thr, bm=bm, bk=128, bn=128)
+    np.testing.assert_allclose(y_p.numpy(), y_j.numpy(), **FLOAT_TOL)
+
+
+def test_kernel_layout_and_splits():
+    """The weights' kernel layout is the padded transpose, exactly; a
+    split never exceeds its bounds and is 1 once the tiles fill the
+    card."""
+    w = torch.arange(300 * 130, dtype=torch.float32).reshape(300, 130)
+    wt = em.kernel_layout(w)
+    assert wt.shape == (256, 384) and wt.is_contiguous()
+    assert torch.equal(wt[:130, :300], w.T)
+    assert bool((wt[130:] == 0).all()) and bool((wt[:, 300:] == 0).all())
+    kw = em.KernelWeights(w)
+    assert kw.wt is None and kw.occ is None          # built for CUDA only
+    with pytest.raises(ValueError):
+        em.KernelWeights(w, torch.ones((2, 2), dtype=torch.bool))
+    for tiles in (1, 16, 28, 112, 131):
+        for kb in (1, 2, 4, 16, 64):
+            s = em.kernel_splits(tiles, kb, 132)
+            assert 1 <= s <= max(1, min(em.MAX_SPLITS, kb // 2))
+    assert em.kernel_splits(256, 8, 132) == em.kernel_splits(132, 64, 132) \
+        == em.kernel_splits(0, 8, 132) == 1
+    assert em.kernel_splits(28, 16, 132) == 8       # whisper's fc2 at M 448
 
 
 # ----------------------------------------------- the sigma-delta encoder

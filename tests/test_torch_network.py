@@ -164,6 +164,73 @@ def test_windowed_sigma_delta_chain_matches_reference(ref, compute):
     assert_runs_match(rn, pn, xs, *_computes(ref, compute))
 
 
+class _CountingEvent(EventCompute):
+    """Kernel-mode event backend that records the rows of every synaptic
+    forward (values and counters) and of every value-only pass."""
+
+    def __init__(self):
+        super().__init__(mode="kernel")
+        self.forward_rows, self.value_rows = [], []
+
+    def forward(self, layer, x_eff, act_mask, msgs_in):
+        self.forward_rows.append(x_eff.shape[0])
+        return super().forward(layer, x_eff, act_mask, msgs_in)
+
+    def value_forward(self, layer, x_eff):
+        self.value_rows.append(x_eff.shape[0])
+        return super().value_forward(layer, x_eff)
+
+
+@pytest.mark.parametrize("kind", ["fc", "conv"])
+def test_delta_base_rows_are_value_only(ref, kind):
+    """Beyond the delta window the base rows take a value-only pass (no
+    counter product) and the run still reproduces the reference's
+    counters and outputs; one delta layer's pre-activations agree with the
+    reference's windowed ``delta_forward`` at rtol 1e-6."""
+    if kind == "fc":
+        rn = ref.network.fc_network([64, 96, 96, 32], weight_density=0.8,
+                                    neuron_model="sd_relu", seed=7)
+        T = 300
+    else:
+        rn = ref.network.SimNetwork(
+            [ref.network.SimLayer(**s) for s in conv_specs(
+                seed=3, neuron_model="sd_relu", sends_deltas=True,
+                threshold=0.05)], 128)
+        T = 200
+    pn = network_from_numpy(_export(rn), rn.in_size, **CPU)
+    for a, b in zip(rn.layers, pn.layers):
+        if kind == "fc":
+            a.threshold = b.threshold = 0.05
+            a.sends_deltas = b.sends_deltas = True
+    xs = ref.network.make_inputs(rn.in_size, 0.4, T, seed=8)
+    pc = _CountingEvent()
+    assert_runs_match(rn, pn, xs, ref.compute.EventCompute(mode="pallas"),
+                      pc)
+    n_delta = sum(l.sends_deltas for l in pn.layers[:-1])
+    assert n_delta >= 2
+    assert pc.value_rows == [-(-T // 128)] * n_delta
+    assert pc.forward_rows == [T] * len(pn.layers)
+    rng = np.random.default_rng(9)
+    layer_r, layer_p = rn.layers[1], pn.layers[1]
+    n_in = layer_p.fanin if kind == "fc" else layer_p.weights.shape[2] * \
+        layer_p.in_hw[0] * layer_p.in_hw[1]
+    x_in = (rng.normal(0, 0.1, (T, n_in))
+            * (rng.random((T, n_in)) < 0.2)).astype(np.float32)
+    mask = (x_in != 0).astype(np.float32)
+    msgs = mask.sum(axis=1)
+    acc = rng.normal(0, 1, n_in).astype(np.float32)
+    pre_r, macs_r, _, acc_r = ref.compute.EventCompute(
+        mode="pallas").delta_forward(layer_r, x_in, acc, mask, msgs)
+    pre_p, macs_p, _, acc_p = pc.delta_forward(
+        layer_p, torch.from_numpy(x_in), torch.from_numpy(acc),
+        torch.from_numpy(mask), torch.from_numpy(msgs))
+    np.testing.assert_allclose(pre_p.numpy(), np.asarray(pre_r),
+                               **FLOAT_TOL)
+    assert np.array_equal(macs_p.numpy(), np.asarray(macs_r))
+    np.testing.assert_allclose(acc_p.numpy(), np.asarray(acc_r),
+                               **FLOAT_TOL)
+
+
 def test_programmed_gates_match_reference(ref):
     rn = ref.network.programmed_fc_network(
         [40, 64, 48], weight_densities=[0.7, 0.7], act_densities=[0.1, 0.2],
