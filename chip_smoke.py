@@ -58,15 +58,19 @@ Phases, each printing one JSON line:
   (h) attention — ``attention_probe`` at all 18 lowered sites of full
                   whisper-base (seq_len 448) and all 26 of full gemma2-2b
                   (seq_len 8192), and edge cases (a window that bites,
-                  ragged Sq != Skv with padded keys, GQA 10/1, hd 112,
-                  B = 2): the flash kernel within the frontend's own probe
-                  limit (``PROBE_ATOL``, 2e-4) of its plain version.
-  (i) times     — ``flash_attn`` at whisper's encoder site and at gemma2's
-                  global site, as in (e).  The library call is
-                  ``scaled_dot_product_attention`` at whisper's site and,
-                  for gemma2's tanh softcap, ``flex_attention`` compiled by
-                  Inductor (its caches under ``build/``), each held to the
-                  plain version first.
+                  ragged Sq != Skv with masked keys, GQA 10/1, hd 112,
+                  B = 2, peaked scores from q x 4 at whisper's encoder
+                  shape, hd 36, hd 3, ragged Sq = Skv = 1000): the flash
+                  kernel within the frontend's own probe limit
+                  (``PROBE_ATOL``, 2e-4) of its plain version.
+  (i) times     — ``flash_attn`` at whisper's encoder site, its decoder
+                  self-attention site (S 448, causal) and gemma2's global
+                  site, as in (e), bound by 3xTF32 and at the fp32 FMA
+                  rate, with nvcc's registers and spills per instance.
+                  The library call is ``scaled_dot_product_attention`` at
+                  whisper's sites and, for gemma2's tanh softcap,
+                  ``flex_attention`` compiled by Inductor (its caches under
+                  ``build/``), each held to the plain version first.
   (j) kernel_api — the public kernel API (``repro_torch.kernels``, the
                   JAX package's ``repro.kernels``) on the slice-1 cell's own
                   streams: ``sigma_delta_encode`` of fc0's (T, 2048)
@@ -267,6 +271,24 @@ def time_ms_cold(fn, reps: int = 20) -> float:
         b.synchronize()
         per_call.append(a.elapsed_time(b))
     return statistics.median(per_call)
+
+
+def flash_ptxas(log: pathlib.Path) -> dict:
+    """nvcc's report for each flash_attn instance (its head-dim class HD,
+    16- or 4-byte copies): the registers and spill lines that follow its
+    entry in build.log."""
+    import re
+    out, hd = {}, None
+    for line in log.read_text().splitlines() if log.exists() else []:
+        entry = re.search(r"Compiling entry function '(\S+)'", line)
+        if entry:
+            m = re.search(r"flash_attn_kernelILi(\d+)ELb(\d)E",
+                          entry.group(1))
+            hd = (f"HD {m.group(1)}, {16 if m.group(2) == '1' else 4}-byte "
+                  "copies" if m else None)
+        elif hd and ("registers" in line or "spill" in line):
+            out.setdefault(hd, []).append(line.split(":", 1)[-1].strip())
+    return out
 
 
 #: Kernel families in a trace, by substrings of their kernels' names: the
@@ -977,18 +999,29 @@ def main() -> int:
     gen = torch.Generator(device=dev).manual_seed(13)
     edges = {}
 
-    def edge(what, B, Sq, Skv, H, K, hd, **kw):
+    def edge(what, B, Sq, Skv, H, K, hd, q_mul=1.0, float64=False, **kw):
+        """The kernel against its plain version on random q (times q_mul),
+        k and v; with float64 (non-causal, no cap, H == K), both against
+        softmax attention in float64 too."""
         nonlocal flash_err
-        q = torch.randn((B, Sq, H, hd), generator=gen, device=dev)
+        q = q_mul * torch.randn((B, Sq, H, hd), generator=gen, device=dev)
         k = torch.randn((B, Skv, K, hd), generator=gen, device=dev)
         v = torch.randn((B, Skv, K, hd), generator=gen, device=dev)
         out = flash_attention(q, k, v, **kw)
         require(bool(torch.isfinite(out).all()), f"{what}: non-finite")
-        err = close(out, flash_attention_ref(q, k, v, **kw), 0.0, PROBE_ATOL,
-                    what)
+        plain = flash_attention_ref(q, k, v, **kw)
+        err = close(out, plain, 0.0, PROBE_ATOL, what)
         flash_err = max(flash_err, err)
         edges[what] = {"B": B, "Sq": Sq, "Skv": Skv, "H": H, "K": K,
-                       "hd": hd, **kw, "max_abs_err": err}
+                       "hd": hd, "q_mul": q_mul, **kw, "max_abs_err": err}
+        if float64:
+            s64 = torch.einsum("bqhd,bkhd->bhqk", q.double(),
+                               k.double()) / hd ** 0.5
+            o64 = torch.einsum("bhqk,bkhd->bqhd", torch.softmax(s64, -1),
+                               v.double())
+            edges[what].update(
+                kernel_vs_float64=(out.double() - o64).abs().max().item(),
+                plain_vs_float64=(plain.double() - o64).abs().max().item())
 
     edge("window that bites", 1, 8192, 8192, 8, 4, 256, causal=True,
          window=4096, softcap=50.0)
@@ -998,6 +1031,15 @@ def main() -> int:
          window=2048)
     edge("hd 112 (kimi-k2 heads)", 1, 1000, 1000, 64, 8, 112, causal=True)
     edge("B = 2", 2, 1500, 1500, 8, 8, 64, causal=False)
+    # scores of std 4, as trained attention has: a one-pass TF32 kernel
+    # misses the plain version here by ~3e-3 (tests/test_torch_flash.py)
+    edge("peaked scores (whisper encoder, q x 4, no cap)", 1, 1500, 1500, 8,
+         8, 64, q_mul=4.0, float64=True, causal=False)
+    edge("hd 36 (k steps zero-filled)", 1, 1000, 1000, 8, 2, 36, causal=True)
+    edge("hd 3 (under one 16-byte chunk a row)", 1, 500, 700, 4, 4, 3,
+         causal=False)
+    edge("ragged Sq = Skv = 1000, non-causal", 1, 1000, 1000, 8, 8, 64,
+         causal=False)
     torch.cuda.synchronize()
     launches_h = flash_attention.launches
     require(launches_h == n_probes + len(edges),
@@ -1053,10 +1095,15 @@ def main() -> int:
         live = S * (S + 1) // 2 if causal else S * S
         flops = 4 * B * H * hd * live
         nbytes = 4 * (2 * B * S * H * hd + 2 * B * S * K * hd)
-        t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S, flops / PEAK_FP32_FLOPS
+        # 3xTF32: three TF32 products per multiply-add
+        t_bytes, t_ops = (nbytes / PEAK_BYTES_PER_S,
+                          3 * flops / PEAK_TF32_FLOPS)
         return {"what": what, "B": B, "S": S, "H": H, "K": K, "hd": hd,
                 "causal": causal, "softcap": softcap, "bytes": nbytes,
                 "flops": flops, "live_pairs_per_head": live,
+                "method": "3xTF32",
+                "fp32_fma_bound_ms": 1e3 * max(t_bytes,
+                                               flops / PEAK_FP32_FLOPS),
                 "ms": time_ms(launch, reps),
                 "wrapper_ms": time_ms(lambda: flash_attention(q, k, v, **kw),
                                       reps),
@@ -1070,15 +1117,19 @@ def main() -> int:
 
     fa_rows = [time_flash("whisper encoder site", 1, 1500, 8, 8, 64, False,
                           None, 20),
+               time_flash("whisper decoder self-attention site", 1, 448, 8,
+                          8, 64, True, None, 20),
                time_flash("gemma2 global site", 1, 8192, 8, 4, 256, True,
                           50.0, 3)]
-    emit({"phase": "times_flash", "card": card, "flash_attn": fa_rows})
+    emit({"phase": "times_flash", "card": card, "flash_attn": fa_rows,
+          "ptxas": flash_ptxas(build.BUILD_DIR / "build.log")})
     fa = {"name": "flash_attn", "route": "cuda",
           "source": "src/repro_torch/csrc/flash_attn.cu",
           "replaces": "src/repro/kernels/flash_attn/kernel.py:29",
           "launches": launches_f["flash_attn"], "max_abs_err": flash_err}
     fa.update({k: fa_rows[0][k] for k in ("ms", "plain_ms", "bound_ms",
-                                          "bound_by", "library_ms")})
+                                          "bound_by", "library_ms",
+                                          "fp32_fma_bound_ms", "method")})
 
     # ------------------------------- (j) the public kernel API, driven
     # The reference's public entry point (repro.kernels) on the slice-1

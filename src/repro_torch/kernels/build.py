@@ -4,8 +4,9 @@ Every ``csrc/*.cu`` source is compiled by ``nvcc`` for Hopper (``sm_90a``)
 into an object file, all sources at once in parallel, and the objects are
 linked into one shared library with a plain C interface, loaded with
 ``ctypes``.  The library lives under ``build/repro_torch/`` at the root of
-the checkout, named by a hash of the sources, so an edited source is never
-served from a stale build.  The build happens at first use: importing this
+the checkout, named by a hash of the sources and the headers they include
+(``csrc/*.cuh``), so an edited source or header is never served from a
+stale build.  The build happens at first use: importing this
 module compiles nothing.  ``nvcc``'s own report (``-Xptxas -v``: registers,
 shared memory, spills per kernel) is kept in ``build.log`` beside the
 library.
@@ -61,12 +62,18 @@ def _nvcc() -> str:
 
 
 def sources() -> list[pathlib.Path]:
+    """The translation units nvcc compiles."""
     return sorted(CSRC.glob("*.cu"))
+
+
+def headers() -> list[pathlib.Path]:
+    """The headers the sources include: hashed, not compiled."""
+    return sorted(CSRC.glob("*.cuh"))
 
 
 def library_path() -> pathlib.Path:
     h = hashlib.sha256()
-    for src in sources():
+    for src in sources() + headers():
         h.update(src.name.encode())
         h.update(src.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())

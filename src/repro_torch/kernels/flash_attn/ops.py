@@ -1,12 +1,14 @@
-"""Wrapper for the flash-attention kernel, with sequence padding.
+"""Wrapper for the flash-attention kernel.
 
-:func:`flash_attention` pads Sq and Skv up to the kernel's 64-row tiles,
-masks the padded keys through ``kv_len`` (which keeps non-causal
-attention exact too) and slices the padded query rows off.  It launches
-the CUDA kernel (``csrc/flash_attn.cu``) on CUDA tensors and runs
-:func:`..ref.flash_attention_ref` on CPU tensors, through the same
-padding.  :func:`bind_launch` pads the same way and binds the kernel's
-launch, for callers that time the launch alone.
+:func:`flash_attention` launches the CUDA kernel (``csrc/flash_attn.cu``)
+on CUDA tensors as they are: the kernel takes the true Sq and Skv,
+zero-fills ragged K/V rows in shared memory, masks keys past Skv through
+``kv_len`` and stores no row past Sq, so nothing is padded or copied.  On
+CPU tensors it runs :func:`..ref.flash_attention_ref` through a padding to
+whole :data:`KERNEL_TILE` rows, with the padded keys masked through
+``kv_len`` (which keeps non-causal attention exact too) and the padded
+query rows sliced off.  :func:`bind_launch` binds the kernel's launch, for
+callers that time the launch alone.
 """
 
 from __future__ import annotations
@@ -19,7 +21,8 @@ import torch.nn.functional as F
 from repro_torch.kernels import build
 from repro_torch.kernels.flash_attn.ref import flash_attention_ref
 
-#: Query rows per block and keys per KV tile of the CUDA kernel.
+#: Query rows per block of the CUDA kernel, and the row tile the CPU path
+#: pads to.
 KERNEL_TILE = 64
 #: Largest head dimension the CUDA kernel's shared-memory tiles hold.
 MAX_HEAD_DIM = 256
@@ -27,11 +30,9 @@ MAX_HEAD_DIM = 256
 
 def _pad_seq(a: torch.Tensor) -> torch.Tensor:
     """Zero-pad dim 1 of a (B, S, heads, hd) tensor to whole
-    :data:`KERNEL_TILE` rows; contiguous and 16-byte aligned (the kernel
-    reads float4s)."""
+    :data:`KERNEL_TILE` rows (the CPU path)."""
     pad = (-a.shape[1]) % KERNEL_TILE
-    a = F.pad(a, (0, 0, 0, 0, 0, pad)) if pad else a.contiguous()
-    return a if a.data_ptr() % 16 == 0 else a.clone()
+    return F.pad(a, (0, 0, 0, 0, 0, pad)) if pad else a.contiguous()
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -79,7 +80,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         err = launch()
     build.check(err, "flash_attn")
     flash_attention.launches += 1
-    return out[:, :Sq]
+    return out
 
 
 flash_attention.launches = 0
@@ -88,23 +89,22 @@ flash_attention.launches = 0
 def bind_launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                 causal: bool = True, window: int | None = None,
                 softcap: float | None = None):
-    """Pad CUDA q/k/v as :func:`flash_attention` does and bind one kernel
-    launch to them, for operands it accepts.  Returns ``(launch, out)``:
+    """Bind one kernel launch to CUDA q/k/v that :func:`flash_attention`
+    accepts (made contiguous if they are not).  Returns ``(launch, out)``:
     ``launch()``, called with their device current, runs the kernel on its
-    current stream into ``out``, the padded (B, Sq', H, hd) output whose
-    first Sq rows are the result, and returns the kernel's status code; it
-    neither checks nor counts the launch."""
-    qp, kp, vp = (_pad_seq(a) for a in (q, k, v))
-    B, Sq, H, hd = qp.shape
-    out = torch.empty_like(qp)
+    current stream into ``out``, the (B, Sq, H, hd) result, and returns the
+    kernel's status code; it neither checks nor counts the launch."""
+    q, k, v = (a.contiguous() for a in (q, k, v))
+    B, Sq, H, hd = q.shape
+    Skv, K = k.shape[1], k.shape[2]
+    out = torch.empty_like(q)
     lib = build.load()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
-    Skv = k.shape[1]
 
-    def launch() -> int:                   # holds the padded operands alive
+    def launch() -> int:                   # holds the operands alive
         return lib.flash_attn_launch(
-            qp.data_ptr(), kp.data_ptr(), vp.data_ptr(), out.data_ptr(), B,
-            Sq, kp.shape[1], H, kp.shape[2], hd, int(causal), window or 0,
-            softcap or 0.0, Skv, 1.0 / math.sqrt(hd), stream)
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, Sq,
+            Skv, H, K, hd, int(causal), window or 0, softcap or 0.0, Skv,
+            1.0 / math.sqrt(hd), stream)
     return launch, out

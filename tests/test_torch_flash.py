@@ -13,6 +13,7 @@ import pytest
 import torch
 
 from _repro_reference import reference
+from repro_torch.kernels import build
 from repro_torch.kernels.flash_attn.ops import KERNEL_TILE, flash_attention
 from repro_torch.kernels.flash_attn.ref import flash_attention_ref
 
@@ -42,6 +43,7 @@ CASES = [
     (1, 300, 100, 2, 1, 16, True, None, None),        # Sq > Skv, causal
     (1, 260, 260, 4, 4, 8, False, 100, 50.0),         # window, non-causal
     (1, 70, 70, 4, 2, 112, True, 16, None),           # hd 112, window, G 2
+    (1, 300, 300, 4, 2, 36, False, None, None),       # hd 36, ragged, G 2
 ]
 
 
@@ -104,3 +106,154 @@ def test_wrapper_rejects_what_the_kernel_does_not_take():
     before = flash_attention.launches
     flash_attention(q, k, v)
     assert flash_attention.launches == before     # the CPU launches nothing
+
+
+# ------------------------------------------- the CUDA kernel's arithmetic
+# The kernel (csrc/flash_attn.cu) runs only on the card; these tests hold
+# the two choices its accuracy and its register layout rest on, on the CPU.
+
+def _tf32_rna(x: torch.Tensor) -> torch.Tensor:
+    """cvt.rna.tf32.f32 on an int32 view: add half a TF32 ulp to the
+    magnitude bits and clear the 13 bits below TF32's 10-bit mantissa."""
+    b = x.contiguous().view(torch.int32)
+    return ((b + 0x1000) & -0x2000).view(torch.float32)
+
+
+def _tf32x1(a, b):
+    return _tf32_rna(a) @ _tf32_rna(b)
+
+
+def _tf32x3(a, b):
+    ah, bh = _tf32_rna(a), _tf32_rna(b)
+    al, bl = _tf32_rna(a - ah), _tf32_rna(b - bh)
+    return al @ bh + ah @ bl + ah @ bh
+
+
+def _tile_attention(q, k, v, product, bk=64):
+    """One 64-row q tile (pre-scaled) over k, v as the kernel walks it:
+    64-key tiles, online softmax in float32, a fresh P.V partial per tile
+    joined as acc * alpha + partial."""
+    m = torch.full((q.shape[0], 1), -1e30)
+    l = torch.zeros((q.shape[0], 1))
+    acc = torch.zeros((q.shape[0], v.shape[1]))
+    for k0 in range(0, k.shape[0], bk):
+        s = product(q, k[k0:k0 + bk].T)
+        m_new = torch.maximum(m, s.amax(1, keepdim=True))
+        p = torch.exp(s - m_new)
+        alpha = torch.exp(m - m_new)
+        l = l * alpha + p.sum(1, keepdim=True)
+        acc = acc * alpha + product(p, v[k0:k0 + bk])
+        m = m_new
+    return acc / l
+
+
+def test_tf32_rna_emulation_rounds_half_away_from_zero():
+    one_ulp = 2.0 ** -10
+    x = torch.tensor([1 + one_ulp / 2, -(1 + one_ulp / 2),
+                      1 + one_ulp / 2 - 2.0 ** -20, 3.0], dtype=torch.float32)
+    assert _tf32_rna(x).tolist() == [1 + one_ulp, -(1 + one_ulp), 1.0, 3.0]
+
+
+def test_3xtf32_keeps_peaked_scores_where_one_pass_tf32_does_not():
+    """Why the kernel is 3xTF32: at whisper's encoder shape (1500 keys,
+    hd 64) with q x 4 (scores of std 4, as trained attention has, no cap),
+    one-pass TF32 misses the float32 oracle by more than the frontend's
+    2e-4 probe limit, while 3xTF32 stays within 1e-5."""
+    rng = np.random.default_rng(7)
+    hd = 64
+    q = torch.from_numpy((4.0 * rng.standard_normal((64, hd)))
+                         .astype(np.float32)) / np.float32(np.sqrt(hd))
+    k = torch.from_numpy(rng.standard_normal((1500, hd)).astype(np.float32))
+    v = torch.from_numpy(rng.standard_normal((1500, hd)).astype(np.float32))
+    oracle = torch.softmax(q @ k.T, dim=-1) @ v
+    err3 = (_tile_attention(q, k, v, _tf32x3) - oracle).abs().max().item()
+    err1 = (_tile_attention(q, k, v, _tf32x1) - oracle).abs().max().item()
+    assert err3 <= 1e-5, err3
+    assert err1 > 2e-4, err1
+
+
+def _lanes():
+    lane = torch.arange(32)
+    return lane // 4, lane % 4                    # g, t
+
+
+def _mma(a, b):
+    """mma.sync.m16n8k8 by its fragment layout: a (32, 4) and b (32, 2)
+    registers per lane; returns the (32, 4) accumulator registers."""
+    g, t = _lanes()
+    A = torch.zeros(16, 8, dtype=a.dtype)
+    B = torch.zeros(8, 8, dtype=b.dtype)
+    A[g, t], A[g + 8, t], A[g, t + 4], A[g + 8, t + 4] = a.unbind(1)
+    B[t, g], B[t + 4, g] = b.unbind(1)
+    D = A @ B
+    return torch.stack([D[g, 2 * t], D[g, 2 * t + 1], D[g + 8, 2 * t],
+                        D[g + 8, 2 * t + 1]], 1)
+
+
+def _acc(M):
+    """A 16 x 8 matrix as accumulator registers."""
+    g, t = _lanes()
+    return torch.stack([M[g, 2 * t], M[g, 2 * t + 1], M[g + 8, 2 * t],
+                        M[g + 8, 2 * t + 1]], 1)
+
+
+def test_p_stays_in_registers_through_the_key_permutation():
+    """P.V's k step reads its A fragment straight from the score
+    accumulator, a = {c0, c2, c1, c3} (A column t <-> key 2t, t + 4 <->
+    key 2t + 1), and its B fragment from V rows 2t and 2t + 1: the same
+    product as the unpermuted one, exactly (integer-valued, float64)."""
+    gen = torch.Generator().manual_seed(3)
+    g, t = _lanes()
+    for _ in range(4):
+        P = torch.randint(-50, 50, (16, 8), generator=gen).double()
+        V = torch.randint(-50, 50, (8, 8), generator=gen).double()
+        c = _acc(P)
+        a = c[:, [0, 2, 1, 3]]
+        b = torch.stack([V[2 * t, g], V[2 * t + 1, g]], 1)
+        assert torch.equal(_mma(a, b), _acc(P @ V))
+
+
+def test_kernel_operand_maps_reproduce_both_products():
+    """The kernel's other two register maps, exactly: Q.K^T reads one
+    float4 per row for a pair of k steps (columns 16kp + 4t .. + 3 hold A/B
+    columns t, t + 4 of step 0, then of step 1), and P.V's output slice
+    4G + u reads V column 32G + 4g + u, so accumulator (c0, c1) of slice
+    4G + u is output column 32G + 8t + u (+ 4)."""
+    gen = torch.Generator().manual_seed(5)
+    g, t = _lanes()
+    Q = torch.randint(-50, 50, (16, 32), generator=gen).double()
+    Kt = torch.randint(-50, 50, (8, 32), generator=gen).double()  # keys x hd
+    s = torch.zeros(32, 4, dtype=torch.float64)
+    for kp in range(2):
+        x = Q[g[:, None], 16 * kp + 4 * t[:, None] + torch.arange(4)]       # rows g
+        y = Q[g[:, None] + 8, 16 * kp + 4 * t[:, None] + torch.arange(4)]   # g + 8
+        kx = Kt[g[:, None], 16 * kp + 4 * t[:, None] + torch.arange(4)]
+        for step in range(2):
+            a = torch.stack([x[:, 2 * step], y[:, 2 * step],
+                             x[:, 2 * step + 1], y[:, 2 * step + 1]], 1)
+            s += _mma(a, kx[:, 2 * step:2 * step + 2])
+    assert torch.equal(s, _acc(Q @ Kt.T))
+
+    P = torch.randint(-50, 50, (16, 8), generator=gen).double()
+    V = torch.randint(-50, 50, (8, 64), generator=gen).double()
+    a = _acc(P)[:, [0, 2, 1, 3]]
+    out = torch.zeros(16, 64, dtype=torch.float64)
+    for G in range(2):
+        for u in range(4):
+            col = 32 * G + 4 * g + u
+            d = _mma(a, torch.stack([V[2 * t, col], V[2 * t + 1, col]], 1))
+            for e, (dr, dc) in enumerate(((0, 0), (0, 4), (8, 0), (8, 4))):
+                out[g + dr, 32 * G + 8 * t + dc + u] = d[:, e]
+    assert torch.equal(out, P @ V)
+
+
+def test_library_name_hashes_the_headers(tmp_path, monkeypatch):
+    """An edited header is never served from a stale build: the library's
+    name hashes ``csrc/*.cuh`` too, while nvcc compiles only ``*.cu``."""
+    (tmp_path / "a.cu").write_text('#include "h.cuh"\n')
+    (tmp_path / "h.cuh").write_text("// one\n")
+    monkeypatch.setattr(build, "CSRC", tmp_path)
+    assert build.sources() == [tmp_path / "a.cu"]
+    before = build.library_path()
+    (tmp_path / "h.cuh").write_text("// two\n")
+    assert build.library_path() != before
