@@ -102,6 +102,35 @@ Phases, each printing one JSON line:
                   ``simulate``, evaluation counts exact; candidates per
                   second, cache build time, peak device memory.
   (n) guidance  — floorline guidance per layer at the slice-1 cell.
+  (o) sparsity_profile — ``tests/golden/trained_profile.npz`` (loaded with
+                  the port's ``SparsityProfile``) applied, seed 0, to the
+                  slice-1 cell: its 3 activation densities resampled to the
+                  4 layers (0.3, 0.4, 0.367, 0.2) as message gates, exact-
+                  density weight masks at 0.6 / 0.8 / 0.7 / 0.7 over the
+                  existing weights.  A kernel-mode ``run_batch`` of the
+                  profiled cell launches ``event_matmul2`` and
+                  ``window_cumsum`` as (b) does, with counters bit-identical
+                  to dense; live-tile shares and wall times.  Phase (g) also
+                  reproduces the three golden fixtures priced under that
+                  profile.
+  (p) search    — ``greedy_then_evolve`` on the profiled cell (population
+                  64, 10 generations, seed 0) through a ``SimEvaluator``
+                  with the profile, kernel mode and the ``device``
+                  population backend, then again with ``numpy`` on the same
+                  cache: no demotion, never worse than the greedy walk, a
+                  non-empty front, the best and the knee re-priced by
+                  ``simulate`` within rtol 1e-9, every generation's best
+                  time within rtol 1e-9 across the backends; candidates per
+                  second per backend.
+  (q) resume    — each backend's search killed after generation 4
+                  (``FaultPlan``, the scripted ``SimulatedCrash``) and
+                  resumed from its snapshots under ``build/repro_torch/
+                  ckpt/`` (scratch): the result equals the uninterrupted
+                  run's, bit for bit where the device pricer gives the same
+                  bits twice and in other batches (checked first), else
+                  within rtol 1e-9.  Then ``FaultPlan(fail={"device": 2})``:
+                  exactly one demotion, device to numpy, and a trajectory
+                  within rtol 1e-9 of the numpy-only run.
 
 Then a ``{"kernels": [...]}`` line, the card's name and power limit as
 nvidia-smi reports them, and a last line ``{"ok": true, "device": ...}``.
@@ -116,6 +145,7 @@ import json
 import os
 import pathlib
 import statistics
+import shutil
 import subprocess
 import sys
 import time
@@ -137,6 +167,9 @@ TILE = 128
 DEVICE = "cuda"
 THETA = 0.05                          # sigma-delta threshold, phases (j)-(l)
 K_POP = 1024                          # candidates priced in phase (m)
+PROFILE_PATH = ROOT / "tests" / "golden" / "trained_profile.npz"
+SEARCH = dict(population_size=64, generations=10, seed=0)   # phases (p), (q)
+KILL_AFTER = 4                        # phase (q)'s scripted crash
 
 # stated tolerances
 PRE_RTOL, PRE_ATOL = 1e-5, 1e-5       # kernel vs plain / dense pre-acts
@@ -145,6 +178,7 @@ REPORT_RTOL = 1e-3                    # event vs dense time / energy
 EM_TOL = {"float32": (1e-6, 1e-5),    # 1-D event_matmul vs plain (rtol,
           "bfloat16": (2e-2, 2e-2)}   # atol); bf16 compared in bf16
 POP_RTOL = 1e-9                       # device vs numpy population pricing
+SEARCH_RTOL = 1e-9                    # search objectives across backends
 REPORT_ARRAYS = ("times", "energies", "per_core_synops", "per_core_acts",
                  "per_core_msgs_out")
 REPORT_SCALARS = ("time_per_step", "energy_per_step", "max_synops",
@@ -332,6 +366,362 @@ def traced(fn) -> dict:
                              "calls": n} for k, us, n in by_kernel[:10]]}
 
 
+def recorder():
+    """A kernel-mode event backend that keeps every synaptic forward's
+    operands (``.calls``) and every value-only pass's (``.bases``,
+    ``.deltas``), for the teacher-forced checks of phases (c) and (o)."""
+    from repro_torch.neuromorphic import EventCompute
+
+    class Recorder(EventCompute):
+        def __init__(self):
+            super().__init__(mode="kernel")
+            self.calls, self.deltas, self.bases = [], [], []
+
+        def forward(self, layer, x_eff, act_mask, msgs_in):
+            self.calls.append((layer, x_eff, act_mask, msgs_in))
+            return super().forward(layer, x_eff, act_mask, msgs_in)
+
+        def value_forward(self, layer, x_eff):
+            self.bases.append((layer, x_eff))
+            return super().value_forward(layer, x_eff)
+
+        def delta_forward(self, layer, x_in, in_acc, act_mask, msgs_in):
+            self.deltas.append((layer, x_in, in_acc.clone()))
+            return super().delta_forward(layer, x_in, in_acc, act_mask,
+                                         msgs_in)
+    return Recorder()
+
+
+def live_tiles(x, w):
+    """(Mb, Nb, Kb) bool live tile products of ``x @ w``, the padded
+    ``x``, its tile activity and the weight-tile occupancy, as the
+    wrapper computes them."""
+    from repro_torch.kernels.event_matmul.ops import (pad_compact,
+                                                      weight_block_occupancy)
+    xp, active, _, _ = pad_compact(x, 0.0)
+    occ = weight_block_occupancy(w)
+    return active[:, None, :] & occ.T[None, :, :], xp, active, occ
+
+
+def search_phases(net, xs, chip, *, ckpt_root, expect_launches: dict,
+                  card: str, search: dict = SEARCH) -> None:
+    """Phases (o) to (q) on the slice-1 cell ``(net, xs, chip)``: the
+    committed trained profile applied to it, the greedy-then-evolutionary
+    search over the profiled cell with both population backends, and
+    kill-and-resume plus a scripted demotion.  ``expect_launches`` is the
+    kernel launches of one ``run_batch`` of the cell (none on the CPU,
+    where every wrapper runs its plain version).  Search snapshots go
+    under ``ckpt_root`` (scratch, emptied first)."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from repro_torch.core import resilience as R
+    from repro_torch.core.partitioner import SimEvaluator
+    from repro_torch.core.search import (Population, evolutionary_search,
+                                         greedy_then_evolve)
+    from repro_torch.kernels.event_matmul.ops import event_matmul2
+    from repro_torch.kernels.sigma_delta.ops import window_cumsum
+    from repro_torch.neuromorphic import (EventCompute, simulate,
+                                          simulate_population)
+    from repro_torch.sparsity import SparsityProfile
+
+    counted = {"event_matmul2": event_matmul2, "window_cumsum": window_cumsum}
+
+    def sync():
+        if net.device.type == "cuda":
+            torch.cuda.synchronize()
+
+    def zero():
+        for fn in counted.values():
+            fn.launches = 0
+
+    def launches():
+        return {k: fn.launches for k, fn in counted.items()}
+
+    # ----------------------------------------- (o) the trained profile
+    t_phase = time.perf_counter()
+    t0 = time.perf_counter()
+    profile = SparsityProfile.load(PROFILE_PATH)
+    dens = profile.densities_for(len(net.layers))
+    pnet = profile.apply(net, seed=0)
+    sync()
+    apply_s = time.perf_counter() - t0
+    require(np.allclose(dens, [0.3, 0.4, 0.55 / 1.5, 0.2], rtol=1e-12,
+                        atol=0.0), f"resampled densities {dens}")
+    for i, (a, b) in enumerate(zip(net.layers, pnet.layers)):
+        keep = int(round(float(dens[i]) * b.n_neurons))
+        require(int(b.msg_gate.sum()) == keep, f"{b.name}: gate count")
+        wd = float(profile.weight_density[min(i, profile.n_layers - 1)])
+        require(int((b.weights != 0).sum())
+                <= int(round(wd * b.n_weights)), f"{b.name}: mask count")
+        require(bool(((b.weights == 0) | (b.weights == a.weights)).all()),
+                f"{b.name}: masked weights are not the original ones")
+    rec = recorder()
+    zero()
+    sync()
+    t0 = time.perf_counter()
+    run_o = pnet.run_batch(xs, compute=rec)
+    sync()
+    run_s = time.perf_counter() - t0
+    launches_o = launches()
+    require(launches_o == expect_launches,
+            f"profiled run_batch launches {launches_o} != {expect_launches}")
+    t0 = time.perf_counter()
+    run_dense = pnet.run_batch(xs, compute="dense")
+    sync()
+    dense_s = time.perf_counter() - t0
+    for layer, a, b in zip(pnet.layers, run_o[1], run_dense[1]):
+        for f in FIELDS:
+            exact(getattr(a, f), getattr(b, f), f"profiled {layer.name} {f}")
+    require(bool(torch.isfinite(run_o[0]).all()), "profiled: non-finite")
+    live = [[float(live_tiles(x, layer.weights)[0].float().mean()),
+             float(live_tiles(m, layer.w_mask)[0].float().mean())]
+            for layer, x, m, _ in rec.calls]
+    del rec
+    T = xs.shape[0]
+    emit({"phase": "sparsity_profile", "source": str(
+        PROFILE_PATH.relative_to(ROOT)), "seed": 0,
+        "profile_layers": list(profile.layer_names),
+        "act_density_programmed": dens.tolist(),
+        "weight_density_applied": [
+            float(profile.weight_density[min(i, profile.n_layers - 1)])
+            for i in range(len(net.layers))],
+        "weight_density_after": [l.w_nnz / l.n_weights for l in pnet.layers],
+        "message_density_measured": [
+            float(c.msgs_out.to(torch.float64).sum()) / (T * l.n_neurons)
+            for l, c in zip(pnet.layers, run_o[1])],
+        "launches": launches_o, "counters": "bit-identical to dense",
+        "live_share_value_counter_per_call": live,
+        "load_apply_s": apply_s, "run_batch_s": run_s,
+        "dense_run_batch_s": dense_s,
+        "phase_wall_s": time.perf_counter() - t_phase})
+
+    # ---------------------------------------------------- (p) the search
+    class Timed(SimEvaluator):
+        """The evaluator, with the wall time and the candidates of its
+        population pricings summed (each call ends in a synchronise)."""
+
+        def __init__(self, *args, **kw):
+            self.pricing_s, self.priced = 0.0, 0
+            super().__init__(*args, **kw)
+
+        def evaluate_population(self, candidates):
+            cands = list(candidates)
+            t = time.perf_counter()
+            try:
+                return super().evaluate_population(cands)
+            finally:
+                sync()
+                self.pricing_s += time.perf_counter() - t
+                self.priced += len(cands)
+
+    t_phase = time.perf_counter()
+    zero()
+    sync()
+    t0 = time.perf_counter()
+    ev_dev = Timed(net, xs, chip, compute=EventCompute(mode="kernel"),
+                   population_backend="device", sparsity_profile=profile)
+    sync()
+    cache_s = time.perf_counter() - t0
+    launches_p = launches()
+    require(launches_p == expect_launches,
+            f"profiled precompute_pricing launches {launches_p}")
+    for a, b in zip(pnet.layers, ev_dev.net.layers):   # (o)'s net, again
+        exact(a.weights, b.weights, f"{a.name}: profiled weights")
+        exact(a.msg_gate, b.msg_gate, f"{a.name}: profiled gate")
+    pnet = ev_dev.net
+    shutil.rmtree(ckpt_root, ignore_errors=True)
+    ckpt = {b: ckpt_root / f"search_{b}" for b in ("device", "numpy")}
+    runs = {}
+    for backend, ev in (("device", ev_dev),
+                        ("numpy", Timed(pnet, xs, chip, cache=ev_dev.cache))):
+        t0 = time.perf_counter()
+        greedy, evo = greedy_then_evolve(
+            pnet, chip, ev, checkpoint_dir=str(ckpt[backend]),
+            checkpoint_keep=search["generations"] + 1, **search)
+        sync()
+        runs[backend] = dict(greedy=greedy, evo=evo, ev=ev,
+                             wall=time.perf_counter() - t0)
+        require(ev.demotions == [] and evo.demotions == []
+                and ev.active_backend == backend,
+                f"{backend} search: demotions {ev.demotions}, active "
+                f"backend {ev.active_backend}")
+        require(evo.report.time_per_step <= greedy.report.time_per_step,
+                f"{backend} search worse than the greedy walk")
+        require(len(evo.front) > 0, f"{backend} search: empty front")
+        for what, (cand, rep) in (("best", (evo.candidate, evo.report)),
+                                  ("knee", evo.knee())):
+            again = simulate(pnet, xs, chip, cand.partition(),
+                             cand.mapping(), precomputed=run_o)
+            require(bool(np.isclose(rep.time_per_step, again.time_per_step,
+                                    rtol=SEARCH_RTOL, atol=0.0)
+                         and np.isclose(rep.energy_per_step,
+                                        again.energy_per_step,
+                                        rtol=SEARCH_RTOL, atol=0.0)),
+                    f"{backend} {what}: search report vs simulate")
+    h_dev, h_np = runs["device"]["evo"].history, runs["numpy"]["evo"].history
+    require(len(h_dev) == len(h_np), "history lengths")
+    best_rel = [abs(a.best_time - b.best_time) / b.best_time
+                for a, b in zip(h_dev, h_np)]
+    require(max(best_rel) <= SEARCH_RTOL,
+            f"per-generation best_time device vs numpy {best_rel}")
+    snaps = {b: R.SearchCheckpointer(str(d)) for b, d in ckpt.items()}
+    same_genomes = 0
+    for g in range(len(h_np)):
+        a, _, _ = snaps["device"].restore(g)
+        b, _, _ = snaps["numpy"].restore(g)
+        same_genomes += int(np.array_equal(a["cores"], b["cores"])
+                            and np.array_equal(a["perm"], b["perm"]))
+    emit({"phase": "search", "cell": "slice-1, trained profile (seed 0)",
+          "card": card,
+          "search": search, "cache_build_s": cache_s,
+          "profiled_precompute_pricing_launches": launches_p,
+          "greedy": {"iters": len(runs["numpy"]["greedy"].history),
+                     "time_per_step":
+                         runs["numpy"]["greedy"].report.time_per_step,
+                     "partition": list(
+                         runs["numpy"]["greedy"].partition.cores)},
+          "best": {b: {"time_per_step": r["evo"].report.time_per_step,
+                       "energy_per_step": r["evo"].report.energy_per_step,
+                       "partition": list(r["evo"].partition.cores),
+                       "front": len(r["evo"].front),
+                       "seed_best_time": r["evo"].seed_best_time}
+                   for b, r in runs.items()},
+          "best_time_per_generation": {"device": [h.best_time
+                                                  for h in h_dev],
+                                       "numpy": [h.best_time for h in h_np]},
+          "max_rel_diff_best_time": max(best_rel), "rtol": SEARCH_RTOL,
+          "generations_with_identical_genomes": [same_genomes, len(h_np)],
+          "n_evals": {b: r["evo"].n_evals for b, r in runs.items()},
+          "evaluator_n_evals": {b: r["ev"].n_evals for b, r in runs.items()},
+          "wall_s": {b: r["wall"] for b, r in runs.items()},
+          "pricing_s": {b: r["ev"].pricing_s for b, r in runs.items()},
+          "candidates_per_s": {b: r["ev"].priced / r["ev"].pricing_s
+                               for b, r in runs.items()},
+          "demotions": "none (both backends)",
+          "phase_wall_s": time.perf_counter() - t_phase})
+
+    # ---------------------------------------- (q) resume and demotion
+    t_phase = time.perf_counter()
+    # does the device pricer give the same bits twice, and in another
+    # batch?  (its sums use scatter_add_, index_add_ and scatter_reduce)
+    last, _, _ = snaps["device"].restore()
+    pop = Population(last["cores"], last["perm"])
+    pairs = pop.pairs()
+    price = lambda ps: simulate_population(pnet, xs, chip, ps,
+                                           cache=ev_dev.cache,
+                                           backend="device")
+    first, second = price(pairs), price(pairs)
+    # the same rows in reverse order, and the first 7 alone (a resume
+    # re-prices survivors and the front in batches of their own)
+    other = price(pairs[::-1])[::-1] + price(pairs[:7])
+    fields = REPORT_ARRAYS + REPORT_SCALARS + ("bottleneck_stage",)
+
+    def differing(xs_, ys_):
+        out = set()
+        for x, y in zip(xs_, ys_):
+            for f in fields:
+                u, v = getattr(x, f), getattr(y, f)
+                if not (torch.equal(u, v) if isinstance(u, torch.Tensor)
+                        else u == v):
+                    out.add(f)
+        return sorted(out)
+    diff_twice = differing(first, second)
+    diff_batch = differing(first + first[:7], other)
+    deterministic = not diff_twice and not diff_batch
+    resumed = {}
+    for backend in ("numpy", "device"):
+        d = ckpt_root / f"resume_{backend}"
+        greedy = runs[backend]["greedy"]
+        crashed = False
+        try:
+            evolutionary_search(
+                pnet, chip, SimEvaluator(pnet, xs, chip, cache=ev_dev.cache,
+                                         population_backend=backend,
+                                         fallback=False),
+                greedy=greedy, checkpoint_dir=str(d),
+                fault_plan=R.FaultPlan(kill_after_gen=KILL_AFTER), **search)
+        except R.SimulatedCrash:          # the scripted kill under test
+            crashed = True
+        require(crashed, f"{backend}: the scripted kill did not fire")
+        require(R.SearchCheckpointer(str(d)).latest() == KILL_AFTER,
+                f"{backend}: newest snapshot after the kill")
+        t0 = time.perf_counter()
+        res = evolutionary_search(
+            pnet, chip, SimEvaluator(pnet, xs, chip, cache=ev_dev.cache,
+                                     population_backend=backend,
+                                     fallback=False),
+            greedy=greedy, checkpoint_dir=str(d), resume=True, **search)
+        sync()
+        resume_s = time.perf_counter() - t0
+        full = runs[backend]["evo"]
+        bits = backend == "numpy" or deterministic
+        a, _, _ = R.SearchCheckpointer(str(d)).restore()
+        b, _, _ = snaps[backend].restore()
+        for k in sorted(b):
+            if b[k].dtype.kind != "f":
+                require(np.array_equal(a[k], b[k]),
+                        f"{backend} resume: final snapshot {k}")
+        objs = lambda h: np.array([[g.best_time, g.best_energy, g.mean_time]
+                                   for g in h])
+        ft = lambda r: np.array([[x.time_per_step, x.energy_per_step]
+                                 for x in r.front_reports])
+        # final population and archive objectives, the history's, the
+        # front reports'
+        floats = [(a[k], b[k]) for k in sorted(b) if b[k].dtype.kind == "f"]
+        floats += [(objs(res.history), objs(full.history)),
+                   (ft(res), ft(full))]
+        same_bits = all(x.shape == y.shape and np.array_equal(x, y)
+                        for x, y in floats)
+        require(same_bits or not bits, f"{backend} resume: not bit for bit")
+        require(all(np.allclose(x, y, rtol=SEARCH_RTOL, atol=0.0)
+                    for x, y in floats),
+                f"{backend} resume: objectives beyond rtol {SEARCH_RTOL}")
+        worst = max(float(np.max(np.abs(x - y)[y != 0] / np.abs(y[y != 0]),
+                                 initial=0.0)) for x, y in floats)
+        hist = lambda h: [(g.generation, g.n_evals, g.front_size,
+                           g.n_quarantined) for g in h]
+        require(hist(res.history) == hist(full.history),
+                f"{backend} resume: history counts")
+        genomes = lambda cs: [(c.cores, c.perm) for c in cs]
+        require(genomes(res.front) == genomes(full.front)
+                and genomes([res.candidate, res.knee()[0]])
+                == genomes([full.candidate, full.knee()[0]]),
+                f"{backend} resume: best, front or knee genomes")
+        resumed[backend] = {"killed_after_generation": KILL_AFTER,
+                            "held_to": "bit-identical" if bits
+                            else f"rtol {SEARCH_RTOL}",
+                            "bit_identical": same_bits,
+                            "max_rel_diff": worst, "resume_s": resume_s}
+    ev_f = SimEvaluator(pnet, xs, chip, cache=ev_dev.cache,
+                        population_backend="device")
+    res_f = evolutionary_search(pnet, chip, ev_f,
+                                greedy=runs["device"]["greedy"],
+                                fault_plan=R.FaultPlan(fail={"device": 2}),
+                                **search)
+    dem = ev_f.demotions
+    require(len(dem) == 1 and (dem[0].frm, dem[0].to) == ("device", "numpy")
+            and res_f.demotions == dem and ev_f.active_backend == "numpy",
+            f"scripted demotion: {dem}")
+    f_rel = [abs(a.best_time - b.best_time) / b.best_time
+             for a, b in zip(res_f.history, h_np)]
+    require(len(res_f.history) == len(h_np) and max(f_rel) <= SEARCH_RTOL,
+            f"demoted run vs numpy-only run {f_rel}")
+    emit({"phase": "resume", "device_pricer_deterministic": deterministic,
+          "fields_differing_when_priced_twice": diff_twice,
+          "fields_differing_in_another_batch": diff_batch,
+          "population_checked": len(pairs), "resume": resumed,
+          "scripted_demotion": {"fault_plan": "fail={'device': 2}",
+                                "retry": "RetryPolicy() (one retry)",
+                                "demotions": [dataclasses.asdict(x)
+                                              for x in dem],
+                                "max_rel_diff_best_time_vs_numpy":
+                                    max(f_rel)},
+          "checkpoints": str(ckpt_root),
+          "phase_wall_s": time.perf_counter() - t_phase})
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -383,8 +773,12 @@ def main() -> int:
                                           strided_mapping)
     from repro_torch.neuromorphic.compute import _im2col, _patch_weights
     from repro_torch.neuromorphic.frontend import PROBE_ATOL
+    from repro_torch.sparsity import SparsityProfile
     import numpy as np
     import torch.nn.functional as F
+    # the recipes of the golden fixtures, shared with the tests
+    sys.path.insert(0, str(ROOT / "tests"))
+    from _torch_workloads import conv_specs
 
     dev = torch.device(DEVICE)
     card = gpu_name_and_limit()
@@ -402,28 +796,6 @@ def main() -> int:
           "cuda": torch.version.cuda})
 
     # -------------------------------------------------------- (b) main path
-    class Recorder(EventCompute):
-        """Kernel-mode event backend that keeps every synaptic forward's
-        operands and every value-only pass's, for the teacher-forced
-        checks of phase (c)."""
-
-        def __init__(self):
-            super().__init__(mode="kernel")
-            self.calls, self.deltas, self.bases = [], [], []
-
-        def forward(self, layer, x_eff, act_mask, msgs_in):
-            self.calls.append((layer, x_eff, act_mask, msgs_in))
-            return super().forward(layer, x_eff, act_mask, msgs_in)
-
-        def value_forward(self, layer, x_eff):
-            self.bases.append((layer, x_eff))
-            return super().value_forward(layer, x_eff)
-
-        def delta_forward(self, layer, x_in, in_acc, act_mask, msgs_in):
-            self.deltas.append((layer, x_in, in_acc.clone()))
-            return super().delta_forward(layer, x_in, in_acc, act_mask,
-                                         msgs_in)
-
     sizes = [1024, 2048, 1024, 1024, 512]
     T = 1024
     net = fc_network(sizes, weight_density=0.5, neuron_model="sd_relu",
@@ -441,7 +813,7 @@ def main() -> int:
               "window_cumsum": n_delta}
     counters = {"event_matmul2": event_matmul2,
                 "window_cumsum": window_cumsum}
-    rec = Recorder()
+    rec = recorder()
     walls = {}
 
     for fn in counters.values():
@@ -710,14 +1082,6 @@ def main() -> int:
     lib = build.load()
     stream = torch.cuda.current_stream().cuda_stream
 
-    def live_tiles(x, w):
-        """(Mb, Nb, Kb) bool live tile products of ``x @ w``, the padded
-        ``x``, its tile activity and the weight-tile occupancy, as the
-        wrapper computes them."""
-        xp, active, _, _ = pad_compact(x, 0.0)
-        occ = weight_block_occupancy(w)
-        return active[:, None, :] & occ.T[None, :, :], xp, active, occ
-
     def matmul_bound(M: int, N: int, live, elt: int, out_elt: int,
                      rate: float, products: int) -> dict:
         """Bytes and operations of one block-sparse product, from this
@@ -883,7 +1247,7 @@ def main() -> int:
     require(cn.param_layer_nnz() + excluded_params(cfg) == cfg.param_count(),
             "whisper-base: param identity")
     xs_w = cn.inputs(T_W, seed=5)
-    rec_w = Recorder()
+    rec_w = recorder()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     out_w, cnt_w = cn.net.run_batch(xs_w, compute=rec_w)
@@ -935,42 +1299,72 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # ------------------------------------- (g) pricing of compiled nets
+    # and of the three fixtures under the committed trained profile
     t0 = time.perf_counter()
     priced = {}
-    for arch, fixture in (("gemma2-2b", "model_lm_gemma2"),
-                          ("mamba2-1.3b", "model_ssm_mamba2"),
-                          ("olmoe-1b-7b", "model_moe_olmoe"),
-                          ("whisper-base", "model_encdec_whisper")):
+    trained = SparsityProfile.load(PROFILE_PATH)
+
+    def compiled(arch, act_density=None):
+        def build():
+            cs = compile_network(arch, seed=0, device=DEVICE,
+                                 act_density=act_density)
+            return cs.net, cs.inputs(4, seed=5)
+        return build
+
+    def fc_profile_sparse():
+        n = fc_network([32, 48, 48, 24], weight_density=1.0, seed=11,
+                       device=DEVICE)
+        return (trained.apply(n, seed=17),
+                make_inputs(32, 0.3, 8, seed=12, device=DEVICE))
+
+    def conv_fc_profile_event():
+        specs_g = conv_specs(seed=23, fc_out=12, mask_density=None)
+        n = trained.apply(network_from_numpy(specs_g, 8 * 8 * 2,
+                                             device=DEVICE), seed=19)
+        return n, make_inputs(n.in_size, 0.3, 6, seed=24, device=DEVICE)
+
+    for arch, fixture, builder in (
+            ("gemma2-2b", "model_lm_gemma2", compiled("gemma2-2b")),
+            ("mamba2-1.3b", "model_ssm_mamba2", compiled("mamba2-1.3b")),
+            ("olmoe-1b-7b", "model_moe_olmoe", compiled("olmoe-1b-7b")),
+            ("whisper-base", "model_encdec_whisper",
+             compiled("whisper-base")),
+            ("fc_profile_sparse", "fc_profile_sparse", fc_profile_sparse),
+            ("conv_fc_profile_event", "conv_fc_profile_event",
+             conv_fc_profile_event),
+            ("gemma2-2b, trained profile", "model_lm_gemma2_profile",
+             compiled("gemma2-2b", trained))):
         golden = json.loads((ROOT / "tests" / "golden"
                              / f"{fixture}.json").read_text())
-        cs = compile_network(arch, seed=0, device=DEVICE)
-        xs_s = cs.inputs(golden["steps"], seed=5)
+        net_g, xs_s = builder()
+        require(golden["steps"] == xs_s.shape[0], f"{fixture}: steps")
         require([r["name"] for r in golden["layers"]]
-                == [l.name for l in cs.net.layers], f"{fixture}: layers")
+                == [l.name for l in net_g.layers], f"{fixture}: layers")
         reps = {}
         for mode, cc in (("kernel", EventCompute(mode="kernel")),
                          ("dense", DenseCompute())):
-            run = cs.net.run_batch(xs_s, compute=cc)
+            run = net_g.run_batch(xs_s, compute=cc)
             for row, c in zip(golden["layers"], run[1]):
                 for f in FIELDS:
                     require(row[f] == int(getattr(c, f).to(torch.float64)
                                           .sum()),
                             f"{fixture} {mode} {row['name']} {f}")
-            reps[mode] = simulate(cs.net, xs_s, prof, precomputed=run)
+            reps[mode] = simulate(net_g, xs_s, prof, precomputed=run)
         rk, rd = reps["kernel"], reps["dense"]
         rel_t = abs(rk.time_per_step - rd.time_per_step) / rd.time_per_step
         rel_e = (abs(rk.energy_per_step - rd.energy_per_step)
                  / rd.energy_per_step)
         require(rel_t <= REPORT_RTOL and rel_e <= REPORT_RTOL,
                 f"{arch}: kernel vs dense report {rel_t}, {rel_e}")
-        priced[arch] = {"fixture": fixture, "layers": len(cs.net.layers),
+        priced[arch] = {"fixture": fixture, "layers": len(net_g.layers),
                         "cores": rd.n_cores_active,
                         "time_per_step": rd.time_per_step,
                         "energy_per_step": rd.energy_per_step,
                         "bottleneck_stage": rd.bottleneck_stage,
                         "rel_diff_time": rel_t, "rel_diff_energy": rel_e}
     emit({"phase": "pricing", "profile": prof.name, "archs": priced,
-          "counters": "equal to tests/golden, kernel and dense",
+          "counters": "equal to tests/golden (all nine fixtures), kernel "
+                      "and dense",
           "wall_s": time.perf_counter() - t0})
 
     # --------------------------------------------- (h) flash attention
@@ -1389,6 +1783,8 @@ def main() -> int:
     peak_dev = torch.cuda.max_memory_allocated()
     require(ev_np.n_evals == K_POP and ev_dev.n_evals == 2 * K_POP,
             f"evaluations {ev_np.n_evals}, {ev_dev.n_evals}")
+    require(ev_dev.demotions == [] and ev_dev.active_backend == "device",
+            f"device pricing demoted: {ev_dev.demotions}")
     pop_err = reports_close(r_dev, r_np, POP_RTOL)
     spot = np.linspace(0, K_POP - 1, 16).astype(int)
     for i in spot:
@@ -1425,6 +1821,12 @@ def main() -> int:
                        for g in gs]
     emit({"phase": "guidance", "layers": guide,
           "wall_s": time.perf_counter() - t0})
+
+    # ------------- (o)-(q) trained profile, search, resume at the cell
+    del cache, run_p, ev_np, ev_dev, r_np, r_dev
+    torch.cuda.empty_cache()
+    search_phases(net, xs, prof, ckpt_root=build.BUILD_DIR / "ckpt",
+                  expect_launches=expect, card=card)
 
     emit({"kernels": [mm, wc, fa, em1, sdk]})
     print(card, flush=True)

@@ -25,6 +25,7 @@ from typing import Callable
 import numpy as np
 
 from repro_torch.core.analytical import Bottleneck
+from repro_torch.core.resilience import FallbackChain
 from repro_torch.neuromorphic import timestep
 from repro_torch.neuromorphic.network import SimNetwork
 from repro_torch.neuromorphic.noc import (Mapping, cores_per_router,
@@ -48,16 +49,35 @@ class SimEvaluator:
     counter cumsums are computed once, on the network's device, and every
     candidate is priced from that cache; ``engine="reference"`` prices
     each candidate with the step-major engine instead (identical results).
-    ``n_evals`` counts priced candidates.
+    ``n_evals`` counts priced candidates, the budget unit shared by the
+    greedy walk and the evolutionary search.
 
     ``population_backend`` selects how :meth:`evaluate_population` prices
     a population: ``"numpy"`` (per candidate, bit-identical to
     ``simulate``) or ``"device"`` (one batched program; float64
-    roundoff).  A backend failure raises: there is no fallback chain."""
+    roundoff).
+
+    ``sparsity_profile`` programs a trained
+    :class:`~repro_torch.sparsity.profile.SparsityProfile` onto ``net``
+    once, here, before the functional run; it cannot be combined with a
+    shared ``cache``, which is bound to the un-profiled network.
+
+    Population pricing degrades gracefully: a backend failure is retried
+    per ``retry`` and then demoted down the ``device -> numpy`` chain
+    (:class:`~repro_torch.core.resilience.FallbackChain`; sticky, logged,
+    recorded in :attr:`demotions`).  The chain wraps population pricing
+    only, never the functional run: a kernel that fails to build or launch
+    still raises.  ``fallback=False`` fails fast.  ``fault_plan`` is the
+    deterministic fault-injection hook (:class:`~repro_torch.core.
+    resilience.FaultPlan`)."""
 
     def __init__(self, net: SimNetwork, xs, profile: ChipProfile, *,
                  engine: str | None = None, cache=None,
-                 population_backend: str = "numpy", compute=None):
+                 population_backend: str = "numpy", compute=None,
+                 fault_plan=None, fallback: bool = True, retry=None,
+                 sparsity_profile=None):
+        net = timestep.apply_profile(net, sparsity_profile, cache=cache)
+        self.sparsity_profile = sparsity_profile
         self.net, self.xs, self.profile = net, xs, profile
         self.engine = engine or timestep.DEFAULT_ENGINE
         self.population_backend = population_backend
@@ -67,6 +87,22 @@ class SimEvaluator:
                                                   compute=compute)
                       if self.engine == "batched" else None)
         self.n_evals = 0
+        self.fault_plan = fault_plan
+        self._chain = (FallbackChain(population_backend, retry=retry)
+                       if fallback else None)
+
+    @property
+    def demotions(self) -> list:
+        """Fallback-chain demotion records, oldest first (empty when the
+        chain is disabled or never fired)."""
+        return self._chain.demotions if self._chain is not None else []
+
+    @property
+    def active_backend(self) -> str:
+        """The population backend in use (differs from
+        ``population_backend`` after a demotion)."""
+        return (self._chain.backend if self._chain is not None
+                else self.population_backend)
 
     def __call__(self, part: Partition, mapping: Mapping) -> SimReport:
         self.n_evals += 1
@@ -77,18 +113,32 @@ class SimEvaluator:
                         engine=self.engine, compute=self.compute)
 
     def evaluate_population(self, candidates) -> list[SimReport]:
-        """Price a list of (partition, mapping) pairs through
-        ``population_backend`` when the pricing cache is live (else one
-        step-major ``simulate`` each); counts every candidate."""
+        """Price a list of (partition, mapping) pairs through the active
+        population backend when the pricing cache is live (else one
+        step-major ``simulate`` each); counts every candidate.  Backend
+        failures retry, then demote down the fallback chain; scripted
+        :class:`~repro_torch.core.resilience.FaultPlan` faults inject
+        here."""
         cands = list(candidates)
         self.n_evals += len(cands)
         if self.cache is not None:
-            return simulate_population(self.net, self.xs, self.profile,
-                                       cands, cache=self.cache,
-                                       backend=self.population_backend)
-        return [simulate(self.net, self.xs, self.profile, p, m,
-                         engine=self.engine, compute=self.compute)
-                for p, m in cands]
+            def attempt(backend):
+                if self.fault_plan is not None:
+                    self.fault_plan.check(backend)
+                return simulate_population(self.net, self.xs, self.profile,
+                                           cands, cache=self.cache,
+                                           backend=backend)
+            if self._chain is not None:
+                reports = self._chain.run(attempt)
+            else:
+                reports = attempt(self.population_backend)
+        else:
+            reports = [simulate(self.net, self.xs, self.profile, p, m,
+                                engine=self.engine, compute=self.compute)
+                       for p, m in cands]
+        if self.fault_plan is not None:
+            reports = self.fault_plan.corrupt(reports)
+        return reports
 
 
 @dataclasses.dataclass

@@ -26,7 +26,8 @@ from repro_torch.neuromorphic.partition import (Partition, minimal_partition,
 from repro_torch.neuromorphic.platform import (NEURON_COST, PROFILES,
                                                ChipProfile, akd1000_like,
                                                loihi2_like, speck_like)
-from repro_torch.neuromorphic.timestep import (PopulationPricer,
+from repro_torch.neuromorphic.timestep import (LayerStageTimes,
+                                               PopulationPricer,
                                                PricingCache, SimReport,
                                                layer_stage_times,
                                                precompute_pricing,
@@ -47,7 +48,8 @@ __all__ = [
     "Partition", "minimal_partition", "validate_partition",
     "NEURON_COST", "PROFILES", "ChipProfile", "akd1000_like", "loihi2_like",
     "speck_like",
-    "PopulationPricer", "PricingCache", "SimReport", "layer_stage_times",
+    "LayerStageTimes", "PopulationPricer", "PricingCache", "SimReport",
+    "layer_stage_times",
     "precompute_pricing", "price_candidate", "price_population_device",
     "simulate", "simulate_population",
 ]

@@ -170,6 +170,21 @@ class SimReport:
                 f"bottleneck={self.bottleneck_stage}")
 
 
+def apply_profile(net: SimNetwork, sparsity_profile, **bound) -> SimNetwork:
+    """``net`` under a trained sparsity profile (``net`` itself without
+    one).  ``bound`` holds the caller's cache / cached run arguments: a
+    given one is bound to the un-profiled network, so combining it with a
+    profile raises ``ValueError``."""
+    if sparsity_profile is None:
+        return net
+    given = [k for k, v in bound.items() if v is not None]
+    if given:
+        raise ValueError(f"sparsity_profile cannot be combined with "
+                         f"{'/'.join(given)}: bound to the un-profiled "
+                         "network")
+    return sparsity_profile.apply(net)
+
+
 def simulate(net: SimNetwork, xs, profile: ChipProfile,
              part: Partition | None = None,
              mapping: Mapping | None = None, *,
@@ -187,11 +202,13 @@ def simulate(net: SimNetwork, xs, profile: ChipProfile,
         across backends.
       precomputed: a cached ``net.run_batch(xs)`` result to reuse (batched
         engine only; takes precedence over ``compute``).
-      sparsity_profile: not ported yet; raises ``NotImplementedError``.
+      sparsity_profile: a trained :class:`~repro_torch.sparsity.profile.
+        SparsityProfile` to program onto ``net`` (its ``apply``) before
+        the run: message gates and weight masks; the pricing math is
+        untouched.  Mutually exclusive with ``precomputed``.
     """
-    if sparsity_profile is not None:
-        raise NotImplementedError("sparsity profiles are not ported yet")
     engine = engine or DEFAULT_ENGINE
+    net = apply_profile(net, sparsity_profile, precomputed=precomputed)
     part = part or minimal_partition(net, profile)
     mapping = mapping or ordered_mapping(part, profile)
     if engine == "batched":
@@ -276,10 +293,13 @@ def _neuron_csum(per_neuron: torch.Tensor) -> torch.Tensor:
 
 def precompute_pricing(net: SimNetwork, xs, profile: ChipProfile, *,
                        precomputed: tuple | None = None,
-                       compute=None) -> PricingCache:
+                       compute=None, sparsity_profile=None) -> PricingCache:
     """Run the functional network (or reuse a cached ``net.run_batch(xs)``
     result) and reduce its counter maps to per-layer cumsums; one cache
-    prices any number of (partition, mapping) candidates."""
+    prices any number of (partition, mapping) candidates.
+    ``sparsity_profile`` programs a trained profile onto ``net`` before the
+    run (mutually exclusive with ``precomputed``)."""
+    net = apply_profile(net, sparsity_profile, precomputed=precomputed)
     outputs, all_counters = precomputed or net.run_batch(xs, compute=compute)
     layers = []
     for l, counters in enumerate(all_counters):
@@ -421,8 +441,8 @@ def price_candidate(net: SimNetwork, profile: ChipProfile,
 #: The population backends :func:`simulate_population` takes.  ``"vmap"``
 #: and ``"sharded"`` (the JAX package's jitted-vmap and device-mesh
 #: pricers) are not ported: the batched ``"device"`` program takes the
-#: place of ``"vmap"``, and a sharded pricer waits for ROADMAP queue
-#: item 2's remainder.
+#: place of ``"vmap"``, and a sharded pricer waits for the
+#: ``core/device_search.py`` item of ROADMAP queue 1.
 POPULATION_BACKENDS = ("numpy", "device")
 
 
@@ -458,15 +478,17 @@ def simulate_population(net: SimNetwork, xs, profile: ChipProfile,
       (:func:`price_population_device`).  Agrees with ``"numpy"`` to
       float64 roundoff (rtol 1e-9): sums run in another order.
 
-    ``"vmap"`` and ``"sharded"`` raise ``NotImplementedError``;
-    ``sparsity_profile`` is not ported yet and raises likewise.
+    ``"vmap"`` and ``"sharded"`` raise ``NotImplementedError``.
+    ``sparsity_profile`` programs a trained profile onto ``net`` before the
+    functional run (mutually exclusive with ``cache`` / ``precomputed``,
+    which are bound to the un-profiled network).
     """
-    if sparsity_profile is not None:
-        raise NotImplementedError("sparsity profiles are not ported yet")
+    net = apply_profile(net, sparsity_profile, cache=cache,
+                        precomputed=precomputed)
     if backend in ("vmap", "sharded"):
         raise NotImplementedError(
             f"population backend {backend!r} is not ported (ROADMAP queue "
-            "item 2): use 'numpy' or 'device'")
+            "1, the core/device_search.py item): use 'numpy' or 'device'")
     if backend not in POPULATION_BACKENDS:
         raise ValueError(f"unknown population backend {backend!r}")
     cands = list(candidates)

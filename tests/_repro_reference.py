@@ -36,6 +36,11 @@ MODULES = {
     "registry": "repro.configs.registry",
     "flash_ops": "repro.kernels.flash_attn.ops",
     "flash_ref": "repro.kernels.flash_attn.ref",
+    "profile": "repro.sparsity.profile",
+    "sd_sparsity": "repro.sparsity.sigma_delta",
+    "resilience": "repro.core.resilience",
+    "search": "repro.core.search",
+    "checkpoint": "repro.train.checkpoint",
 }
 
 

@@ -330,6 +330,42 @@ def test_public_kernel_api_matches_reference(ref):
         assert callable(getattr(repro_torch.kernels, name)), name
 
 
+#: the JAX package's device-search engine names, which wait for the port
+#: of ``core/device_search.py``
+DEVICE_SEARCH = ("DeviceSearchEngine", "evolutionary_search_device",
+                 "generation_draws", "mutate_rows_array",
+                 "survival_order_array")
+
+
+def test_core_exports_match_reference(ref):
+    import repro.core
+    import repro_torch.core
+    assert repro_torch.core.__all__ == [
+        n for n in repro.core.__all__ if n not in DEVICE_SEARCH]
+    for name in repro_torch.core.__all__:      # eager and lazy alike
+        obj = getattr(repro_torch.core, name)
+        assert obj.__module__.startswith("repro_torch.") \
+            or name == "Evaluator", name
+    for name in DEVICE_SEARCH:
+        with pytest.raises(AttributeError):
+            getattr(repro_torch.core, name)
+
+
+def test_neuromorphic_exports_cover_reference(ref):
+    import repro.neuromorphic
+    import repro_torch.neuromorphic
+    from repro_torch.neuromorphic.timestep import LayerStageTimes
+    assert repro_torch.neuromorphic.LayerStageTimes is LayerStageTimes
+    # the JAX package's vmap / jitted population pricers are not ported
+    missing = {"DevicePopulationPricer", "PopulationBatch",
+               "build_population_batch", "device_pricer",
+               "price_population_vmap"}
+    assert set(repro.neuromorphic.__all__) - missing \
+        <= set(repro_torch.neuromorphic.__all__)
+    for name in repro_torch.neuromorphic.__all__:
+        getattr(repro_torch.neuromorphic, name)
+
+
 # ------------------------------- the tensor-core tile body's host contract
 
 

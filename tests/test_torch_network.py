@@ -17,6 +17,7 @@ import pytest
 import torch
 
 from _repro_reference import reference
+from _torch_workloads import conv_specs as conv_fc_specs
 from repro_torch.neuromorphic import (EventCompute, SimLayer, SimNetwork,
                                       compile_network, fc_network,
                                       get_compute, make_inputs,
@@ -24,6 +25,7 @@ from repro_torch.neuromorphic import (EventCompute, SimLayer, SimNetwork,
                                       programmed_fc_network)
 from repro_torch.neuromorphic.compute import DenseCompute, _im2col
 from repro_torch.neuromorphic.network import _exact_density_mask
+from repro_torch.sparsity import SparsityProfile
 
 FLOAT_TOL = dict(rtol=1e-6, atol=1e-6)
 FIELDS = ("msgs_in", "macs", "fetches_dense", "msgs_out", "acts_evented")
@@ -369,13 +371,33 @@ def _conv_characterization():
     return net, make_inputs(net.in_size, 0.3, 6, seed=14, **CPU)
 
 
-def _compiled(arch_id):
+def _compiled(arch_id, act_density=None):
     """A compiled smoke arch and its inputs, as the reference's golden
     suite builds them."""
     def build():
-        compiled = compile_network(arch_id, seed=0, **CPU)
+        compiled = compile_network(arch_id, seed=0, **CPU,
+                                   act_density=act_density and act_density())
         return compiled.net, compiled.inputs(4, seed=5)
     return build
+
+
+def _saved_profile() -> SparsityProfile:
+    """The committed trained profile, loaded as the reference's golden
+    suite loads it."""
+    return SparsityProfile.load(GOLDEN / "trained_profile.npz")
+
+
+def _fc_profile_sparse():
+    net = fc_network([32, 48, 48, 24], weight_density=1.0, seed=11, **CPU)
+    net = _saved_profile().apply(net, seed=17)
+    return net, make_inputs(32, 0.3, 8, seed=12, **CPU)
+
+
+def _conv_fc_profile_event():
+    specs = conv_fc_specs(seed=23, fc_out=12, mask_density=None)
+    net = _saved_profile().apply(network_from_numpy(specs, 8 * 8 * 2, **CPU),
+                                 seed=19)
+    return net, make_inputs(net.in_size, 0.3, 6, seed=24, **CPU)
 
 
 @pytest.mark.parametrize("compute", ["dense", "gather", "kernel"])
@@ -385,7 +407,10 @@ def _compiled(arch_id):
     ("model_lm_gemma2", _compiled("gemma2-2b")),
     ("model_ssm_mamba2", _compiled("mamba2-1.3b")),
     ("model_moe_olmoe", _compiled("olmoe-1b-7b")),
-    ("model_encdec_whisper", _compiled("whisper-base"))])
+    ("model_encdec_whisper", _compiled("whisper-base")),
+    ("fc_profile_sparse", _fc_profile_sparse),
+    ("conv_fc_profile_event", _conv_fc_profile_event),
+    ("model_lm_gemma2_profile", _compiled("gemma2-2b", _saved_profile))])
 def test_golden_counters_reproduced(name, build, compute):
     golden = json.loads((GOLDEN / f"{name}.json").read_text())
     net, xs = build()

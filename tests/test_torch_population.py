@@ -35,6 +35,7 @@ from repro_torch.neuromorphic.timestep import (POPULATION_BACKENDS,
                                                _pairs_to_rows,
                                                precompute_pricing,
                                                price_population_device)
+from repro_torch.sparsity import SparsityProfile
 
 RTOL = 1e-9
 CPU = dict(device="cpu")
@@ -349,8 +350,16 @@ def test_population_backends_and_validation(ref):
             simulate_population(pn, xt, prof, pair, backend=backend)
     with pytest.raises(ValueError, match="backend"):
         simulate_population(pn, xt, prof, pair, backend="tpu")
-    with pytest.raises(NotImplementedError):
-        simulate_population(pn, xt, prof, pair, sparsity_profile=object())
+    # a trained profile is programmed onto the network before the run, so
+    # it cannot be combined with a cache bound to the un-profiled one
+    trained = SparsityProfile(("fc0",), [0.5], [0.8])
+    with pytest.raises(ValueError, match="un-profiled"):
+        simulate_population(pn, xt, prof, pair, sparsity_profile=trained,
+                            cache=precompute_pricing(pn, xt, prof))
+    profiled = simulate_population(pn, xt, prof, pair,
+                                   sparsity_profile=trained)
+    assert profiled[0].metrics.weight_density < simulate_population(
+        pn, xt, prof, pair)[0].metrics.weight_density
     bad = [(p0.split(0), ordered_mapping(p0, prof))]
     with pytest.raises(ValueError, match="agree"):
         simulate_population(pn, xt, prof, bad)
@@ -364,7 +373,7 @@ def test_evaluate_population_matches_reference(ref, backend):
     ev_r = ref.partitioner.SimEvaluator(rn, xs, ref.platform.loihi2_like(),
                                         fallback=False)
     ev_p = SimEvaluator(pn, torch.from_numpy(xs), prof,
-                        population_backend=backend)
+                        population_backend=backend, fallback=False)
     p0 = minimal_partition(pn, prof)
     pairs = [(p0, strided_mapping(p0, prof)),
              (p0.split(1), ordered_mapping(p0.split(1), prof)),
@@ -372,6 +381,7 @@ def test_evaluate_population_matches_reference(ref, backend):
     r = ev_r.evaluate_population(_pairs(ref, pairs, None))
     p = ev_p.evaluate_population(pairs)
     assert ev_p.n_evals == ev_r.n_evals == 3
+    assert ev_p.demotions == [] and ev_p.active_backend == backend
     for a, b in zip(p, r):
         assert_reports_close(a, b)
     ev_p(*pairs[0])
