@@ -131,6 +131,27 @@ Phases, each printing one JSON line:
                   within rtol 1e-9.  Then ``FaultPlan(fail={"device": 2})``:
                   exactly one demotion, device to numpy, and a trajectory
                   within rtol 1e-9 of the numpy-only run.
+  (r) device_search — ``evolutionary_search(engine="device")`` on the
+                  profiled cell from (p)'s cache and greedy walk
+                  (population 64, 10 generations, seed 0, a snapshot every
+                  generation), then its host mirror (``reference=True``):
+                  identical genomes, stages and hot layers in all 11
+                  snapshots, objectives within rtol 1e-9, the same final
+                  candidate and front, no demotion.  The threefry draws on
+                  the card equal the CPU's bit for bit at the cell's
+                  shapes.  Wall, seconds per generation, time per stage,
+                  peeled fronts and host syncs per generation, and a
+                  population-1024 throughput run (candidates/s, peak
+                  bytes).
+  (s) sharded_search — ``engine="sharded"`` with one island, bit for bit
+                  the device engine; with four islands of 16 (migration
+                  every 5 generations) held to the island host mirror as
+                  in (r).
+  (t) device_resilience — ``FaultPlan(fail={"device": 2})``: exactly one
+                  demotion to the numpy mirror, then (r)'s trajectory; a
+                  kill after generation 4 resumed to (r)'s final state
+                  (bit for bit where (q) found the device pricer
+                  repeating its bits).
 
 Then a ``{"kernels": [...]}`` line, the card's name and power limit as
 nvidia-smi reports them, and a last line ``{"ok": true, "device": ...}``.
@@ -168,8 +189,10 @@ DEVICE = "cuda"
 THETA = 0.05                          # sigma-delta threshold, phases (j)-(l)
 K_POP = 1024                          # candidates priced in phase (m)
 PROFILE_PATH = ROOT / "tests" / "golden" / "trained_profile.npz"
-SEARCH = dict(population_size=64, generations=10, seed=0)   # phases (p), (q)
-KILL_AFTER = 4                        # phase (q)'s scripted crash
+SEARCH = dict(population_size=64, generations=10, seed=0)   # phases (p)-(t)
+KILL_AFTER = 4                        # phases (q) and (t): scripted crash
+THROUGHPUT = dict(population_size=1024, generations=5, seed=0)  # phase (r)
+ISLANDS = dict(n_islands=4, migrate_every=5)                    # phase (s)
 
 # stated tolerances
 PRE_RTOL, PRE_ATOL = 1e-5, 1e-5       # kernel vs plain / dense pre-acts
@@ -404,14 +427,17 @@ def live_tiles(x, w):
 
 
 def search_phases(net, xs, chip, *, ckpt_root, expect_launches: dict,
-                  card: str, search: dict = SEARCH) -> None:
-    """Phases (o) to (q) on the slice-1 cell ``(net, xs, chip)``: the
+                  card: str, search: dict = SEARCH,
+                  throughput: dict = THROUGHPUT,
+                  islands: dict = ISLANDS) -> None:
+    """Phases (o) to (t) on the slice-1 cell ``(net, xs, chip)``: the
     committed trained profile applied to it, the greedy-then-evolutionary
-    search over the profiled cell with both population backends, and
-    kill-and-resume plus a scripted demotion.  ``expect_launches`` is the
-    kernel launches of one ``run_batch`` of the cell (none on the CPU,
-    where every wrapper runs its plain version).  Search snapshots go
-    under ``ckpt_root`` (scratch, emptied first)."""
+    search over the profiled cell with both population backends,
+    kill-and-resume plus a scripted demotion, then the device engines
+    (:func:`device_search_phases`).  ``expect_launches`` is the kernel
+    launches of one ``run_batch`` of the cell (none on the CPU, where
+    every wrapper runs its plain version).  Search snapshots go under
+    ``ckpt_root`` (scratch, emptied first)."""
     import dataclasses
 
     import numpy as np
@@ -719,6 +745,224 @@ def search_phases(net, xs, chip, *, ckpt_root, expect_launches: dict,
                                 "max_rel_diff_best_time_vs_numpy":
                                     max(f_rel)},
           "checkpoints": str(ckpt_root),
+          "phase_wall_s": time.perf_counter() - t_phase})
+
+    device_search_phases(pnet, xs, chip, cache=ev_dev.cache,
+                         greedy=runs["numpy"]["greedy"],
+                         numpy_wall=runs["numpy"]["wall"],
+                         same_bits_twice=not diff_twice,
+                         ckpt_root=ckpt_root, card=card, search=search,
+                         throughput=throughput, islands=islands)
+
+
+def device_search_phases(pnet, xs, chip, *, cache, greedy, numpy_wall: float,
+                         same_bits_twice: bool, ckpt_root, card: str,
+                         search: dict, throughput: dict,
+                         islands: dict) -> None:
+    """Phases (r) to (t): the device-resident search engines on the
+    profiled cell ``(pnet, xs, chip)``, priced from phase (p)'s ``cache``
+    and seeded by its ``greedy`` walk.  Each engine is held generation by
+    generation (the per-generation snapshots) to its host mirror;
+    ``same_bits_twice`` (phase q) says whether the device pricer repeats
+    its bits, which decides whether a resume is held bit for bit."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from repro_torch.core import resilience as R
+    from repro_torch.core.device_search import generation_draws, island_draws
+    from repro_torch.core.device_search import island_keys
+    from repro_torch.core import prng
+    from repro_torch.core.partitioner import SimEvaluator
+    from repro_torch.core.search import evolutionary_search
+
+    dev = cache.layers[0].csum_macs.device
+    gens = search["generations"]
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+
+    def run(d=None, **kw):
+        """One search on a fresh evaluator over the shared cache: the
+        result, its wall seconds and the evaluator."""
+        args = dict(search, engine="device", greedy=greedy,
+                    checkpoint_every=1, checkpoint_keep=gens + 1)
+        args.update(kw)
+        ev = SimEvaluator(pnet, xs, chip, cache=cache)
+        sync()
+        t0 = time.perf_counter()
+        res = evolutionary_search(
+            pnet, chip, ev, checkpoint_dir=None if d is None else str(d),
+            **args)
+        sync()
+        return res, time.perf_counter() - t0, ev
+
+    def snaps(d):
+        ck = R.SearchCheckpointer(str(d))
+        return [ck.restore(g)[0] for g in range(ck.latest() + 1)]
+
+    def held(got, want, sg, sw, what: str, exact: bool = False) -> float:
+        """Require identical genomes, stages and hot layers in every
+        generation's snapshot, the same history counts, final candidate
+        and front, and objectives within SEARCH_RTOL (equal, ``exact``);
+        returns the largest relative objective difference."""
+        require(len(sg) == len(sw) == gens + 1, f"{what}: snapshots")
+        worst = 0.0
+        floats = []
+        for g, (a, b) in enumerate(zip(sg, sw)):
+            for k in ("cores", "perm", "stage", "hot_mem", "hot_act",
+                      "arch_cores", "arch_perm"):
+                require(np.array_equal(a[k], b[k]),
+                        f"{what}: generation {g} {k} differs")
+            floats += [(a[k], b[k]) for k in ("times", "energies",
+                                              "arch_times", "arch_energies")]
+        h = lambda r: np.array([[x.best_time, x.best_energy, x.mean_time]
+                                for x in r.history])
+        floats.append((h(got), h(want)))
+        for x, y in floats:
+            require(x.shape == y.shape and (
+                np.array_equal(x, y) if exact else
+                np.allclose(x, y, rtol=SEARCH_RTOL, atol=0.0)),
+                f"{what}: objectives beyond "
+                f"{'bit identity' if exact else SEARCH_RTOL}")
+            nz = y != 0
+            if nz.any():
+                worst = max(worst, float(np.max(np.abs(x - y)[nz]
+                                                / np.abs(y[nz]))))
+        counts = lambda r: [(x.generation, x.n_evals, x.front_size,
+                             x.n_quarantined) for x in r.history]
+        genomes = lambda cs: [(tuple(c.cores), tuple(c.perm)) for c in cs]
+        require(counts(got) == counts(want), f"{what}: history counts")
+        require(genomes([got.candidate]) == genomes([want.candidate])
+                and genomes(got.front) == genomes(want.front),
+                f"{what}: final candidate or front")
+        return worst
+
+    def unscripted(res, engine: str, what: str) -> None:
+        require(res.demotions == [] and res.telemetry["backend"] == engine,
+                f"{what}: demotions {res.demotions}, backend "
+                f"{res.telemetry['backend']}")
+
+    def split(res, wall: float) -> dict:
+        tel = res.telemetry
+        n = len(res.history) - 1
+        return {"wall_s": wall, "s_per_generation": wall / n,
+                "stage_s": tel["stage_s"],
+                "peel_iterations_per_generation": tel["peel_iterations"],
+                "host_syncs_per_generation": tel["host_syncs"],
+                "candidates_per_s": res.n_evals / wall,
+                "best_time_per_step": res.history[-1].best_time}
+
+    # ------------------------------------------- (r) the device engine
+    t_phase = time.perf_counter()
+    # the threefry on the card against the host, at the cell's shapes
+    L, S = len(pnet.layers), int(chip.n_cores)
+    prng_checked = 0
+    for n_pop, n_isl in ((search["population_size"], 1),
+                         (throughput["population_size"], 1),
+                         (search["population_size"] // islands["n_islands"],
+                          islands["n_islands"])):
+        keys = island_keys(prng.PRNGKey(search["seed"]), 3, n_isl)
+        kw = dict(n_off=n_pop, n_pop=n_pop, n_layers=L, n_slots=S,
+                  tournament_k=3)
+        a = island_draws(keys, device=dev, **kw)
+        b = island_draws(keys, device="cpu", **kw)
+        if n_isl == 1:
+            c = generation_draws(keys[0], device="cpu", **kw)
+            for k in b:
+                exact(b[k], c[k], f"generation_draws {k}")
+        for k in b:
+            exact(a[k].cpu(), b[k], f"threefry on {dev} vs the CPU: {k}")
+            prng_checked += a[k].numel()
+    shutil.rmtree(ckpt_root / "r", ignore_errors=True)
+    r_dev, wall_dev, ev_r = run(ckpt_root / "r" / "device")
+    unscripted(r_dev, "device", "(r) device engine")
+    require(ev_r.n_evals == r_dev.n_evals, "(r) evaluation ledger")
+    r_mir, wall_mir, _ = run(ckpt_root / "r" / "mirror", reference=True)
+    s_dev = snaps(ckpt_root / "r" / "device")
+    r_err = held(r_dev, r_mir, s_dev, snaps(ckpt_root / "r" / "mirror"),
+                 "(r) device engine vs its host mirror")
+    require(r_dev.report.time_per_step <= greedy.report.time_per_step,
+            "(r) device engine worse than the greedy walk")
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    r_thr, wall_thr, _ = run(**throughput)
+    unscripted(r_thr, "device", "(r) throughput search")
+    peak = (torch.cuda.max_memory_allocated() if dev.type == "cuda"
+            else None)
+    emit({"phase": "device_search", "card": card,
+          "cell": "profiled slice-1 (phase p's cache and greedy walk)",
+          "search": search, "threefry_values_checked_vs_cpu": prng_checked,
+          "device": split(r_dev, wall_dev),
+          "mirror": {"wall_s": wall_mir, "s_per_generation":
+                     wall_mir / gens},
+          "numpy_engine_greedy_then_evolve_wall_s_phase_p": numpy_wall,
+          "held_to_mirror": f"genomes, stages, hot layers identical in "
+                            f"{gens + 1} snapshots; objectives rtol "
+                            f"{SEARCH_RTOL}", "max_rel_diff": r_err,
+          "demotions": "none", "backend": r_dev.telemetry["backend"],
+          "throughput": dict(split(r_thr, wall_thr), search=throughput,
+                             peak_device_bytes=peak,
+                             n_evals=r_thr.n_evals),
+          "phase_wall_s": time.perf_counter() - t_phase})
+
+    # -------------------------------- (s) the sharded engine on one card
+    t_phase = time.perf_counter()
+    one, wall_one, _ = run(ckpt_root / "r" / "one_island", engine="sharded",
+                           n_islands=1)
+    unscripted(one, "sharded", "(s) one island")
+    held(one, r_dev, snaps(ckpt_root / "r" / "one_island"), s_dev,
+         "(s) one island vs the device engine", exact=True)
+    four, wall_four, _ = run(ckpt_root / "r" / "islands", engine="sharded",
+                             **islands)
+    unscripted(four, "sharded", "(s) islands")
+    four_m, wall_four_m, _ = run(ckpt_root / "r" / "islands_mirror",
+                                 engine="sharded", reference=True, **islands)
+    s_err = held(four, four_m, snaps(ckpt_root / "r" / "islands"),
+                 snaps(ckpt_root / "r" / "islands_mirror"),
+                 "(s) islands vs the host island mirror")
+    emit({"phase": "sharded_search", "card": card,
+          "one_island": {"bit_identical_to_device_engine": True,
+                         "wall_s": wall_one},
+          "islands": dict(split(four, wall_four), **islands,
+                          local_pop=search["population_size"]
+                          // islands["n_islands"],
+                          migrations=gens // islands["migrate_every"]),
+          "islands_mirror_wall_s": wall_four_m, "max_rel_diff": s_err,
+          "phase_wall_s": time.perf_counter() - t_phase})
+
+    # --------------------------------------------------- (t) resilience
+    t_phase = time.perf_counter()
+    dem, wall_dem, _ = run(ckpt_root / "r" / "demoted",
+                           fault_plan=R.FaultPlan(fail={"device": 2}))
+    require([(d.frm, d.to) for d in dem.demotions]
+            == [("device", "numpy-mirror")]
+            and dem.telemetry["backend"] == "numpy-mirror",
+            f"(t) scripted demotion: {dem.demotions}")
+    t_err = held(dem, r_dev, snaps(ckpt_root / "r" / "demoted"), s_dev,
+                 "(t) demoted run vs the device engine")
+    d = ckpt_root / "r" / "killed"
+    crashed = False
+    try:
+        run(d, fault_plan=R.FaultPlan(kill_after_gen=KILL_AFTER))
+    except R.SimulatedCrash:              # the scripted kill under test
+        crashed = True
+    require(crashed and R.SearchCheckpointer(str(d)).latest() == KILL_AFTER,
+            "(t) the scripted kill")
+    res, wall_res, _ = run(d, resume=True)
+    unscripted(res, "device", "(t) resumed run")
+    held(res, r_dev, snaps(d), s_dev, "(t) resumed run vs uninterrupted",
+         exact=same_bits_twice)
+    emit({"phase": "device_resilience", "card": card,
+          "scripted_demotion": {"fault_plan": "fail={'device': 2}",
+                                "demotions": [dataclasses.asdict(x)
+                                              for x in dem.demotions],
+                                "max_rel_diff_vs_device": t_err,
+                                "wall_s": wall_dem},
+          "resume": {"killed_after_generation": KILL_AFTER,
+                     "held_to": "bit-identical" if same_bits_twice
+                     else f"rtol {SEARCH_RTOL}", "resume_s": wall_res},
           "phase_wall_s": time.perf_counter() - t_phase})
 
 

@@ -19,6 +19,9 @@ _LAZY = {name: "repro_torch.core.partitioner" for name in (
     "can_split", "optimize_partitioning")}
 _LAZY.update({name: "repro_torch.core.guidance" for name in (
     "LayerGuidance", "floorline_layer_guidance", "floorline_layer_weights")})
+_LAZY.update({name: "repro_torch.core.device_search" for name in (
+    "DeviceSearchEngine", "evolutionary_search_device", "generation_draws",
+    "mutate_rows_array", "survival_order_array")})
 _LAZY.update({name: "repro_torch.core.search" for name in (
     "Candidate", "EpsParetoArchive", "MoveTables", "Population",
     "SearchResult", "decode", "decode_population", "encode",
@@ -47,4 +50,6 @@ __all__ = [
     "SearchResult", "decode", "decode_population", "encode",
     "encode_population", "evolutionary_search", "greedy_then_evolve",
     "knee_point", "move_tables", "pareto_ranks", "seeded_population",
+    "DeviceSearchEngine", "evolutionary_search_device", "generation_draws",
+    "mutate_rows_array", "survival_order_array",
 ]

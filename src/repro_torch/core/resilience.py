@@ -20,9 +20,15 @@ primitives keep it alive and honest, as in the JAX package:
   rows get sentinel-worst ``+inf`` fitness, so they lose tournaments and
   survival deterministically; finite rows keep their exact values.
 * :class:`FaultPlan` — the deterministic fault-injection harness: scripted
-  exception throws per pricing backend, scripted NaN pricing rows, and a
-  simulated kill after generation ``g`` (:class:`SimulatedCrash`), raised
-  only after that generation's checkpoint landed.
+  exception throws per pricing backend or device search engine, scripted
+  NaN pricing rows, and a simulated kill after generation ``g``
+  (:class:`SimulatedCrash`), raised only after that generation's
+  checkpoint landed.
+
+The device search engines (:mod:`repro_torch.core.device_search`) keep
+their own shell: a failing engine is retried per :class:`RetryPolicy`
+and demoted to its host mirror, recorded as ``Demotion(frm="device" |
+"sharded", to="numpy-mirror")``.
 """
 
 from __future__ import annotations
@@ -69,8 +75,9 @@ class FaultPlan:
     """Deterministic, scripted fault schedule for one search run.
 
     ``fail`` maps a site (a pricing-backend name, ``"device"`` or
-    ``"numpy"``) to a count: the first that-many :meth:`check` calls at the
-    site raise :class:`InjectedFault` (:data:`ALWAYS` for a permanent
+    ``"numpy"``; for the device search engines ``"device"`` or
+    ``"sharded"``) to a count: the first that-many :meth:`check` calls at
+    the site raise :class:`InjectedFault` (:data:`ALWAYS` for a permanent
     outage).  ``nan_rows`` maps a global pricing-call index (0-based,
     counted by :meth:`corrupt` over successful population pricings) to the
     row indices whose (time, energy) become NaN.  ``kill_after_gen`` raises
@@ -103,8 +110,8 @@ class FaultPlan:
 
     def corrupt_arrays(self, times, energies):
         """Array-form :meth:`corrupt` for pricers that hand back stacked
-        objectives instead of report lists: same schedule, same call
-        counter."""
+        objectives instead of report lists (the device engines' host
+        mirrors): same schedule, same call counter."""
         rows = [int(k) for k in self.nan_rows.get(self.calls, ())]
         self.calls += 1
         if rows:

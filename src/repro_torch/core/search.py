@@ -34,9 +34,10 @@ candidate worse than its best seed.
 
 This module is the JAX package's host ``"numpy"`` generation engine, with
 the same numpy RNG draws in the same order: under the same seed and the
-same prices it visits the same genomes every generation.  The JAX
-package's ``"device"`` and ``"sharded"`` engines, which draw from a
-counter-based (threefry) stream, are not ported yet.
+same prices it visits the same genomes every generation.  The
+``"device"`` and ``"sharded"`` engines, which draw from the JAX package's
+counter-based (threefry) stream, live in :mod:`repro_torch.core.
+device_search`.
 """
 
 from __future__ import annotations
@@ -385,6 +386,10 @@ class SearchResult:
     #: records from the evaluator's fallback chain); empty on a
     #: fault-free run
     demotions: list = dataclasses.field(default_factory=list)
+    #: the device engines' instrumentation (``device_search.
+    #: SearchTelemetry.summary()``: peel iterations and host syncs per
+    #: generation, time per stage); empty for the numpy engine
+    telemetry: dict = dataclasses.field(default_factory=dict)
 
     def knee(self) -> tuple[Candidate, SimReport] | None:
         """The front's knee point (None when the front is empty)."""
@@ -615,11 +620,16 @@ def evolutionary_search(
     greedy: OptimizationResult | None = None,
     pareto_eps: float = 0.01,
     engine: str = "numpy",
+    n_islands: int | None = None,
+    migrate_every: int = 5,
+    n_migrants: int | None = None,
     checkpoint_dir: str | None = None,
     checkpoint_every: int = 1,
     checkpoint_keep: int = 3,
     resume: bool = False,
     fault_plan: FaultPlan | None = None,
+    reference: bool = False,
+    retry=None,
 ) -> SearchResult:
     """Run the (mu + lambda) evolutionary mapping search, tensor-first.
 
@@ -633,9 +643,21 @@ def evolutionary_search(
     archive returned as ``SearchResult.front``.  Deterministic for a fixed
     ``seed`` and evaluator.
 
-    ``engine`` selects the generation loop: ``"numpy"``, this host loop.
-    The JAX package's ``"device"`` and ``"sharded"`` engines are not
-    ported and raise ``NotImplementedError``.
+    ``engine`` selects the generation loop: ``"numpy"``, this host loop,
+    or ``"device"``, the whole generation (selection, mutation, pricing,
+    ranking, survival) as one array program on the device of the
+    evaluator's pricing cache (:mod:`repro_torch.core.device_search`; it
+    needs a :class:`~repro_torch.core.partitioner.SimEvaluator`-like
+    evaluator and follows the JAX package's threefry key contract, so the
+    two engines are deterministic per seed but draw different streams).
+    ``"sharded"`` runs the device engine as an island model on one card:
+    ``n_islands`` equal islands (default 1, which reproduces ``"device"``
+    bit for bit), ``n_migrants`` elites (default an eighth of an island)
+    moving one island on every ``migrate_every`` generations.  For these
+    two engines ``reference=True`` runs the host mirror, and ``retry``
+    (a :class:`~repro_torch.core.resilience.RetryPolicy`) sets the
+    retries before a failing engine demotes to it; the island keywords
+    are only meaningful for ``"sharded"``.
 
     Fault tolerance: with ``checkpoint_dir`` the search writes an atomic,
     self-contained snapshot every ``checkpoint_every`` generations
@@ -651,11 +673,28 @@ def evolutionary_search(
                           generations=generations,
                           seed_candidates=seed_candidates)
     if engine in ("device", "sharded"):
-        raise NotImplementedError(
-            f"search engine {engine!r} is not ported (ROADMAP queue 1, the "
-            "core/device_search.py item): use engine='numpy'")
+        from repro_torch.core import device_search
+        kw = dict(population_size=population_size, generations=generations,
+                  tournament_k=tournament_k, explore_prob=explore_prob,
+                  seed=seed, max_evaluations=max_evaluations,
+                  seed_candidates=seed_candidates, greedy=greedy,
+                  pareto_eps=pareto_eps, reference=reference,
+                  checkpoint_dir=checkpoint_dir,
+                  checkpoint_every=checkpoint_every,
+                  checkpoint_keep=checkpoint_keep, resume=resume,
+                  fault_plan=fault_plan, retry=retry)
+        if engine == "device":
+            return device_search.evolutionary_search_device(
+                net, profile, evaluator, **kw)
+        return device_search.evolutionary_search_sharded(
+            net, profile, evaluator, n_islands=n_islands,
+            migrate_every=migrate_every, n_migrants=n_migrants, **kw)
     if engine != "numpy":
         raise ValueError(f"unknown search engine {engine!r}")
+    if reference or retry is not None:
+        raise ValueError("reference= and retry= belong to the 'device' and "
+                         "'sharded' engines; the numpy engine's retries are "
+                         "its evaluator's")
     ckpt = (SearchCheckpointer(checkpoint_dir, every=checkpoint_every,
                                keep=checkpoint_keep)
             if checkpoint_dir else None)

@@ -29,10 +29,12 @@ from repro_torch.neuromorphic.platform import (NEURON_COST, PROFILES,
 from repro_torch.neuromorphic.timestep import (LayerStageTimes,
                                                PopulationPricer,
                                                PricingCache, SimReport,
+                                               device_pricer,
                                                layer_stage_times,
                                                precompute_pricing,
                                                price_candidate,
                                                price_population_device,
+                                               price_population_sharded,
                                                simulate, simulate_population)
 
 __all__ = [
@@ -49,7 +51,7 @@ __all__ = [
     "NEURON_COST", "PROFILES", "ChipProfile", "akd1000_like", "loihi2_like",
     "speck_like",
     "LayerStageTimes", "PopulationPricer", "PricingCache", "SimReport",
-    "layer_stage_times",
+    "device_pricer", "layer_stage_times",
     "precompute_pricing", "price_candidate", "price_population_device",
-    "simulate", "simulate_population",
+    "price_population_sharded", "simulate", "simulate_population",
 ]

@@ -23,7 +23,8 @@ report matches the JAX package's NumPy pricing to float64 roundoff.
 :func:`simulate_population` prices many (partition, mapping) candidates
 from one functional run: per candidate through :func:`price_candidate`
 (``backend="numpy"``), or all at once in one batched float64 program on
-the device whose input is the stacked genome rows (``backend="device"``).
+the device whose input is the stacked genome rows (``backend="device"``;
+``backend="sharded"`` splits the rows into islands' blocks first).
 """
 
 from __future__ import annotations
@@ -438,12 +439,11 @@ def price_candidate(net: SimNetwork, profile: ChipProfile,
 
 # ---------------------------------------------------------------- population
 
-#: The population backends :func:`simulate_population` takes.  ``"vmap"``
-#: and ``"sharded"`` (the JAX package's jitted-vmap and device-mesh
-#: pricers) are not ported: the batched ``"device"`` program takes the
-#: place of ``"vmap"``, and a sharded pricer waits for the
-#: ``core/device_search.py`` item of ROADMAP queue 1.
-POPULATION_BACKENDS = ("numpy", "device")
+#: The population backends :func:`simulate_population` takes.  The JAX
+#: package's ``"vmap"`` pricer is not ported: the batched ``"device"``
+#: program takes its place.  ``"sharded"`` prices on one card, the rows
+#: split into the islands' blocks (:func:`price_population_sharded`).
+POPULATION_BACKENDS = ("numpy", "device", "sharded")
 
 
 def population_pad_width(net: SimNetwork, profile: ChipProfile) -> int:
@@ -477,18 +477,22 @@ def simulate_population(net: SimNetwork, xs, profile: ChipProfile,
       bounds and NoC structures and prices them all
       (:func:`price_population_device`).  Agrees with ``"numpy"`` to
       float64 roundoff (rtol 1e-9): sums run in another order.
+    * ``backend="sharded"`` — the device program over the rows split into
+      islands' blocks (:func:`price_population_sharded`, one island on
+      one card).
 
-    ``"vmap"`` and ``"sharded"`` raise ``NotImplementedError``.
+    ``"vmap"`` raises ``NotImplementedError``.
     ``sparsity_profile`` programs a trained profile onto ``net`` before the
     functional run (mutually exclusive with ``cache`` / ``precomputed``,
     which are bound to the un-profiled network).
     """
     net = apply_profile(net, sparsity_profile, cache=cache,
                         precomputed=precomputed)
-    if backend in ("vmap", "sharded"):
+    if backend == "vmap":
         raise NotImplementedError(
-            f"population backend {backend!r} is not ported (ROADMAP queue "
-            "1, the core/device_search.py item): use 'numpy' or 'device'")
+            "population backend 'vmap' is not ported (the batched 'device' "
+            "program takes its place, ROADMAP queue 1): use 'numpy', "
+            "'device' or 'sharded'")
     if backend not in POPULATION_BACKENDS:
         raise ValueError(f"unknown population backend {backend!r}")
     cands = list(candidates)
@@ -504,10 +508,12 @@ def simulate_population(net: SimNetwork, xs, profile: ChipProfile,
     cache = cache or precompute_pricing(net, xs, profile,
                                         precomputed=precomputed,
                                         compute=compute)
-    if backend == "device":
+    if backend in ("device", "sharded"):
         cores, perm = _pairs_to_rows(cands, len(cache.layers),
                                      profile.n_cores)
-        return price_population_device(net, profile, cache, cores, perm)
+        price = (price_population_device if backend == "device"
+                 else price_population_sharded)
+        return price(net, profile, cache, cores, perm)
     return [price_candidate(net, profile, cache, p, m) for p, m in cands]
 
 
@@ -686,6 +692,7 @@ class PopulationPricer:
         mean_synops = synops.sum(dim=1) / T               # (K, Ncap)
         mean_acts = acts.sum(dim=1) / T
         mean_msgs = msgs.sum(dim=1) / T
+        first_max = lambda a: lid.gather(1, a.argmax(dim=1, keepdim=True))
         return dict(
             times=times, energies=energies,
             time_per_step=times.mean(dim=1),
@@ -701,7 +708,9 @@ class PopulationPricer:
             act_total=mean_acts.sum(dim=1), act_max=mean_acts.amax(dim=1),
             act_nact=(mean_acts > 0).sum(dim=1),
             votes=votes, total_msgs=msgs.sum(dim=(1, 2)),
-            total_neuron_steps=T * neurons.sum(dim=1))
+            total_neuron_steps=T * neurons.sum(dim=1),
+            stage=votes.argmax(dim=1), hot_mem=first_max(mean_synops)[:, 0],
+            hot_act=first_max(mean_acts)[:, 0])
 
 
 def _rows(a, device: torch.device) -> torch.Tensor:
@@ -712,13 +721,19 @@ def _rows(a, device: torch.device) -> torch.Tensor:
     return torch.as_tensor(np.asarray(a, np.int64), device=device)
 
 
-def price_population_device(net: SimNetwork, profile: ChipProfile,
-                            cache: PricingCache, cores,
-                            perm) -> list[SimReport]:
-    """Price stacked genome rows — ``cores`` (K, n_layers), ``perm`` (K,
-    n_slots), host or device arrays — with the cache's
-    :class:`PopulationPricer` (built on first use) and assemble the
-    reports."""
+def device_pricer(net: SimNetwork, profile: ChipProfile,
+                  cache: PricingCache) -> PopulationPricer:
+    """The cache's :class:`PopulationPricer`, built on first use: a cache
+    is bound to one (net, xs, profile) workload, so one pricer serves
+    every population it prices (and the device search engines cached on
+    it)."""
+    if cache.device_pricer is None:
+        cache.device_pricer = PopulationPricer(net, profile, cache)
+    return cache.device_pricer
+
+
+def _check_rows(cache: PricingCache, profile: ChipProfile, cores,
+                perm) -> None:
     n_layers, n_slots = len(cache.layers), int(profile.n_cores)
     if (np.ndim(cores) != 2 or np.ndim(perm) != 2
             or cores.shape[1] != n_layers or perm.shape[1] != n_slots
@@ -728,12 +743,50 @@ def price_population_device(net: SimNetwork, profile: ChipProfile,
             f"(K, {n_slots}) for this (network, profile); got "
             f"cores {tuple(np.shape(cores))} and perm "
             f"{tuple(np.shape(perm))}")
-    if cache.device_pricer is None:
-        cache.device_pricer = PopulationPricer(net, profile, cache)
-    pricer: PopulationPricer = cache.device_pricer
+
+
+def price_population_device(net: SimNetwork, profile: ChipProfile,
+                            cache: PricingCache, cores,
+                            perm) -> list[SimReport]:
+    """Price stacked genome rows — ``cores`` (K, n_layers), ``perm`` (K,
+    n_slots), host or device arrays — with the cache's
+    :class:`PopulationPricer` (built on first use) and assemble the
+    reports."""
+    _check_rows(cache, profile, cores, perm)
+    pricer = device_pricer(net, profile, cache)
     cores = _rows(cores, pricer.device)
     out = pricer.price(cores, _rows(perm, pricer.device))
     return _assemble_reports(out, _host(cores.sum(dim=1)), cache,
+                             pricer.weight_density)
+
+
+def price_population_sharded(net: SimNetwork, profile: ChipProfile,
+                             cache: PricingCache, cores, perm, *,
+                             n_islands: int = 1) -> list[SimReport]:
+    """Island-blocked population pricing on one card: K is padded to a
+    multiple of ``n_islands`` with copies of row 0 (as the JAX package
+    pads its mesh), each island's block of rows is priced by the cache's
+    :class:`PopulationPricer` on its own, and the padding is dropped.
+    Pricing is row-independent, so every row agrees with
+    ``backend="device"`` to float64 roundoff (a block's sums may run in
+    another order than the whole batch's)."""
+    _check_rows(cache, profile, cores, perm)
+    n_islands = int(n_islands)
+    if n_islands < 1:
+        raise ValueError(f"n_islands must be >= 1, got {n_islands}")
+    pricer = device_pricer(net, profile, cache)
+    cores = _rows(cores, pricer.device)
+    perm = _rows(perm, pricer.device)
+    K = cores.shape[0]
+    pad = (-K) % n_islands
+    if pad:
+        cores = torch.cat([cores, cores[:1].expand(pad, -1)])
+        perm = torch.cat([perm, perm[:1].expand(pad, -1)])
+    step = cores.shape[0] // n_islands
+    parts = [pricer.price(cores[i:i + step], perm[i:i + step])
+             for i in range(0, cores.shape[0], step)]
+    out = {k: torch.cat([o[k] for o in parts])[:K] for k in parts[0]}
+    return _assemble_reports(out, _host(cores[:K].sum(dim=1)), cache,
                              pricer.weight_density)
 
 

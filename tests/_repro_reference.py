@@ -40,6 +40,7 @@ MODULES = {
     "sd_sparsity": "repro.sparsity.sigma_delta",
     "resilience": "repro.core.resilience",
     "search": "repro.core.search",
+    "device_search": "repro.core.device_search",
     "checkpoint": "repro.train.checkpoint",
 }
 

@@ -1,8 +1,11 @@
-"""The GPU smoke script's search phases (o) to (q), rehearsed on the CPU.
+"""The GPU smoke script's search phases (o) to (t), rehearsed on the CPU.
 
 ``chip_smoke.search_phases`` applies the committed trained profile to a
 cell, runs ``greedy_then_evolve`` with both population backends, kills and
-resumes each search and scripts one demotion, checking every step itself.
+resumes each search and scripts one demotion, then holds the device and
+sharded search engines to their host mirrors generation by generation,
+scripts a demotion of the device engine and kills and resumes it,
+checking every step itself.
 Here it runs on a narrow copy of the smoke's slice-1 cell (same depth,
 neuron model and densities), where every kernel wrapper runs its plain
 version and so launches nothing.
@@ -65,13 +68,29 @@ def test_search_phases_pass_on_a_narrow_cell(tmp_path, capsys):
                         card="cpu",
                         search=dict(population_size=8,
                                     generations=smoke.KILL_AFTER + 2,
-                                    seed=0))
+                                    seed=0),
+                        throughput=dict(population_size=64, generations=2,
+                                        seed=0),
+                        islands=dict(n_islands=2, migrate_every=3))
     lines = [json.loads(l) for l in capsys.readouterr().out.splitlines()]
-    assert [l["phase"] for l in lines] == ["sparsity_profile", "search",
-                                           "resume"]
+    assert [l["phase"] for l in lines] == [
+        "sparsity_profile", "search", "resume", "device_search",
+        "sharded_search", "device_resilience"]
     resume = lines[2]
     assert resume["device_pricer_deterministic"]
     assert {b: r["bit_identical"] for b, r in resume["resume"].items()} \
         == {"numpy": True, "device": True}
     assert [(d["frm"], d["to"]) for d in
             resume["scripted_demotion"]["demotions"]] == [("device", "numpy")]
+    dev, sharded, resil = lines[3:]
+    assert dev["backend"] == "device" and dev["threefry_values_checked_vs_cpu"]
+    assert dev["max_rel_diff"] <= smoke.SEARCH_RTOL
+    assert len(dev["device"]["host_syncs_per_generation"]) \
+        == smoke.KILL_AFTER + 3
+    assert dev["throughput"]["n_evals"] == 64 * 3
+    assert sharded["one_island"]["bit_identical_to_device_engine"]
+    assert sharded["islands"]["migrations"] == 2
+    assert [(d["frm"], d["to"]) for d in
+            resil["scripted_demotion"]["demotions"]] \
+        == [("device", "numpy-mirror")]
+    assert resil["resume"]["held_to"] == "bit-identical"

@@ -330,8 +330,7 @@ def test_public_kernel_api_matches_reference(ref):
         assert callable(getattr(repro_torch.kernels, name)), name
 
 
-#: the JAX package's device-search engine names, which wait for the port
-#: of ``core/device_search.py``
+#: the JAX package's device-search engine names, lazy in both packages
 DEVICE_SEARCH = ("DeviceSearchEngine", "evolutionary_search_device",
                  "generation_draws", "mutate_rows_array",
                  "survival_order_array")
@@ -340,15 +339,16 @@ DEVICE_SEARCH = ("DeviceSearchEngine", "evolutionary_search_device",
 def test_core_exports_match_reference(ref):
     import repro.core
     import repro_torch.core
-    assert repro_torch.core.__all__ == [
-        n for n in repro.core.__all__ if n not in DEVICE_SEARCH]
+    assert sorted(repro_torch.core.__all__) == sorted(repro.core.__all__)
     for name in repro_torch.core.__all__:      # eager and lazy alike
         obj = getattr(repro_torch.core, name)
         assert obj.__module__.startswith("repro_torch.") \
             or name == "Evaluator", name
     for name in DEVICE_SEARCH:
-        with pytest.raises(AttributeError):
-            getattr(repro_torch.core, name)
+        assert getattr(repro_torch.core, name).__module__ \
+            == "repro_torch.core.device_search"
+    with pytest.raises(AttributeError):
+        getattr(repro_torch.core, "evolutionary_search_vmap")
 
 
 def test_neuromorphic_exports_cover_reference(ref):
@@ -356,10 +356,13 @@ def test_neuromorphic_exports_cover_reference(ref):
     import repro_torch.neuromorphic
     from repro_torch.neuromorphic.timestep import LayerStageTimes
     assert repro_torch.neuromorphic.LayerStageTimes is LayerStageTimes
-    # the JAX package's vmap / jitted population pricers are not ported
+    # the JAX package's vmap pricer is not ported (the port's
+    # PopulationPricer, returned by device_pricer, takes the place of its
+    # DevicePopulationPricer)
+    assert repro_torch.neuromorphic.device_pricer.__module__ \
+        == "repro_torch.neuromorphic.timestep"
     missing = {"DevicePopulationPricer", "PopulationBatch",
-               "build_population_batch", "device_pricer",
-               "price_population_vmap"}
+               "build_population_batch", "price_population_vmap"}
     assert set(repro.neuromorphic.__all__) - missing \
         <= set(repro_torch.neuromorphic.__all__)
     for name in repro_torch.neuromorphic.__all__:

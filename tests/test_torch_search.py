@@ -333,9 +333,10 @@ def test_engines_and_arguments_are_validated(ref, tmp_path):
     _, net, xs = fc_pair(ref)
     chip = loihi2_like()
     ev = SimEvaluator(net, xs, chip)
-    for engine in ("device", "sharded"):
-        with pytest.raises(NotImplementedError, match="device_search"):
-            evolutionary_search(net, chip, ev, engine=engine)
+    for engine in ("device", "sharded"):       # repro_torch.core.device_search
+        res = evolutionary_search(net, chip, ev, engine=engine,
+                                  population_size=4, generations=1)
+        assert res.telemetry["peel_iterations"] and res.demotions == []
     with pytest.raises(ValueError, match="unknown search engine"):
         evolutionary_search(net, chip, ev, engine="gpu")
     with pytest.raises(ValueError, match="population_size"):
