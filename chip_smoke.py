@@ -152,6 +152,44 @@ Phases, each printing one JSON line:
                   kill after generation 4 resumed to (r)'s final state
                   (bit for bit where (q) found the device pricer
                   repeating its bits).
+  (u) sparsity_training — ``SparseTrainer`` on the card at chip-filling
+                  width: the images task (hw 32, 2 channels), fc
+                  2048-2048-1024-1024-10 (7.35 M weights, 113 of
+                  loihi2_like's 120 cores dense), batch 64, seed 0.  A
+                  dense baseline of 200 steps, whose first 20 losses the
+                  host repeats from the same initial weights (each within
+                  ``TRAIN_LOSS_TOL`` times the first loss; one initial layer
+                  is also drawn on the host and must equal the card's bit
+                  for bit); floorline weights from its deployment (probe
+                  T = 8); guided tl1 at
+                  lambda 0.05, a one-shot prune to 0.5 at step 200 and 60
+                  masked fine-tune steps, each mask keeping exactly
+                  round(n * 0.5); the same run killed at step 130 and resumed
+                  from its checkpoint equals it bit for bit.  Seconds per
+                  step, the device's idle share over 10 traced steps,
+                  accuracy and activation density of each run.
+  (v) iso_accuracy — for the dense and the guided run: ``extract_profile``,
+                  ``deploy``, one kernel-mode ``run_batch`` of the held-out
+                  probe stream (launches counted, counters bit-identical to
+                  dense), then ``evolutionary_search(engine="device")``
+                  (population 20, 10 generations, seed 0) held to its host
+                  mirror snapshot by snapshot; each run's (accuracy, knee
+                  time, knee energy) and the paper's iso-accuracy verdict,
+                  as ``benchmarks/iso_accuracy.py`` computes it (no verdict
+                  is gated).  The winning profile is injected into
+                  gemma2-2b's smoke config (``compile_network(act_density=
+                  profile)``) against its mean density.
+  (w) sigma_delta_training — the denoise task at the slice-1 cell's widths
+                  (fc 1024-2048-1024-1024-1024), 100 steps, then
+                  ``calibrate_sigma_delta(0.1)``: thresholds within rtol
+                  1e-6 of the host's calibration of the same weights.  The
+                  deployed sd_relu network runs the held-out rows of step
+                  11,000 on (384 steps, past the 128-step delta window) in
+                  kernel mode, so ``window_cumsum`` launches beside
+                  ``event_matmul2``; counters bit-identical to dense, or
+                  within rtol 1e-3 per layer total where quantiser ties move
+                  messages (the line says which held); measured message
+                  densities against the profile's.
 
 Then a ``{"kernels": [...]}`` line, the card's name and power limit as
 nvidia-smi reports them, and a last line ``{"ok": true, "device": ...}``.
@@ -193,6 +231,21 @@ SEARCH = dict(population_size=64, generations=10, seed=0)   # phases (p)-(t)
 KILL_AFTER = 4                        # phases (q) and (t): scripted crash
 THROUGHPUT = dict(population_size=1024, generations=5, seed=0)  # phase (r)
 ISLANDS = dict(n_islands=4, migrate_every=5)                    # phase (s)
+# phase (u): the images task at chip-filling width (hw 32, 2 channels)
+TRAIN_SIZES = (2048, 2048, 1024, 1024, 10)
+TRAIN = dict(steps=200, batch=64, seed=0, lam=0.05, prune_sparsity=0.5,
+             finetune_steps=60)
+TRAIN_KILL = 130                      # (u): kill, then resume
+CPU_STEPS = 20                        # (u): first losses against the CPU
+PROBE_STEPS = 8                       # (v): T of the held-out probe stream
+ISO_SEARCH = dict(population_size=20, generations=10, seed=0)    # (v)
+ISO_ARCH = "gemma2-2b"                # (v): the first model-zoo arch
+ACC_TOL = 0.01                        # (v): "matched accuracy" band
+# phase (w): the denoise task at the slice-1 cell's widths
+DENOISE_SIZES = (1024, 2048, 1024, 1024, 1024)
+DENOISE_STEPS = 100
+SD_TARGET = 0.1                       # (w): calibrated message density
+SD_STEPS = 256                        # (w): held-out rows, at least
 
 # stated tolerances
 PRE_RTOL, PRE_ATOL = 1e-5, 1e-5       # kernel vs plain / dense pre-acts
@@ -202,6 +255,8 @@ EM_TOL = {"float32": (1e-6, 1e-5),    # 1-D event_matmul vs plain (rtol,
           "bfloat16": (2e-2, 2e-2)}   # atol); bf16 compared in bf16
 POP_RTOL = 1e-9                       # device vs numpy population pricing
 SEARCH_RTOL = 1e-9                    # search objectives across backends
+TRAIN_LOSS_TOL = 1e-3                 # (u) card vs CPU, first losses: the
+                                      # largest difference over the first
 REPORT_ARRAYS = ("times", "energies", "per_core_synops", "per_core_acts",
                  "per_core_msgs_out")
 REPORT_SCALARS = ("time_per_step", "energy_per_step", "max_synops",
@@ -755,6 +810,53 @@ def search_phases(net, xs, chip, *, ckpt_root, expect_launches: dict,
                          throughput=throughput, islands=islands)
 
 
+def snapshots(d) -> list[dict]:
+    """Every generation's search snapshot under ``d``, oldest first."""
+    from repro_torch.core import resilience as R
+    ck = R.SearchCheckpointer(str(d))
+    return [ck.restore(g)[0] for g in range(ck.latest() + 1)]
+
+
+def held_to_mirror(got, want, sg, sw, what: str, gens: int,
+                   exact: bool = False) -> float:
+    """Require identical genomes, stages and hot layers in every
+    generation's snapshot (``sg`` against ``sw``), the same history counts,
+    final candidate and front, and objectives within SEARCH_RTOL (equal,
+    ``exact``); returns the largest relative objective difference."""
+    import numpy as np
+    require(len(sg) == len(sw) == gens + 1, f"{what}: snapshots")
+    worst = 0.0
+    floats = []
+    for g, (a, b) in enumerate(zip(sg, sw)):
+        for k in ("cores", "perm", "stage", "hot_mem", "hot_act",
+                  "arch_cores", "arch_perm"):
+            require(np.array_equal(a[k], b[k]),
+                    f"{what}: generation {g} {k} differs")
+        floats += [(a[k], b[k]) for k in ("times", "energies",
+                                          "arch_times", "arch_energies")]
+    h = lambda r: np.array([[x.best_time, x.best_energy, x.mean_time]
+                            for x in r.history])
+    floats.append((h(got), h(want)))
+    for x, y in floats:
+        require(x.shape == y.shape and (
+            np.array_equal(x, y) if exact else
+            np.allclose(x, y, rtol=SEARCH_RTOL, atol=0.0)),
+            f"{what}: objectives beyond "
+            f"{'bit identity' if exact else SEARCH_RTOL}")
+        nz = y != 0
+        if nz.any():
+            worst = max(worst, float(np.max(np.abs(x - y)[nz]
+                                            / np.abs(y[nz]))))
+    counts = lambda r: [(x.generation, x.n_evals, x.front_size,
+                         x.n_quarantined) for x in r.history]
+    genomes = lambda cs: [(tuple(c.cores), tuple(c.perm)) for c in cs]
+    require(counts(got) == counts(want), f"{what}: history counts")
+    require(genomes([got.candidate]) == genomes([want.candidate])
+            and genomes(got.front) == genomes(want.front),
+            f"{what}: final candidate or front")
+    return worst
+
+
 def device_search_phases(pnet, xs, chip, *, cache, greedy, numpy_wall: float,
                          same_bits_twice: bool, ckpt_root, card: str,
                          search: dict, throughput: dict,
@@ -798,46 +900,10 @@ def device_search_phases(pnet, xs, chip, *, cache, greedy, numpy_wall: float,
         sync()
         return res, time.perf_counter() - t0, ev
 
-    def snaps(d):
-        ck = R.SearchCheckpointer(str(d))
-        return [ck.restore(g)[0] for g in range(ck.latest() + 1)]
+    snaps = snapshots
 
     def held(got, want, sg, sw, what: str, exact: bool = False) -> float:
-        """Require identical genomes, stages and hot layers in every
-        generation's snapshot, the same history counts, final candidate
-        and front, and objectives within SEARCH_RTOL (equal, ``exact``);
-        returns the largest relative objective difference."""
-        require(len(sg) == len(sw) == gens + 1, f"{what}: snapshots")
-        worst = 0.0
-        floats = []
-        for g, (a, b) in enumerate(zip(sg, sw)):
-            for k in ("cores", "perm", "stage", "hot_mem", "hot_act",
-                      "arch_cores", "arch_perm"):
-                require(np.array_equal(a[k], b[k]),
-                        f"{what}: generation {g} {k} differs")
-            floats += [(a[k], b[k]) for k in ("times", "energies",
-                                              "arch_times", "arch_energies")]
-        h = lambda r: np.array([[x.best_time, x.best_energy, x.mean_time]
-                                for x in r.history])
-        floats.append((h(got), h(want)))
-        for x, y in floats:
-            require(x.shape == y.shape and (
-                np.array_equal(x, y) if exact else
-                np.allclose(x, y, rtol=SEARCH_RTOL, atol=0.0)),
-                f"{what}: objectives beyond "
-                f"{'bit identity' if exact else SEARCH_RTOL}")
-            nz = y != 0
-            if nz.any():
-                worst = max(worst, float(np.max(np.abs(x - y)[nz]
-                                                / np.abs(y[nz]))))
-        counts = lambda r: [(x.generation, x.n_evals, x.front_size,
-                             x.n_quarantined) for x in r.history]
-        genomes = lambda cs: [(tuple(c.cores), tuple(c.perm)) for c in cs]
-        require(counts(got) == counts(want), f"{what}: history counts")
-        require(genomes([got.candidate]) == genomes([want.candidate])
-                and genomes(got.front) == genomes(want.front),
-                f"{what}: final candidate or front")
-        return worst
+        return held_to_mirror(got, want, sg, sw, what, gens, exact)
 
     def unscripted(res, engine: str, what: str) -> None:
         require(res.demotions == [] and res.telemetry["backend"] == engine,
@@ -963,6 +1029,327 @@ def device_search_phases(pnet, xs, chip, *, cache, greedy, numpy_wall: float,
           "resume": {"killed_after_generation": KILL_AFTER,
                      "held_to": "bit-identical" if same_bits_twice
                      else f"rtol {SEARCH_RTOL}", "resume_s": wall_res},
+          "phase_wall_s": time.perf_counter() - t_phase})
+
+
+def host_copy(tr, cfg):
+    """A CPU trainer holding ``tr``'s data stream, weights, moments, masks
+    and losses under ``cfg`` (a CPU ``SparseTrainer`` would first draw
+    its own initial weights: seconds at full width)."""
+    import copy
+
+    import torch
+    h = copy.copy(tr)
+    h.cfg, h.device = cfg, torch.device("cpu")
+    for name in ("params", "opt_m", "opt_v", "masks"):
+        setattr(h, name, [x.cpu() for x in getattr(tr, name)])
+    h.losses = list(tr.losses)
+    return h
+
+
+def init_bits(params, sizes, seed: int, layer: int) -> dict:
+    """``mlp_init``'s draw of one layer on the host against ``params``
+    (the trainer's initial weights): the number of values that differ and
+    their largest ulp distance."""
+    import numpy as np
+    import torch
+    from repro_torch.core import prng
+    key = prng.PRNGKey(seed)
+    for _ in range(layer + 1):
+        k1, key = prng.split(key)
+    w = prng.normal(k1, (sizes[layer], sizes[layer + 1]), device="cpu")
+    w = w / torch.tensor(float(np.float32(np.sqrt(sizes[layer]))))
+    a = params[layer].cpu().view(torch.int32).to(torch.int64)
+    b = w.view(torch.int32).to(torch.int64)
+    return {"layer": layer, "values": w.numel(),
+            "differing": int((a != b).sum()),
+            "max_ulp": int((a - b).abs().max())}
+
+
+def training_phases(*, device, card: str, ckpt_root,
+                    sizes=TRAIN_SIZES, train: dict = TRAIN,
+                    kill: int = TRAIN_KILL, cpu_steps: int = CPU_STEPS,
+                    probe_steps: int = PROBE_STEPS,
+                    iso_search: dict = ISO_SEARCH,
+                    denoise_sizes=DENOISE_SIZES,
+                    denoise_steps: int = DENOISE_STEPS,
+                    sd_steps: int = SD_STEPS, arch: str = ISO_ARCH) -> None:
+    """Phases (u) to (w): sparsity-aware training on ``device``, the
+    iso-accuracy loop over its trained networks, and sigma-delta
+    calibration (see the module docstring).  On the card every kernel-mode
+    run must launch its kernels; on the CPU (the tests' rehearsal at small
+    widths) every wrapper runs its plain version and launches nothing.
+    Checkpoints go under ``ckpt_root`` (scratch, emptied first)."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from repro_torch.core.partitioner import SimEvaluator
+    from repro_torch.core.search import evolutionary_search
+    from repro_torch.device import resolve_device
+    from repro_torch.kernels.event_matmul.ops import event_matmul2
+    from repro_torch.kernels.sigma_delta.ops import window_cumsum
+    from repro_torch.neuromorphic import (EventCompute, compile_network,
+                                          loihi2_like, minimal_partition,
+                                          simulate)
+    from repro_torch.neuromorphic.compute import KERNEL_TILE
+    from repro_torch.sparsity.pruning import _kept
+    from repro_torch.train import SparseTrainConfig, SparseTrainer
+
+    dev = resolve_device(device)
+    on_card = dev.type == "cuda"
+    counted = {"event_matmul2": event_matmul2, "window_cumsum": window_cumsum}
+    chip = loihi2_like()
+    shutil.rmtree(ckpt_root, ignore_errors=True)
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize()
+
+    def kernel_run(net, xs, what: str, n_delta: int = 0):
+        """One kernel-mode ``run_batch`` with the launch counts zeroed just
+        before and read just after: a value and a counter launch per
+        layer, a value-only one per delta layer, a ``window_cumsum`` per
+        delta layer past the delta window (none on the CPU)."""
+        for fn in counted.values():
+            fn.launches = 0
+        sync()
+        t0 = time.perf_counter()
+        run = net.run_batch(xs, compute=EventCompute(mode="kernel"))
+        sync()
+        wall = time.perf_counter() - t0
+        got = {k: fn.launches for k, fn in counted.items()}
+        L = len(net.layers)
+        windowed = n_delta if xs.shape[0] > KERNEL_TILE else 0
+        want = {"event_matmul2": 2 * L + windowed if on_card else 0,
+                "window_cumsum": windowed if on_card else 0}
+        require(got == want, f"{what}: launches {got} != {want}")
+        require(bool(torch.isfinite(run[0]).all()), f"{what}: non-finite")
+        return run, got, wall
+
+    def timed_train(tr, **kw):
+        sync()
+        t0 = time.perf_counter()
+        n0 = tr.step
+        tr.train(**kw)
+        sync()
+        return (time.perf_counter() - t0) / max(tr.step - n0, 1)
+
+    # --------------------------------- (u) sparsity-aware training
+    t_phase = time.perf_counter()
+    base_cfg = SparseTrainConfig(sizes=tuple(sizes), steps=train["steps"],
+                                 batch=train["batch"], seed=train["seed"])
+    base = SparseTrainer(base_cfg, device=dev)
+    # the CPU run starts from the card's initial weights; whether the card
+    # drew the host's bits is checked on one layer (a host draw of all
+    # 7.35 M takes seconds)
+    host = host_copy(base, dataclasses.replace(base_cfg, steps=cpu_steps))
+    init_check = init_bits(base.params, sizes, train["seed"],
+                           layer=len(sizes) - 3)
+    # why prng.normal takes its root in float64: float32 sqrt on the card
+    # against the host's on 4 M values in [0.001, 30)
+    x = torch.rand(1 << 22, generator=torch.Generator().manual_seed(0))
+    x = x * 30 + 1e-3
+    sqrt_diff = int((torch.sqrt(x.to(dev)).cpu() != torch.sqrt(x)).sum())
+    require(init_check["differing"] == 0,
+            f"(u) initial weights vs the host's draw: {init_check}")
+    cores = minimal_partition(base.deploy(), chip).total_cores
+    s_dense = timed_train(base)
+    host.train()
+    first = np.array(base.losses[:cpu_steps])
+    cpu = np.array(host.losses)
+    # the loss falls by orders of magnitude within 20 steps, so the
+    # difference is measured against the first loss, not each loss
+    loss_err = float(np.max(np.abs(first - cpu)) / abs(cpu[0]))
+    require(np.isfinite(first).all() and loss_err <= TRAIN_LOSS_TOL,
+            f"(u) first {cpu_steps} losses vs the CPU: {loss_err}")
+    guide = base.floorline_weights(chip, probe_steps=probe_steps)
+    require(guide.shape == (len(sizes) - 2,) and np.isfinite(guide).all()
+            and (guide > 0).all(), f"(u) guidance weights {guide}")
+    g_cfg = dataclasses.replace(base_cfg, lam=train["lam"], reg="tl1",
+                                prune_sparsity=train["prune_sparsity"],
+                                finetune_steps=train["finetune_steps"])
+    guided = SparseTrainer(g_cfg, layer_weights=guide, device=dev)
+    s_guided = timed_train(guided)
+    for m in guided.masks:
+        require(int(m.sum()) == _kept(m.numel(), g_cfg.prune_sparsity)
+                and int(((m == 0) | (m == 1)).sum()) == m.numel(),
+                f"(u) a mask keeps {int(m.sum())} of {m.numel()}")
+    # kill at step ``kill``, resume in a fresh trainer: bit for bit
+    k_cfg = dataclasses.replace(g_cfg, ckpt_dir=str(ckpt_root / "u"),
+                                ckpt_every=kill, ckpt_keep=2)
+    SparseTrainer(k_cfg, layer_weights=guide, device=dev).train(
+        stop_after=kill)
+    resumed = SparseTrainer(k_cfg, layer_weights=guide, device=dev)
+    s_resume = timed_train(resumed, resume=True)
+    require(resumed.step == guided.step and resumed.losses == guided.losses,
+            "(u) resumed losses differ from the uninterrupted run")
+    for name in ("params", "opt_m", "opt_v", "masks"):
+        for a, b in zip(getattr(resumed, name), getattr(guided, name)):
+            exact(a, b, f"(u) resumed {name}")
+    # the device's idle share over 10 training steps
+    tr10 = SparseTrainer(dataclasses.replace(g_cfg, steps=10,
+                                             prune_sparsity=0.0,
+                                             finetune_steps=0),
+                         layer_weights=guide, device=dev)
+    trace = traced(tr10.train) if on_card else "not measured (CPU)"
+    runs = {"dense": base, f"tl1[{train['lam']}]+prune"
+            f"{train['prune_sparsity']}": guided}
+    metrics = {k: tr.eval_metrics() for k, tr in runs.items()}
+    emit({"phase": "sparsity_training", "card": card,
+          "task": "images", "sizes": list(sizes), "batch": train["batch"],
+          "dense_cores": cores, "weights": sum(p.numel() for p in base.params),
+          "steps": {"dense": base.step, "guided": guided.step},
+          "guidance_weights": guide.tolist(),
+          "s_per_step": {"dense": s_dense, "guided": s_guided,
+                         "resumed": s_resume},
+          "init_vs_host_draw": init_check,
+          "sqrt_f32_values_differing_from_host": [sqrt_diff, x.numel()],
+          "first_losses_vs_cpu": {"steps": cpu_steps,
+                                  "max_diff_over_first_loss": loss_err,
+                                  "tol": TRAIN_LOSS_TOL,
+                                  "card": first.tolist(),
+                                  "cpu": cpu.tolist()},
+          "kill_and_resume": {"killed_at": kill, "bit_identical": True},
+          "masks_kept": [int(m.sum()) for m in guided.masks],
+          "traced_10_steps": trace, "metrics": metrics,
+          "phase_wall_s": time.perf_counter() - t_phase})
+
+    # --------------------------------------- (v) the iso-accuracy loop
+    t_phase = time.perf_counter()
+    xs = base._probe_xs(probe_steps)
+    gens = iso_search["generations"]
+    rows, profiles, launches = [], {}, {}
+    for i, (name, tr) in enumerate(runs.items()):
+        profile = tr.extract_profile(meta={"config": name})
+        profiles[name] = profile
+        net = tr.deploy()
+        run, launches[name], run_s = kernel_run(net, xs, f"(v) {name}")
+        dense = net.run_batch(xs, compute="dense")
+        for layer, a, b in zip(net.layers, run[1], dense[1]):
+            for f in FIELDS:
+                exact(getattr(a, f), getattr(b, f),
+                      f"(v) {name} {layer.name} {f}")
+        d = {w: ckpt_root / f"v{i}_{w}" for w in ("device", "mirror")}
+        ev = SimEvaluator(net, xs, chip, compute=EventCompute(mode="kernel"))
+        res, wall = {}, {}
+        for w in d:
+            sync()
+            t0 = time.perf_counter()
+            res[w] = evolutionary_search(
+                net, chip, SimEvaluator(net, xs, chip, cache=ev.cache),
+                engine="device", reference=w == "mirror",
+                checkpoint_dir=str(d[w]), checkpoint_every=1,
+                checkpoint_keep=gens + 1, **iso_search)
+            sync()
+            wall[w] = time.perf_counter() - t0
+        require(res["device"].demotions == []
+                and res["device"].telemetry["backend"] == "device",
+                f"(v) {name}: demotions {res['device'].demotions}")
+        err = held_to_mirror(res["device"], res["mirror"],
+                             snapshots(d["device"]), snapshots(d["mirror"]),
+                             f"(v) {name}: device engine vs its mirror",
+                             gens)
+        knee = res["device"].knee()
+        rep = knee[1] if knee is not None else res["device"].report
+        rows.append({"config": name, "baseline": name == "dense",
+                     "acc": metrics[name]["acc"],
+                     "act_density": metrics[name]["act_density"],
+                     "weight_density": float(np.mean(profile.weight_density)),
+                     "time": float(rep.time_per_step),
+                     "energy": float(rep.energy_per_step),
+                     "n_evals": int(res["device"].n_evals),
+                     "profile_act_density": profile.act_density.tolist(),
+                     "kernel_run_batch_s": run_s,
+                     "search_wall_s": wall,
+                     "max_rel_diff_vs_mirror": err})
+    base_row = rows[0]
+    ok = [r for r in rows if not r["baseline"]
+          and r["acc"] >= base_row["acc"] - ACC_TOL]
+    best = min(ok, key=lambda r: r["time"]) if ok else None
+    winner = profiles[(best or base_row)["config"]]
+    mean_d = float(np.mean(winner.act_density))
+    comp = {k: compile_network(arch, seq_len=16, act_density=a, seed=1,
+                               device=dev)
+            for k, a in (("synthetic", mean_d), ("trained", winner))}
+    xs2 = comp["synthetic"].inputs(probe_steps, seed=2)
+    t_inj = {k: float(simulate(c.net, xs2, chip).time_per_step)
+             for k, c in comp.items()}
+    emit({"phase": "iso_accuracy", "card": card,
+          "probe": {"steps": probe_steps, "step": 10_999},
+          "search": dict(iso_search, engine="device"),
+          "launches_per_run_batch": launches,
+          "counters": "bit-identical to dense",
+          "search_held_to_mirror": f"genomes, stages, hot layers identical "
+                                   f"in {gens + 1} snapshots; objectives "
+                                   f"rtol {SEARCH_RTOL}",
+          "rows": rows, "acc_tol": ACC_TOL,
+          "iso_ok": bool(best is not None
+                         and best["time"] < base_row["time"]),
+          "iso_speedup": (None if best is None
+                          else base_row["time"] / best["time"]),
+          "iso_energy_gain": (None if best is None
+                              else base_row["energy"] / best["energy"]),
+          "best_config": None if best is None else best["config"],
+          "profile_injection": {
+              "arch": arch, "mean_density": mean_d,
+              "synthetic_time": t_inj["synthetic"],
+              "trained_profile_time": t_inj["trained"],
+              "time_ratio": t_inj["trained"] / t_inj["synthetic"]},
+          "phase_wall_s": time.perf_counter() - t_phase})
+
+    # ---------------------------------- (w) sigma-delta calibration
+    t_phase = time.perf_counter()
+    d_cfg = SparseTrainConfig(sizes=tuple(denoise_sizes), task="denoise",
+                              steps=denoise_steps, batch=train["batch"],
+                              seed=train["seed"])
+    dn = SparseTrainer(d_cfg, device=dev)
+    s_dn = timed_train(dn)
+    t0 = time.perf_counter()
+    prof_w, net_w = dn.calibrate_sigma_delta(SD_TARGET)
+    calib_s = time.perf_counter() - t0
+    prof_c, _ = host_copy(dn, d_cfg).calibrate_sigma_delta(SD_TARGET)
+    th, th_c = np.array(prof_w.thresholds), np.array(prof_c.thresholds)
+    th_err = float(np.max(np.abs(th - th_c) / th_c))
+    require(np.allclose(th, th_c, rtol=1e-6, atol=0.0),
+            f"(w) thresholds vs the CPU calibration: {th_err}")
+    # held-out rows: consecutive sequences from step 11,000 on, past the
+    # delta window
+    seqs, t = [], 11_000
+    while sum(len(s) for s in seqs) < sd_steps:
+        seqs.append(dn.data.batch(t)["noisy"].reshape(-1, denoise_sizes[0]))
+        t += 1
+    xs_w = np.concatenate(seqs)
+    n_delta = len(net_w.layers) - 1
+    run_w, launches_w, run_w_s = kernel_run(net_w, xs_w, "(w) sd_relu",
+                                            n_delta=n_delta)
+    dense_w = net_w.run_batch(xs_w, compute="dense")
+    same = all(torch.equal(getattr(a, f), getattr(b, f))
+               for a, b in zip(run_w[1], dense_w[1]) for f in FIELDS)
+    worst = 0.0
+    for layer, a, b in zip(net_w.layers, run_w[1], dense_w[1]):
+        for f in FIELDS:
+            u = float(getattr(a, f).to(torch.float64).sum())
+            v = float(getattr(b, f).to(torch.float64).sum())
+            worst = max(worst, abs(u - v) / max(abs(v), 1.0))
+    require(same or worst <= REPORT_RTOL,
+            f"(w) counters vs dense: {worst} beyond {REPORT_RTOL}")
+    T_w = xs_w.shape[0]
+    emit({"phase": "sigma_delta_training", "card": card, "task": "denoise",
+          "sizes": list(denoise_sizes),
+          "dense_cores": minimal_partition(dn.deploy(), chip).total_cores,
+          "steps": dn.step, "s_per_step": s_dn,
+          "target_density": SD_TARGET, "thresholds": list(th),
+          "thresholds_vs_cpu_max_rel_diff": th_err, "calibrate_s": calib_s,
+          "held_out_rows": T_w, "first_step": 11_000,
+          "launches": launches_w, "run_batch_s": run_w_s,
+          "counters": ("bit-identical to dense" if same else
+                       f"within rtol {REPORT_RTOL} of dense (quantiser "
+                       f"ties): max rel diff of a layer total {worst}"),
+          "message_density_measured": [
+              float(c.msgs_out.to(torch.float64).sum()) / (T_w * l.n_neurons)
+              for l, c in zip(net_w.layers, run_w[1])],
+          "message_density_profile": prof_w.act_density.tolist(),
           "phase_wall_s": time.perf_counter() - t_phase})
 
 
@@ -2071,6 +2458,11 @@ def main() -> int:
     torch.cuda.empty_cache()
     search_phases(net, xs, prof, ckpt_root=build.BUILD_DIR / "ckpt",
                   expect_launches=expect, card=card)
+
+    # --------- (u)-(w) sparsity-aware training and the iso-accuracy loop
+    torch.cuda.empty_cache()
+    training_phases(device=DEVICE, card=card,
+                    ckpt_root=build.BUILD_DIR / "ckpt" / "train")
 
     emit({"kernels": [mm, wc, fa, em1, sdk]})
     print(card, flush=True)

@@ -7,12 +7,14 @@
   carries e.g. a data iterator's state so restarts are bit-identical.
 
 The layout is the JAX package's, so a checkpoint written by either package
-restores in the other.  A state is a flat or nested dict of numpy arrays,
-tensors or scalars; its leaves are flattened in the JAX package's pytree
-order (keys sorted) under its path names — an entry is ``['name']``,
-nested entries are joined by ``/`` — and stored with ``/`` replaced by
-``|``.  Tensors are saved from the host and restored onto the device of
-the matching leaf of ``like_state``.
+restores in the other.  A state nests dicts, lists and tuples of numpy
+arrays, tensors or scalars (``None`` holds no leaf); its leaves are
+flattened in the JAX package's pytree order (dict keys sorted, sequences
+in order) under its path names — a dict entry is ``['name']``, a sequence
+entry ``[i]``, nested entries are joined by ``/`` — and stored with ``/``
+replaced by ``|``: the trainer's ``{"params": [w0, w1], ...}`` saves
+``['params']|[0]`` and ``['params']|[1]``.  Tensors are saved from the
+host and restored onto the device of the matching leaf of ``like_state``.
 """
 
 from __future__ import annotations
@@ -31,6 +33,13 @@ def _flatten(state, prefix: tuple = ()) -> list[tuple[str, object]]:
         for k in sorted(state):
             out += _flatten(state[k], prefix + (f"[{k!r}]",))
         return out
+    if isinstance(state, (list, tuple)):
+        out = []
+        for i, v in enumerate(state):
+            out += _flatten(v, prefix + (f"[{i}]",))
+        return out
+    if state is None:
+        return []
     return [("/".join(prefix), state)]
 
 
@@ -38,6 +47,10 @@ def _unflatten(like, leaves):
     """Rebuild ``like``'s structure from an iterator of leaves."""
     if isinstance(like, dict):
         return {k: _unflatten(like[k], leaves) for k in sorted(like)}
+    if isinstance(like, (list, tuple)):
+        return type(like)(_unflatten(v, leaves) for v in like)
+    if like is None:
+        return None
     return next(leaves)
 
 

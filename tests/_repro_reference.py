@@ -42,6 +42,12 @@ MODULES = {
     "search": "repro.core.search",
     "device_search": "repro.core.device_search",
     "checkpoint": "repro.train.checkpoint",
+    "sparsity": "repro.sparsity",
+    "pruning": "repro.sparsity.pruning",
+    "regularizers": "repro.sparsity.regularizers",
+    "train": "repro.train",
+    "train_data": "repro.train.data",
+    "train_sparse": "repro.train.sparse",
 }
 
 

@@ -94,3 +94,49 @@ def test_search_phases_pass_on_a_narrow_cell(tmp_path, capsys):
             resil["scripted_demotion"]["demotions"]] \
         == [("device", "numpy-mirror")]
     assert resil["resume"]["held_to"] == "bit-identical"
+
+
+def test_training_phases_pass_at_small_widths(tmp_path, capsys):
+    """Phases (u) to (w) on the CPU at small widths: train, guide, prune,
+    kill and resume; extract, deploy, run and search each trained network;
+    calibrate a sigma-delta network and run it.
+
+    The sigma-delta run here stays inside one 128-step delta window (96
+    rows), where kernel mode sums each delta layer's input as dense does.
+    Past the window the windowed reconstruction sums in another order, and
+    on layers this narrow one quantiser tie moves a layer's few hundred
+    messages by more than the phase's rtol of 1e-3 (ROADMAP §3); the card
+    runs (w) past the window at full width."""
+    smoke = _chip_smoke()
+    smoke.training_phases(
+        device="cpu", card="cpu", ckpt_root=tmp_path / "train",
+        sizes=(32, 48, 32, 32, 10),
+        train=dict(steps=12, batch=16, seed=0, lam=0.05, prune_sparsity=0.5,
+                   finetune_steps=6),
+        kill=8, cpu_steps=5, probe_steps=4,
+        iso_search=dict(population_size=8, generations=3, seed=0),
+        denoise_sizes=(16, 24, 16, 16, 16), denoise_steps=10, sd_steps=96)
+    lines = [json.loads(l) for l in capsys.readouterr().out.splitlines()]
+    assert [l["phase"] for l in lines] == [
+        "sparsity_training", "iso_accuracy", "sigma_delta_training"]
+    u, v, w = lines
+    assert u["steps"] == {"dense": 12, "guided": 18}
+    assert u["kill_and_resume"] == {"killed_at": 8, "bit_identical": True}
+    assert u["first_losses_vs_cpu"]["max_diff_over_first_loss"] == 0.0
+    assert u["init_vs_host_draw"]["differing"] == 0
+    assert u["sqrt_f32_values_differing_from_host"] == [0, 1 << 22]
+    assert u["masks_kept"] == [768, 768, 512, 160]
+    assert len(u["guidance_weights"]) == 3
+    assert [r["config"] for r in v["rows"]] == ["dense",
+                                               "tl1[0.05]+prune0.5"]
+    assert v["launches_per_run_batch"] == {
+        k: {"event_matmul2": 0, "window_cumsum": 0} for k in
+        ("dense", "tl1[0.05]+prune0.5")}
+    assert all(r["n_evals"] > 0 and r["time"] > 0 for r in v["rows"])
+    assert isinstance(v["iso_ok"], bool)
+    assert v["profile_injection"]["arch"] == "gemma2-2b"
+    assert v["profile_injection"]["time_ratio"] > 0
+    assert w["held_out_rows"] == 96 and len(w["thresholds"]) == 4
+    assert w["counters"] == "bit-identical to dense"
+    assert w["thresholds_vs_cpu_max_rel_diff"] == 0.0
+    assert w["launches"] == {"event_matmul2": 0, "window_cumsum": 0}

@@ -271,6 +271,10 @@ def test_port_imports_neither_jax_nor_the_reference():
     files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
     files.append(ROOT / "chip_smoke.py")
     assert len(files) > 10
+    names = {str(p.relative_to(ROOT / "src" / "repro_torch")) for p in files
+             if p.is_relative_to(ROOT / "src" / "repro_torch")}
+    assert {"sparsity/pruning.py", "sparsity/regularizers.py",
+            "train/data.py", "train/sparse.py", "core/prng.py"} <= names
     for path in files:
         for name in _imports(path):
             top = name.split(".")[0]
