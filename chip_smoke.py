@@ -191,6 +191,39 @@ Phases, each printing one JSON line:
                   messages (the line says which held); measured message
                   densities against the profile's.
 
+  (x) serve     — the model and serving stack: full-width gemma2-2b in
+                  bf16 (2.61 G parameters) built by ``repro_torch.launch.
+                  serve`` (weights from seed 0), batch 4, 128-token
+                  prompts from ``np.random.default_rng(0)``, 32 new
+                  tokens, greedy, after one warm ``generate``: prefill
+                  seconds, decode ms per token (the median over steps
+                  after the first) beside the weight-streaming bound (the
+                  weights' bytes at 3.35 TB/s), tokens per second, peak
+                  device memory; 8 decode steps under torch.profiler
+                  (idle share, device operations per step); temperature
+                  0.8, seed 1, twice: identical tokens.  Every token lies
+                  in [0, vocab).  Launch counts of the five ported
+                  kernels are zeroed before and read after: the serving
+                  path launches none of them (the JAX package's serving
+                  path reaches no Pallas kernel).  Also counts how often
+                  CUDA's division by a Python scalar (a reciprocal
+                  product) differs from a true division.
+  (y) serve_check — the same model in float32 (10.4 GB), batch 1, greedy,
+                  on a 128-token prompt (+16), a 4090-token one (+16,
+                  crossing the 4096 window during decode) and a 5120-
+                  token one (+8, prefill through ``_chunked_sdpa`` and the
+                  ring roll): the engine's tokens equal the argmax of
+                  ``forward`` on the growing sequence, and its logits at
+                  every step are within ``SERVE_LOGIT_ATOL`` of the
+                  forward's; argmax margins below that are printed.
+  (z) serve_families — the nine decoder-only smoke configs and whisper's
+                  (encode, cross cache, greedy ``decode_step``) on the
+                  card and on the host from the same float32 weights:
+                  greedy tokens equal, prefill and decode logits within
+                  the CPU tests' tolerance; then full-width whisper-base
+                  (1500 frames, 32 decode steps, float32): ``decode_step``
+                  logits against ``decode_train``'s.
+
 Then a ``{"kernels": [...]}`` line, the card's name and power limit as
 nvidia-smi reports them, and a last line ``{"ok": true, "device": ...}``.
 Any failed check raises: the script exits non-zero and prints no result.
@@ -247,6 +280,15 @@ DENOISE_STEPS = 100
 SD_TARGET = 0.1                       # (w): calibrated message density
 SD_STEPS = 256                        # (w): held-out rows, at least
 
+# phases (x)-(z): the model and serving stack
+SERVE_ARCH = "gemma2-2b"
+SERVE = dict(batch=4, prompt_len=128, new_tokens=32)          # (x)
+SERVE_TRACE_STEPS = 8                 # (x): decode steps under the profiler
+SERVE_SAMPLE = dict(temperature=0.8, seed=1)                  # (x)
+CHECK_PROMPTS = ((128, 16), (4090, 16), (5120, 8))  # (y): (prompt, new)
+FAMILY_STEPS = 6                      # (z): greedy tokens per smoke config
+WHISPER_STEPS = 32                    # (z): full-width whisper decode steps
+
 # stated tolerances
 PRE_RTOL, PRE_ATOL = 1e-5, 1e-5       # kernel vs plain / dense pre-acts
 WIN_RTOL, WIN_ATOL = 1e-6, 1e-6       # window_cumsum kernel vs plain
@@ -261,6 +303,9 @@ REPORT_ARRAYS = ("times", "energies", "per_core_synops", "per_core_acts",
                  "per_core_msgs_out")
 REPORT_SCALARS = ("time_per_step", "energy_per_step", "max_synops",
                   "max_acts", "max_link_load")
+SERVE_LOGIT_ATOL = 2e-3               # (y), (z) full width, float32: decode
+                                      # logits vs the full forward's
+FAMILY_RTOL, FAMILY_ATOL = 1e-5, 2e-5  # (z) card vs host: the CPU tests'
 FIELDS = ("msgs_in", "macs", "fetches_dense", "msgs_out", "acts_evented")
 
 
@@ -412,9 +457,10 @@ FAMILIES = {"event_matmul": ("event_matmul_kernel", "reduce_splits"),
 
 
 def traced(fn) -> dict:
-    """Wall time, device busy time, the device's idle share, the device
-    time of each kernel family and the top kernels of one call of ``fn``
-    under torch.profiler (ending in a synchronise)."""
+    """Wall time, device busy time, the device's idle share, the number of
+    device operations (kernels, copies, fills), the device time of each
+    kernel family and the top kernels of one call of ``fn`` under
+    torch.profiler (ending in a synchronise)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
@@ -435,7 +481,7 @@ def traced(fn) -> dict:
     families = {f: sum(us for k, us, _ in by_kernel
                        if any(p in k for p in parts)) * 1e-6
                 for f, parts in FAMILIES.items()}
-    return {"wall_s": wall,
+    return {"wall_s": wall, "device_ops": sum(n for _, _, n in by_kernel),
             "device_busy_s": busy_s if busy_s else "not measured",
             "device_idle_share": (1 - busy_s / wall) if busy_s
             else "not measured",
@@ -1350,6 +1396,301 @@ def training_phases(*, device, card: str, ckpt_root,
               float(c.msgs_out.to(torch.float64).sum()) / (T_w * l.n_neurons)
               for l, c in zip(net_w.layers, run_w[1])],
           "message_density_profile": prof_w.act_density.tolist(),
+          "phase_wall_s": time.perf_counter() - t_phase})
+
+
+def engine_logits(eng, prompts, tokens):
+    """The engine's logits at each of its steps, fed ``tokens`` (B, n):
+    its prefill's, then each ``decode_step``'s -> (n, B, V)."""
+    import torch
+    from repro_torch.models import lm
+    dev = eng.device
+    B, n = len(prompts), len(tokens[0])
+    S = len(prompts[0])
+    logits, cache = eng.prefill(torch.tensor(prompts, device=dev), S + n)
+    steps = [logits]
+    fed = torch.tensor(tokens, device=dev)
+    for i in range(1, n):
+        logits, cache = lm.decode_step(eng.model, fed[:, i - 1:i], cache,
+                                       S + i - 1)
+        steps.append(logits)
+    return torch.stack(steps)
+
+
+def serve_phases(*, device, card: str, full: bool = True,
+                 serve_args: dict = SERVE,
+                 trace_steps: int = SERVE_TRACE_STEPS,
+                 check_prompts=CHECK_PROMPTS,
+                 family_steps: int = FAMILY_STEPS,
+                 whisper_steps: int = WHISPER_STEPS) -> None:
+    """Phases (x) to (z): the model and serving stack (see the module
+    docstring).  ``full=False`` (the tests' rehearsal on the CPU) serves
+    the smoke configs in place of full-width gemma2-2b and whisper-base,
+    and traces nothing."""
+    import copy
+    import dataclasses
+    import math
+
+    import numpy as np
+    import torch
+    from repro_torch.configs import registry
+    from repro_torch.device import resolve_device
+    from repro_torch.kernels.event_matmul.ops import (event_matmul,
+                                                      event_matmul2)
+    from repro_torch.kernels.flash_attn.ops import flash_attention
+    from repro_torch.kernels.sigma_delta.ops import (sigma_delta_encode,
+                                                     window_cumsum)
+    from repro_torch.launch import serve
+    from repro_torch.models import encdec, lm
+    from repro_torch.serve.engine import Engine, ServeConfig
+
+    dev = resolve_device(device)
+    on_card = dev.type == "cuda"
+    counted = {"event_matmul2": event_matmul2, "window_cumsum": window_cumsum,
+               "flash_attn": flash_attention, "event_matmul": event_matmul,
+               "sigma_delta": sigma_delta_encode}
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize()
+
+    def in_vocab(out, n, vocab, what):
+        require(all(len(o) == n and all(0 <= t < vocab for t in o)
+                    for o in out), f"{what}: tokens outside [0, {vocab})")
+
+    # ------------------------------------------------------- (x) serve
+    t_phase = time.perf_counter()
+    B, P, N = (serve_args[k] for k in ("batch", "prompt_len", "new_tokens"))
+    for fn in counted.values():
+        fn.launches = 0
+    # earlier phases' live tensors, counted in the peak below
+    held_before = (torch.cuda.memory_allocated() if on_card
+                   else "not measured")
+    t0 = time.perf_counter()
+    cfg, eng, prompts = serve.build(serve.parse_args(
+        ["--arch", SERVE_ARCH, "--batch", str(B), "--prompt-len", str(P),
+         "--new-tokens", str(N), "--device", device]
+        + ([] if full else ["--smoke"])))
+    sync()
+    init_s = time.perf_counter() - t0
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    first = eng.generate(prompts)         # warm: cuBLAS handles, heuristics
+    first_s = {"prefill_s": eng.timings["prefill_s"],
+               "decode_s": sum(eng.timings["step_s"])}
+    t0 = time.perf_counter()
+    out = eng.generate(prompts)
+    wall = time.perf_counter() - t0
+    prefill_s = eng.timings["prefill_s"]
+    steps_ms = [s * 1e3 for s in eng.timings["step_s"]]
+    in_vocab(out, N, cfg.vocab_size, "(x) greedy")
+    param_bytes = sum(p.numel() * p.element_size()
+                      for p in eng.model.parameters())
+    bound_ms = param_bytes / PEAK_BYTES_PER_S * 1e3
+    decode_ms = statistics.median(steps_ms[1:])
+
+    # trace_steps decode steps from a fresh prefill, under the profiler
+    logits, cache = eng.prefill(torch.tensor(prompts, device=dev),
+                                P + trace_steps)
+    cur = logits.argmax(-1)
+
+    def decode_steps():
+        nonlocal cur, cache
+        for t in range(trace_steps):
+            lg, cache = lm.decode_step(eng.model, cur[:, None], cache, P + t)
+            cur = lg.argmax(-1)
+    if on_card:
+        trace = traced(decode_steps)
+        trace["device_ops_per_step"] = trace["device_ops"] / trace_steps
+    else:
+        decode_steps()
+        trace = "not measured (CPU)"
+    del cache, logits, cur
+
+    eng.scfg = ServeConfig(max_new_tokens=N, **SERVE_SAMPLE)
+    sampled = eng.generate(prompts)
+    in_vocab(sampled, N, cfg.vocab_size, "(x) sampled")
+    require(eng.generate(prompts) == sampled,
+            "(x) temperature sampling differs between two runs")
+    launches = {k: fn.launches for k, fn in counted.items()}
+    require(not any(launches.values()),
+            f"(x) the serving path launched a ported kernel: {launches}")
+    # CUDA divides by a Python scalar as a product with its reciprocal;
+    # the layers scale scores by XLA's float32 reciprocal explicitly
+    gen = torch.Generator(device=dev).manual_seed(0)
+    x = torch.randn(1 << 20, generator=gen, device=dev) * 30
+    division = {f"{c:.6g}": int((x / c != x / torch.full((), c, device=dev))
+                                .sum())
+                for c in (math.sqrt(8), math.sqrt(12), 16.0, 30.0, 50.0)}
+    peak = torch.cuda.max_memory_allocated() if on_card else "not measured"
+    emit({"phase": "serve", "card": card, "arch": cfg.name,
+          "dtype": cfg.param_dtype, "batch": B, "prompt_len": P,
+          "new_tokens": N, "params": sum(p.numel()
+                                        for p in eng.model.parameters()),
+          "param_bytes": param_bytes, "init_s": init_s,
+          "first_generate": first_s,
+          "greedy_repeats": out == first, "prefill_s": prefill_s,
+          "decode_ms_per_token": decode_ms, "decode_ms_steps": steps_ms,
+          "weight_streaming_bound_ms": bound_ms,
+          "decode_over_bound": decode_ms / bound_ms,
+          "tokens_per_s": B * N / wall, "generate_wall_s": wall,
+          "peak_device_bytes": peak,
+          "device_bytes_held_before": held_before,
+          "traced_decode": trace, "traced_steps": trace_steps,
+          "sampled": {**SERVE_SAMPLE, "identical_twice": True,
+                      "row0": sampled[0]},
+          "greedy_row0": out[0], "ported_kernel_launches": launches,
+          "scalar_vs_true_division_differing_of_2e20": division,
+          "phase_wall_s": time.perf_counter() - t_phase})
+    del eng
+    if on_card:
+        torch.cuda.empty_cache()
+
+    # ------------------------------- (y) serve_check, full width float32
+    t_phase = time.perf_counter()
+    cfg32 = dataclasses.replace(cfg, param_dtype="float32",
+                                compute_dtype="float32")
+    eng = Engine(cfg32, lm.init_params(cfg32, 0, device), ServeConfig(),
+                 device=device)
+    window = max(b.window or 0 for b in cfg32.all_blocks())
+    rng = np.random.default_rng(0)
+    rows = []
+    for P, n in check_prompts:
+        t0 = time.perf_counter()
+        prompt = rng.integers(1, cfg32.vocab_size, size=P).tolist()
+        got = eng.generate([prompt], n)[0]
+        gen_s = time.perf_counter() - t0
+        in_vocab([got], n, cfg32.vocab_size, f"(y) prompt {P}")
+        steps = engine_logits(eng, [prompt], [got])[:, 0]        # (n, V)
+        # teacher forcing: one causal forward over the prompt and the
+        # first n - 1 tokens gives the logits of every growing prefix
+        h, _ = lm.forward(eng.model, torch.tensor([prompt + got[:-1]],
+                                                  device=dev))
+        forced = lm.logits_from_h(eng.model, h[:, P - 1:])[0]    # (n, V)
+        del h
+        diff = (steps - forced).abs().amax(-1)
+        top2 = forced.topk(2, dim=-1).values
+        margin = (top2[:, 0] - top2[:, 1]).tolist()
+        forced_tokens = forced.argmax(-1).tolist()
+        rows.append({
+            "prompt_len": P, "new_tokens": n,
+            "crosses_window": P < window < P + n,
+            "chunked_prefill": P > 4096 and P % 1024 == 0,
+            "tokens_equal_teacher_forcing": got == forced_tokens,
+            "max_abs_logit_diff": float(diff.max()),
+            "per_step_max_abs_diff": diff.tolist(),
+            "min_argmax_margin": min(margin),
+            "margins_below_tol": {i: m for i, m in enumerate(margin)
+                                  if m < SERVE_LOGIT_ATOL},
+            "generate_s": gen_s, "prefill_s": eng.timings["prefill_s"],
+            "tokens": got})
+        require(got == forced_tokens,
+                f"(y) prompt {P}: engine {got} != teacher forcing "
+                f"{forced_tokens} (margins {margin})")
+        require(float(diff.max()) <= SERVE_LOGIT_ATOL,
+                f"(y) prompt {P}: decode logits {float(diff.max())} from "
+                f"the forward's, beyond {SERVE_LOGIT_ATOL}")
+        del steps, forced
+    emit({"phase": "serve_check", "card": card, "arch": cfg32.name,
+          "dtype": "float32", "window": window, "tol": SERVE_LOGIT_ATOL,
+          "prompts": rows, "phase_wall_s": time.perf_counter() - t_phase})
+    del eng
+    if on_card:
+        torch.cuda.empty_cache()
+
+    # ------------------------ (z) serve_families, card against host
+    t_phase = time.perf_counter()
+    fams = {}
+
+    def held(card_t, host_t, what):
+        err = float((card_t.cpu() - host_t).abs().max())
+        require(torch.allclose(card_t.cpu(), host_t, rtol=FAMILY_RTOL,
+                               atol=FAMILY_ATOL),
+                f"(z) {what}: card vs host {err} beyond rtol "
+                f"{FAMILY_RTOL} atol {FAMILY_ATOL}")
+        return err
+
+    for arch in registry.ARCH_IDS:
+        entry = registry.get(arch)
+        if entry.is_encdec:
+            continue
+        scfg = entry.smoke()
+        host = lm.init_params(scfg, 0, "cpu")
+        engines = {"host": Engine(scfg, host, ServeConfig(
+            max_new_tokens=family_steps), device="cpu")}
+        engines["card"] = Engine(scfg, copy.deepcopy(host),
+                                 engines["host"].scfg, device=device)
+        prompts = np.random.default_rng(5).integers(
+            1, scfg.vocab_size, (2, 12)).tolist()
+        toks = {k: e.generate(prompts) for k, e in engines.items()}
+        require(toks["card"] == toks["host"],
+                f"(z) {arch}: greedy tokens differ, card {toks['card']} "
+                f"host {toks['host']}")
+        lg = {k: engine_logits(e, prompts, toks["host"])
+              for k, e in engines.items()}
+        fams[arch] = {
+            "tokens_equal": True,
+            "prefill_max_abs_diff": held(lg["card"][0], lg["host"][0],
+                                         f"{arch} prefill"),
+            "decode_max_abs_diff": held(lg["card"][1:], lg["host"][1:],
+                                        f"{arch} decode")}
+
+    wcfg = registry.get("whisper-base").smoke()
+    host = encdec.init_params(wcfg, 0, "cpu")
+    models = {"host": host, "card": copy.deepcopy(host).to(dev)}
+    frames = torch.from_numpy(np.random.default_rng(6).standard_normal(
+        (2, wcfg.n_frames, wcfg.d_model)).astype(np.float32))
+    greedy = {}
+    for k, m in models.items():
+        where = m.embed.device
+        cache = encdec.precompute_cross_cache(
+            m, encdec.encode(m, frames.to(where)),
+            encdec.init_cache(wcfg, 2, family_steps, where))
+        tok = torch.tensor([[1], [2]], device=where)
+        toks, logs = [], []
+        for t in range(family_steps):
+            lgt, cache = encdec.decode_step(m, tok, cache, t)
+            tok = lgt.argmax(-1, keepdim=True)
+            toks.append(tok[:, 0].tolist())
+            logs.append(lgt)
+        greedy[k] = (toks, torch.stack(logs))
+    require(greedy["card"][0] == greedy["host"][0],
+            "(z) whisper smoke: greedy tokens differ")
+    fams["whisper-base (smoke)"] = {
+        "tokens_equal": True,
+        "decode_max_abs_diff": held(greedy["card"][1], greedy["host"][1],
+                                    "whisper decode")}
+
+    # whisper-base at full width: decode_step against decode_train
+    wcfg = registry.get("whisper-base").config if full else wcfg
+    wcfg = dataclasses.replace(wcfg, param_dtype="float32",
+                               compute_dtype="float32")
+    wm = encdec.init_params(wcfg, 0, device)
+    wrng = np.random.default_rng(7)
+    frames = torch.from_numpy(wrng.standard_normal(
+        (1, wcfg.n_frames, wcfg.d_model)).astype(np.float32)).to(dev)
+    wtoks = torch.from_numpy(wrng.integers(
+        0, wcfg.vocab_size, (1, whisper_steps))).to(dev)
+    t0 = time.perf_counter()
+    enc = encdec.encode(wm, frames)
+    train = encdec.logits_from_h(wm, encdec.decode_train(wm, enc, wtoks))[0]
+    cache = encdec.precompute_cross_cache(
+        wm, enc, encdec.init_cache(wcfg, 1, whisper_steps, device))
+    steps = []
+    for t in range(whisper_steps):
+        lgt, cache = encdec.decode_step(wm, wtoks[:, t:t + 1], cache, t)
+        steps.append(lgt[0])
+    sync()
+    w_s = time.perf_counter() - t0
+    w_err = float((torch.stack(steps) - train).abs().max())
+    require(w_err <= SERVE_LOGIT_ATOL,
+            f"(z) whisper decode_step vs decode_train: {w_err}")
+    emit({"phase": "serve_families", "card": card,
+          "smoke_configs": fams, "tol": [FAMILY_RTOL, FAMILY_ATOL],
+          "whisper": {"config": wcfg.name, "frames": wcfg.n_frames,
+                      "decode_steps": whisper_steps,
+                      "max_abs_logit_diff_vs_decode_train": w_err,
+                      "tol": SERVE_LOGIT_ATOL, "wall_s": w_s},
           "phase_wall_s": time.perf_counter() - t_phase})
 
 
@@ -2463,6 +2804,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     training_phases(device=DEVICE, card=card,
                     ckpt_root=build.BUILD_DIR / "ckpt" / "train")
+
+    # ---------------- (x)-(z) the model and serving stack at full width
+    torch.cuda.empty_cache()
+    serve_phases(device=DEVICE, card=card)
 
     emit({"kernels": [mm, wc, fa, em1, sdk]})
     print(card, flush=True)

@@ -1,8 +1,10 @@
 """Architecture registry: arch id -> config, smoke config and family.
 
-Each entry carries the exact assigned config and a reduced smoke config.
-The JAX package's entries also carry dry-run shape cells and input specs;
-those belong to the model/serving slice of the port and are not here.
+Each entry carries the exact assigned config and a reduced smoke config;
+the model code that runs them is :mod:`repro_torch.models` and the
+serving launcher :mod:`repro_torch.launch.serve`.  The JAX package's
+entries also carry dry-run shape cells and input specs, which belong to
+its training and dry-run launchers and are not ported.
 """
 
 from __future__ import annotations
@@ -14,6 +16,7 @@ from repro_torch.configs import (gemma2_2b, granite_3_2b, kimi_k2_1t_a32b,
                                  mamba2_1_3b, minicpm_2b, olmoe_1b_7b,
                                  phi3_medium_14b, pixtral_12b,
                                  recurrentgemma_2b, whisper_base)
+from repro_torch.models.encdec import EncDecCfg
 
 
 @dataclasses.dataclass(frozen=True)
@@ -22,6 +25,10 @@ class ArchEntry:
     config: object                    # ModelCfg | EncDecCfg
     smoke: Callable[[], object]
     family: str
+
+    @property
+    def is_encdec(self) -> bool:
+        return isinstance(self.config, EncDecCfg)
 
 
 _MODULES = {

@@ -13,7 +13,9 @@ reference runs on):
   bits from a two-way split, reduced with the span and multiplier
   arithmetic mod 2**32), :func:`uniform` (float64: 52 mantissa bits
   under ``1.0``'s exponent, minus ``1.0``) and float32 :func:`normal`
-  (the trainer's weight init; see there for how close it comes).
+  (the trainer's weight init; see there for how close it comes);
+* float32 :func:`uniform_f32` on ``[minval, maxval)``, :func:`gumbel` and
+  :func:`categorical` (the serving engine's temperature sampling).
 
 Torch's unsigned types support few operations, so every 32-bit word is
 carried in ``int64`` holding a value in ``[0, 2**32)``: additions are
@@ -306,3 +308,34 @@ def normal(key: torch.Tensor, shape, device=None) -> torch.Tensor:
     # product is exact and the FMA a plain multiply and add
     u = torch.maximum(lo, _fma(f, _f32(2.0, f), lo))
     return _f32(float(np.float32(np.sqrt(2.0))), u) * _erf_inv(u)
+
+
+# ------------------------------------------------- float32 uniform, Gumbel
+def uniform_f32(key: torch.Tensor, shape, minval: float = 0.0,
+                maxval: float = 1.0, device=None) -> torch.Tensor:
+    """``jax.random.uniform(key, shape, jnp.float32, minval, maxval)``: 23
+    random mantissa bits under ``1.0``'s exponent, minus 1, scaled and
+    shifted with XLA's fused multiply-add, then clamped below at
+    ``minval``."""
+    shape = tuple(int(s) for s in shape)
+    bits = random_bits(key, 32, shape, device)
+    f = ((bits >> 9) | 0x3F800000).to(torch.int32).view(torch.float32) - 1.0
+    lo, hi = _f32(minval, f), _f32(maxval, f)
+    return torch.maximum(lo, _fma(f, hi - lo, lo))
+
+
+def gumbel(key: torch.Tensor, shape, device=None) -> torch.Tensor:
+    """``jax.random.gumbel(key, shape)`` in float32 (the default "low"
+    mode): ``-log(-log(u))`` for ``u`` uniform on ``[tiny, 1)``, through
+    XLA's CPU ``log``."""
+    tiny = float(torch.finfo(torch.float32).tiny)
+    u = uniform_f32(key, shape, tiny, 1.0, device)
+    return -_log_cephes(-_log_cephes(u))
+
+
+def categorical(key: torch.Tensor, logits: torch.Tensor) -> torch.Tensor:
+    """``jax.random.categorical(key, logits, axis=-1)`` for float32
+    logits: the Gumbel-max trick, the first index of the largest
+    ``gumbel + logits``."""
+    g = gumbel(key, logits.shape, logits.device)
+    return torch.argmax(g + logits, dim=-1)

@@ -7,8 +7,9 @@ LM head.  Each :class:`BlockCfg` describes one residual block: a mixer
 MoE).  Heterogeneous layer patterns (gemma-2 local/global alternation,
 recurrentgemma 1:2 recurrent:attention) are multi-block patterns.
 
-Only the configurations live here; the model-zoo frontend
-(:mod:`repro_torch.neuromorphic.frontend`) lowers them onto the simulator.
+Only the configurations live here: :mod:`.lm` runs them as models, and
+the model-zoo frontend (:mod:`repro_torch.neuromorphic.frontend`) lowers
+them onto the simulator.
 ``param_count`` / ``active_param_count`` are the closed forms the
 frontend's parameter identity is checked against.
 """

@@ -1,15 +1,30 @@
-"""Encoder-decoder configuration (whisper-base).
+"""Encoder-decoder backbone (whisper-base), PyTorch port.
 
 The audio frontend (log-mel + conv downsampling) is a stub: the encoder
-sees ``n_frames`` precomputed frame embeddings.  Only the configuration
-lives here; the model-zoo frontend lowers it onto the simulator.
+sees ``n_frames`` precomputed frame embeddings (B, n_frames, d).  The
+backbone is a bidirectional encoder and a causal decoder with
+cross-attention; self-attention uses RoPE in place of whisper's absolute
+embeddings, and cross-attention none, as in the JAX package.  The
+model-zoo frontend also lowers :class:`EncDecCfg` onto the simulator.
+
+Entry points, with the reference's names: ``init_params`` /
+``params_from_numpy``, ``encode``, ``decode_train``, ``init_cache``,
+``precompute_cross_cache`` and ``decode_step``.
 """
 
 from __future__ import annotations
 
 import dataclasses
 
-from repro_torch.models.common import ModelCfg
+import torch
+from torch import nn
+
+from repro_torch.device import resolve_device
+from repro_torch.models.common import BlockCfg, ModelCfg
+from repro_torch.models.layers import (MLP, Attention, Params, attention,
+                                       attention_decode, dt, init_modules,
+                                       load_tree, matmul_f32, mlp,
+                                       rms_norm)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -53,3 +68,159 @@ class EncDecCfg:
         enc = self.n_enc_layers * (attn + 3 * d * ff + 2 * d)
         dec = self.n_dec_layers * (2 * attn + 3 * d * ff + 3 * d)
         return self.vocab_size * d + enc + dec + 2 * d
+
+
+_BLK = BlockCfg(kind="attn")
+
+
+# --------------------------------------------------------------- parameters
+
+class EncBlock(Params):
+    def __init__(self, cfg: EncDecCfg, dtype, device):
+        super().__init__(dtype, device)
+        self.const("norm1", torch.zeros(cfg.d_model))
+        self.attn = Attention(cfg.mc, dtype, device)
+        self.const("norm2", torch.zeros(cfg.d_model))
+        self.mlp = MLP(cfg.d_model, cfg.d_ff, dtype, device)
+
+
+class DecBlock(EncBlock):
+    def __init__(self, cfg: EncDecCfg, dtype, device):
+        super().__init__(cfg, dtype, device)
+        self.const("norm_x", torch.zeros(cfg.d_model))
+        self.xattn = Attention(cfg.mc, dtype, device)
+
+
+class EncDec(Params):
+    def __init__(self, cfg: EncDecCfg, device):
+        dtype = dt(cfg.param_dtype)
+        super().__init__(dtype, device)
+        self.cfg = cfg
+        self.weight("embed", (cfg.vocab_size, cfg.d_model), cfg.d_model)
+        self.enc = nn.ModuleList(EncBlock(cfg, dtype, device)
+                                 for _ in range(cfg.n_enc_layers))
+        self.dec = nn.ModuleList(DecBlock(cfg, dtype, device)
+                                 for _ in range(cfg.n_dec_layers))
+        self.const("enc_norm", torch.zeros(cfg.d_model))
+        self.const("dec_norm", torch.zeros(cfg.d_model))
+
+
+def init_params(cfg: EncDecCfg, seed: int = 0,
+                device: "str | torch.device" = "cuda") -> EncDec:
+    """An :class:`EncDec` with the reference's shapes and scales, drawn
+    from a ``torch.Generator`` seeded with ``seed``."""
+    dev = resolve_device(device)
+    return init_modules(EncDec(cfg, dev), seed, dev)
+
+
+def params_from_numpy(cfg: EncDecCfg, tree: dict,
+                      device: "str | torch.device" = "cuda") -> EncDec:
+    """The JAX package's ``encdec.init_params`` tree (as numpy arrays) as
+    an :class:`EncDec` on ``device`` (``enc``/``dec`` unstacked)."""
+    model = EncDec(cfg, resolve_device(device))
+    load_tree(model, {k: tree[k] for k in ("embed", "enc_norm", "dec_norm")})
+    for name in ("enc", "dec"):
+        stacked = tree[name]
+        for i, block in enumerate(getattr(model, name)):
+            load_tree(block, _layer(stacked, i))
+    return model
+
+
+def _layer(tree: dict, i: int) -> dict:
+    return {k: _layer(v, i) if isinstance(v, dict) else v[i]
+            for k, v in tree.items()}
+
+
+# ------------------------------------------------------------------ forward
+
+def _embed(model: EncDec, tokens: torch.Tensor) -> torch.Tensor:
+    return model.embed[tokens].to(dt(model.cfg.compute_dtype))
+
+
+def encode(model: EncDec, frames: torch.Tensor) -> torch.Tensor:
+    """frames: (B, n_frames, d) precomputed embeddings (frontend stub)."""
+    cfg = model.cfg
+    mc = cfg.mc
+    h = frames.to(dt(cfg.compute_dtype))
+    positions = torch.arange(h.shape[1], device=h.device)
+    for p in model.enc:
+        x = rms_norm(h, p.norm1, cfg.norm_eps)
+        h = h + attention(x, p.attn, _BLK, mc, positions=positions,
+                          causal=False)
+        x = rms_norm(h, p.norm2, cfg.norm_eps)
+        h = h + mlp(x, p.mlp, mc)
+    return rms_norm(h, model.enc_norm, cfg.norm_eps)
+
+
+def decode_train(model: EncDec, enc_out: torch.Tensor,
+                 tokens: torch.Tensor) -> torch.Tensor:
+    """The decoder over a whole token sequence -> final hidden states."""
+    cfg = model.cfg
+    mc = cfg.mc
+    h = _embed(model, tokens)
+    positions = torch.arange(h.shape[1], device=h.device)
+    for p in model.dec:
+        x = rms_norm(h, p.norm1, cfg.norm_eps)
+        h = h + attention(x, p.attn, _BLK, mc, positions=positions)
+        x = rms_norm(h, p.norm_x, cfg.norm_eps)
+        h = h + attention(x, p.xattn, _BLK, mc, positions=positions,
+                          causal=False, xkv=enc_out)
+        x = rms_norm(h, p.norm2, cfg.norm_eps)
+        h = h + mlp(x, p.mlp, mc)
+    return rms_norm(h, model.dec_norm, cfg.norm_eps)
+
+
+def logits_from_h(model: EncDec, h: torch.Tensor) -> torch.Tensor:
+    """float32 logits against the tied embedding."""
+    B, S, d = h.shape
+    return matmul_f32(h.reshape(B * S, d), model.embed.t()).reshape(B, S, -1)
+
+
+# ----------------------------------------------------------------- decoding
+
+def init_cache(cfg: EncDecCfg, B: int, max_len: int,
+               device: "str | torch.device" = "cuda") -> list[dict]:
+    """Per decoder layer: self-attention K/V over ``max_len`` slots and the
+    cross-attention K/V of the ``n_frames`` encoder frames."""
+    dev = resolve_device(device)
+    dtype = dt(cfg.param_dtype)
+    kv = (B, max_len, cfg.n_kv_heads, cfg.head_dim)
+    xv = (B, cfg.n_frames, cfg.n_kv_heads, cfg.head_dim)
+    z = lambda shape: torch.zeros(shape, dtype=dtype, device=dev)
+    return [{"k": z(kv), "v": z(kv), "xk": z(xv), "xv": z(xv)}
+            for _ in range(cfg.n_dec_layers)]
+
+
+def precompute_cross_cache(model: EncDec, enc_out: torch.Tensor,
+                           cache: list[dict]) -> list[dict]:
+    """Fill each layer's cross-attention K/V from the encoder output."""
+    out = []
+    for p, c in zip(model.dec, cache):
+        xk = torch.einsum("bsd,dhk->bshk", enc_out, p.xattn.wk)
+        xv = torch.einsum("bsd,dhk->bshk", enc_out, p.xattn.wv)
+        out.append({**c, "xk": xk.to(c["xk"].dtype),
+                    "xv": xv.to(c["xv"].dtype)})
+    return out
+
+
+def decode_step(model: EncDec, tokens: torch.Tensor, cache: list[dict],
+                pos: int):
+    """One decoder token against the self-attention cache (updated in
+    place) and the precomputed cross K/V.  Returns (logits (B, V),
+    cache)."""
+    cfg = model.cfg
+    mc = cfg.mc
+    h = _embed(model, tokens)
+    for p, c in zip(model.dec, cache):
+        x = rms_norm(h, p.norm1, cfg.norm_eps)
+        y, _, _ = attention_decode(x, p.attn, _BLK, mc, cache_k=c["k"],
+                                   cache_v=c["v"], pos=pos)
+        h = h + y
+        x = rms_norm(h, p.norm_x, cfg.norm_eps)
+        y, _, _ = attention_decode(x, p.xattn, _BLK, mc, cache_k=c["xk"],
+                                   cache_v=c["xv"], pos=pos, cross=True)
+        h = h + y
+        x = rms_norm(h, p.norm2, cfg.norm_eps)
+        h = h + mlp(x, p.mlp, mc)
+    h = rms_norm(h, model.dec_norm, cfg.norm_eps)
+    return logits_from_h(model, h)[:, 0], cache

@@ -1,0 +1,534 @@
+"""The model stack's layers on one device (PyTorch port).
+
+Each block kind is a module holding its parameters in the JAX package's
+layouts (``wq`` is (d, H, hd), ``wo`` (H, hd, d), the MLP ``wi``/``wg``/
+``wo``), and the computation is a function of (activations, module), with
+the JAX package's names: :func:`rms_norm`, :func:`rope`, :func:`softcap`,
+:func:`attention`, :func:`attention_decode`, :func:`mlp`,
+:func:`ssd_mixer`, :func:`rglru_mixer`.  There is one card and no mesh,
+so nothing here constrains a sharding.
+
+The float32 places of the reference are kept: attention scores are
+float32 products of the (possibly bfloat16) operands, and ``rms_norm``,
+``rope`` and ``softcap`` compute in float32 and round back.  Scores are
+scaled by ``1 / sqrt(hd)`` as a float32 product, as XLA compiles a
+division by a constant (and as CUDA divides a tensor by a Python scalar).
+
+The serving path reaches no Pallas kernel in the reference, so nothing
+here launches a kernel of :mod:`repro_torch.kernels`.
+"""
+
+from __future__ import annotations
+
+import functools
+import math
+from typing import Callable, Optional
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from repro_torch.models.common import BlockCfg, ModelCfg, RGLRUCfg, SSDCfg
+
+# --------------------------------------------------------------------------
+# dtype / parameter helpers
+# --------------------------------------------------------------------------
+
+_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
+           "float16": torch.float16}
+
+
+def dt(name: str) -> torch.dtype:
+    return _DTYPES[name]
+
+
+def _init(t: torch.Tensor, fan_in: int, gen: torch.Generator) -> None:
+    """Fill ``t`` with the reference's init: a standard normal truncated to
+    [-2, 2], drawn in float32, times ``1 / sqrt(fan_in)``, then cast (the
+    distribution of ``jax.random.truncated_normal``, not its bits)."""
+    draw = torch.empty(t.shape, dtype=torch.float32, device=t.device)
+    nn.init.trunc_normal_(draw, 0.0, 1.0, -2.0, 2.0, generator=gen)
+    t.copy_(draw.mul_(1.0 / math.sqrt(max(fan_in, 1))))
+
+
+class Params(nn.Module):
+    """A parameter container: weights drawn by :meth:`reset_parameters`
+    (each with its fan-in) and constant leaves set at construction."""
+
+    def __init__(self, dtype: torch.dtype, device):
+        super().__init__()
+        self._dtype, self._device = dtype, device
+        self._fan_in: dict[str, int] = {}
+
+    def weight(self, name: str, shape, fan_in: int,
+               dtype: Optional[torch.dtype] = None) -> None:
+        self.register_parameter(name, nn.Parameter(
+            torch.empty(shape, dtype=dtype or self._dtype,
+                        device=self._device), requires_grad=False))
+        self._fan_in[name] = fan_in
+
+    def const(self, name: str, value, dtype: Optional[torch.dtype] = None
+              ) -> None:
+        self.register_parameter(name, nn.Parameter(
+            torch.as_tensor(value, dtype=dtype or self._dtype).to(
+                self._device), requires_grad=False))
+
+    @torch.no_grad()
+    def reset_parameters(self, gen: torch.Generator) -> None:
+        for name, fan_in in self._fan_in.items():
+            _init(getattr(self, name), fan_in, gen)
+
+
+def init_modules(model: nn.Module, seed: int, device) -> nn.Module:
+    """Draw every weight of ``model`` from one ``torch.Generator`` on
+    ``device`` seeded with ``seed`` (module order, then field order)."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    for m in model.modules():
+        if isinstance(m, Params):
+            m.reset_parameters(gen)
+    return model
+
+
+@torch.no_grad()
+def load_tree(module: nn.Module, tree: dict) -> None:
+    """Copy a nested dict of arrays (the reference's parameter tree, as
+    numpy) into ``module``'s parameters of the same names.  Every value
+    goes through float32, which holds bfloat16 exactly."""
+    for name, value in tree.items():
+        if isinstance(value, dict):
+            load_tree(getattr(module, name), value)
+            continue
+        dst = getattr(module, name)
+        src = torch.from_numpy(np.array(value, np.float32))
+        if tuple(src.shape) != tuple(dst.shape):
+            raise ValueError(f"{name}: shape {tuple(src.shape)} against "
+                             f"{tuple(dst.shape)}")
+        dst.copy_(src)
+
+
+def matmul_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """(M, K) @ (K, N) with float32 output (the reference's
+    ``preferred_element_type=float32``) without a float32 copy of ``b``:
+    on CUDA a bfloat16 product accumulates and returns float32."""
+    if a.dtype == torch.float32 and b.dtype == torch.float32:
+        return a @ b
+    if a.is_cuda:
+        return torch.mm(a, b, out_dtype=torch.float32)
+    return a.float() @ b.float()
+
+
+# --------------------------------------------------------------------------
+# Norms and positional embeddings
+# --------------------------------------------------------------------------
+
+def rms_norm(x: torch.Tensor, gamma: torch.Tensor, eps: float
+             ) -> torch.Tensor:
+    xf = x.float()
+    var = xf.square().mean(-1, keepdim=True)
+    out = xf * torch.rsqrt(var + eps) * (1.0 + gamma.float())
+    return out.to(x.dtype)
+
+
+def rope(x: torch.Tensor, positions: torch.Tensor, theta: float
+         ) -> torch.Tensor:
+    """Rotary embedding. x: (..., S, H, hd); positions: (S,) or (B, S)."""
+    half = x.shape[-1] // 2
+    freqs = torch.pow(theta, -torch.arange(0, half, dtype=torch.float32,
+                                           device=x.device) / half)
+    angles = positions[..., None].float() * freqs       # (..., S, hd/2)
+    angles = angles[..., None, :]                       # head axis
+    cos, sin = torch.cos(angles), torch.sin(angles)
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
+def softcap(x: torch.Tensor, cap: Optional[float]) -> torch.Tensor:
+    if cap is None:
+        return x
+    return (cap * torch.tanh(x.float() / cap)).to(x.dtype)
+
+
+ACTS: dict[str, Callable] = {
+    "silu": F.silu, "gelu": functools.partial(F.gelu, approximate="tanh"),
+    "relu": F.relu,
+}
+
+
+# --------------------------------------------------------------------------
+# Attention
+# --------------------------------------------------------------------------
+
+class Attention(Params):
+    """Self- or cross-attention projections (GQA)."""
+
+    def __init__(self, cfg: ModelCfg, dtype, device):
+        super().__init__(dtype, device)
+        d, H, K, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+        self.weight("wq", (d, H, hd), d)
+        self.weight("wk", (d, K, hd), d)
+        self.weight("wv", (d, K, hd), d)
+        self.weight("wo", (H, hd, d), cfg.q_dim)
+        if cfg.qk_norm:
+            self.const("q_gamma", torch.zeros(hd))
+            self.const("k_gamma", torch.zeros(hd))
+
+
+def _mask_bias(q_pos: torch.Tensor, kv_pos: torch.Tensor,
+               window: Optional[int], *, causal: bool = True
+               ) -> torch.Tensor:
+    """(..., Sq, Skv) additive mask bias in float32."""
+    d = q_pos[..., :, None] - kv_pos[..., None, :]
+    ok = (d >= 0) if causal else torch.ones_like(d, dtype=torch.bool)
+    if window is not None:
+        ok = ok & (d < window)
+    zero = torch.zeros((), dtype=torch.float32, device=d.device)
+    return torch.where(ok, zero, torch.full_like(zero, -1e30))
+
+
+def _inv_sqrt(hd: int) -> float:
+    """``1 / sqrt(hd)`` as XLA folds the division by ``sqrt(hd)``: the
+    float32 reciprocal of the float32 root."""
+    return float(np.float32(1.0) / np.float32(math.sqrt(hd)))
+
+
+def _scores(q: torch.Tensor, k: torch.Tensor, spec: str, hd: int
+            ) -> torch.Tensor:
+    """float32 ``q . k`` over ``spec`` scaled by ``1 / sqrt(hd)`` (the
+    reference's ``preferred_element_type=float32``: bfloat16 products are
+    exact in float32)."""
+    return torch.einsum(spec, q.float(), k.float()) * _inv_sqrt(hd)
+
+
+def _sdpa(q, k, v, bias, cfg: ModelCfg):
+    """Grouped-query attention core. q:(B,Sq,H,hd) k/v:(B,Skv,K,hd)."""
+    B, Sq, H, hd = q.shape
+    K = k.shape[2]
+    qg = q.reshape(B, Sq, K, H // K, hd)
+    scores = _scores(qg, k, "bqkgh,bskh->bkgqs", hd)
+    scores = softcap(scores, cfg.attn_softcap)
+    scores = scores + (bias[..., None, None, :, :] if bias.ndim == 2
+                       else bias)
+    w = torch.softmax(scores, dim=-1).to(v.dtype)
+    out = torch.einsum("bkgqs,bskh->bqkgh", w, v)
+    return out.reshape(B, Sq, H, hd)
+
+
+def _chunked_sdpa(q, k, v, q_pos, kv_pos, window, cfg: ModelCfg,
+                  kv_chunk: int = 1024, causal: bool = True):
+    """Online-softmax attention over KV chunks of ``kv_chunk`` keys,
+    carrying the running (max, denominator, accumulator): the score
+    matrix stays at (B, K, G, Sq, kv_chunk)."""
+    B, Sq, H, hd = q.shape
+    K = k.shape[2]
+    G = H // K
+    qg = q.reshape(B, Sq, K, G, hd).float() * _inv_sqrt(hd)
+    m = torch.full((B, K, G, Sq), -1e30, dtype=torch.float32,
+                   device=q.device)
+    l = torch.zeros_like(m)
+    acc = torch.zeros((B, K, G, Sq, hd), dtype=torch.float32,
+                      device=q.device)
+    for c0 in range(0, k.shape[1], kv_chunk):
+        kb = k[:, c0:c0 + kv_chunk].float()
+        vb = v[:, c0:c0 + kv_chunk].float()
+        s = torch.einsum("bqkgh,bskh->bkgqs", qg, kb)
+        s = softcap(s, cfg.attn_softcap)
+        s = s + _mask_bias(q_pos, kv_pos[c0:c0 + kv_chunk], window,
+                           causal=causal)[None, None, None]
+        m_new = torch.maximum(m, s.amax(dim=-1))
+        p = torch.exp(s - m_new[..., None])
+        scale = torch.exp(m - m_new)
+        l = l * scale + p.sum(dim=-1)
+        acc = acc * scale[..., None] + torch.einsum("bkgqs,bskh->bkgqh",
+                                                    p, vb)
+        m = m_new
+    out = acc / torch.clamp(l, min=1e-30)[..., None]
+    out = out.permute(0, 3, 1, 2, 4)                   # (B,Sq,K,G,hd)
+    return out.reshape(B, Sq, H, hd).to(q.dtype)
+
+
+def attention(x: torch.Tensor, p: Attention, blk: BlockCfg, cfg: ModelCfg,
+              *, positions: torch.Tensor, causal: bool = True,
+              xkv: Optional[torch.Tensor] = None, return_kv: bool = False):
+    """Full-sequence attention (prefill).  ``xkv`` switches to
+    cross-attention (no RoPE).  ``return_kv`` also returns the rotary-
+    embedded (k, v) for the prefill cache; window blocks keep the last
+    ``window`` positions."""
+    kv_src = x if xkv is None else xkv
+    q = torch.einsum("bsd,dhk->bshk", x, p.wq)
+    k = torch.einsum("bsd,dhk->bshk", kv_src, p.wk)
+    v = torch.einsum("bsd,dhk->bshk", kv_src, p.wv)
+    if cfg.qk_norm:
+        q = rms_norm(q, p.q_gamma, cfg.norm_eps)
+        k = rms_norm(k, p.k_gamma, cfg.norm_eps)
+    kv_pos = positions if xkv is None else torch.arange(
+        kv_src.shape[1], device=x.device)
+    if blk.kind == "attn" and xkv is None:
+        q = rope(q, positions, cfg.rope_theta)
+        k = rope(k, kv_pos, cfg.rope_theta)
+
+    Skv = k.shape[1]
+    if Skv > 4096 and Skv % 1024 == 0:
+        out = _chunked_sdpa(q, k, v, positions, kv_pos, blk.window, cfg,
+                            causal=causal)
+    else:
+        bias = _mask_bias(positions, kv_pos, blk.window, causal=causal)
+        out = _sdpa(q, k, v, bias, cfg)
+    y = torch.einsum("bshk,hkd->bsd", out, p.wo)
+    if return_kv:
+        if blk.window is not None and k.shape[1] > blk.window:
+            k, v = k[:, -blk.window:], v[:, -blk.window:]
+        return y, (k, v)
+    return y
+
+
+def attention_decode(x: torch.Tensor, p: Attention, blk: BlockCfg,
+                     cfg: ModelCfg, *, cache_k: torch.Tensor,
+                     cache_v: torch.Tensor, pos: int, cross: bool = False):
+    """One-token decode against a (B, W, K, hd) cache.  x: (B, 1, d).
+
+    Self-attention writes the new K/V at slot ``pos`` (``pos % W`` for a
+    window block's ring) in place; a window block attends to the slots
+    whose position ``kv_pos`` has ``0 <= pos - kv_pos < window``.
+    ``cross`` attends to every slot of a precomputed encoder K/V.
+    Returns (y, cache_k, cache_v)."""
+    W = cache_k.shape[1]
+    q = torch.einsum("bsd,dhk->bshk", x, p.wq)
+    if cfg.qk_norm:
+        q = rms_norm(q, p.q_gamma, cfg.norm_eps)
+    idx = torch.arange(W, device=x.device)
+    if cross:
+        valid = torch.ones(W, dtype=torch.bool, device=x.device)
+    else:
+        k_new = torch.einsum("bsd,dhk->bshk", x, p.wk)
+        v_new = torch.einsum("bsd,dhk->bshk", x, p.wv)
+        if cfg.qk_norm:
+            k_new = rms_norm(k_new, p.k_gamma, cfg.norm_eps)
+        if blk.kind == "attn":
+            # made on the device: a host tensor here would be a blocking copy
+            where = torch.full((1,), pos, device=x.device)
+            q = rope(q, where, cfg.rope_theta)
+            k_new = rope(k_new, where, cfg.rope_theta)
+        slot = pos % W if blk.window is not None else pos
+        cache_k[:, slot] = k_new[:, 0].to(cache_k.dtype)
+        cache_v[:, slot] = v_new[:, 0].to(cache_v.dtype)
+        if blk.window is not None:
+            # slot s holds the largest position p <= pos with p % W == s
+            back = (pos - idx) % W
+            valid = (pos - back >= 0) & (back < blk.window)
+        else:
+            valid = idx <= pos
+
+    B, _, H, hd = q.shape
+    K = cache_k.shape[2]
+    qg = q.reshape(B, K, H // K, hd)
+    s = _scores(qg, cache_k, "bkgh,bskh->bkgs", hd)
+    s = softcap(s, cfg.attn_softcap)
+    s = s.masked_fill(~valid, -1e30)
+    w = torch.softmax(s, dim=-1)
+    out = torch.einsum("bkgs,bskh->bkgh", w.to(cache_v.dtype), cache_v)
+    y = torch.einsum("bshk,hkd->bsd", out.reshape(B, 1, H, hd), p.wo)
+    return y, cache_k, cache_v
+
+
+# --------------------------------------------------------------------------
+# Dense MLP (gated)
+# --------------------------------------------------------------------------
+
+class MLP(Params):
+    def __init__(self, d: int, d_ff: int, dtype, device):
+        super().__init__(dtype, device)
+        self.weight("wi", (d, d_ff), d)
+        self.weight("wg", (d, d_ff), d)
+        self.weight("wo", (d_ff, d), d_ff)
+
+
+def mlp(x: torch.Tensor, p: MLP, cfg: ModelCfg) -> torch.Tensor:
+    h = x @ p.wi
+    g = x @ p.wg
+    return (ACTS[cfg.act_fn](g) * h) @ p.wo
+
+
+# --------------------------------------------------------------------------
+# Mamba-2 SSD mixer (chunked matmul form)
+# --------------------------------------------------------------------------
+
+class SSD(Params):
+    def __init__(self, cfg: ModelCfg, s: SSDCfg, dtype, device):
+        super().__init__(dtype, device)
+        d = cfg.d_model
+        H = s.d_inner // s.head_dim
+        conv_ch = s.d_inner + 2 * s.n_groups * s.d_state
+        self.weight("in_xz", (d, 2 * s.d_inner), d)
+        self.weight("in_bc", (d, 2 * s.n_groups * s.d_state), d)
+        self.weight("in_dt", (d, H), d)
+        self.weight("conv_w", (s.d_conv, conv_ch), s.d_conv)
+        self.const("A_log", torch.zeros(H), torch.float32)
+        self.const("D", torch.ones(H), torch.float32)
+        self.const("dt_bias", torch.full((H,), math.log(math.e - 1)),
+                   torch.float32)
+        self.const("norm_g", torch.zeros(s.d_inner))
+        self.weight("out", (s.d_inner, d), s.d_inner)
+
+
+def _causal_conv(x: torch.Tensor, w: torch.Tensor, conv_state=None):
+    """Depthwise causal conv of (B, S, C) over the last ``d_conv`` inputs
+    (``conv_state`` holds the previous ``d_conv - 1``; zeros at the start).
+    Returns (conv out, the new state)."""
+    d_conv = w.shape[0]
+    if conv_state is None:
+        conv_state = x.new_zeros((x.shape[0], d_conv - 1, x.shape[2]))
+    win = torch.cat([conv_state, x], dim=1)
+    out = torch.einsum("bsct,tc->bsc", win.unfold(1, d_conv, 1), w)
+    return out, (win[:, -(d_conv - 1):] if d_conv > 1 else None)
+
+
+def _ssd_chunk_scan(xh, a_log_dt, Bm, Cm, chunk: int, init_state=None):
+    """SSD (state-space duality) chunked scan.
+
+    xh: (B,S,H,P) dt-scaled inputs, a_log_dt: (B,S,H) log decay, Bm/Cm:
+    (B,S,G,N) input/output maps.  Returns (y (B,S,H,P), final state
+    (B,H,P,N)).  Within a chunk: dense products; across chunks: the state
+    carried chunk by chunk."""
+    Bsz, S, H, Pd = xh.shape
+    G, N = Bm.shape[2], Bm.shape[3]
+    nc = S // chunk
+    rep = H // G
+    xc = xh.reshape(Bsz, nc, chunk, H, Pd)
+    ac = a_log_dt.reshape(Bsz, nc, chunk, H)
+    Bc = Bm.reshape(Bsz, nc, chunk, G, N).repeat_interleave(rep, dim=3)
+    Cc = Cm.reshape(Bsz, nc, chunk, G, N).repeat_interleave(rep, dim=3)
+
+    cum = torch.cumsum(ac, dim=2)                        # (B,nc,L,H)
+    seg = cum[:, :, :, None, :] - cum[:, :, None, :, :]  # (B,nc,Lq,Lk,H)
+    causal = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool,
+                                   device=xh.device))
+    L = torch.where(causal[None, None, :, :, None], torch.exp(seg),
+                    torch.zeros((), dtype=seg.dtype, device=seg.device))
+
+    # intra-chunk (diagonal block): y_intra = (C B^T * L) @ x
+    cb = torch.einsum("bnqhs,bnkhs->bnqkh", Cc, Bc)
+    y_intra = torch.einsum("bnqkh,bnkhp->bnqhp", cb * L, xc)
+
+    # chunk-local state: sum_k exp(cum_end - cum_k) B_k x_k
+    decay_to_end = torch.exp(cum[:, :, -1:, :] - cum)    # (B,nc,L,H)
+    chunk_states = torch.einsum("bnkhs,bnkhp->bnhps",
+                                Bc * decay_to_end[..., None], xc)
+    chunk_decay = torch.exp(cum[:, :, -1, :])            # (B,nc,H)
+
+    state = (torch.zeros((Bsz, H, Pd, N), dtype=xh.dtype, device=xh.device)
+             if init_state is None else init_state)
+    prev = []
+    for n in range(nc):                                  # state before chunk n
+        prev.append(state)
+        state = state * chunk_decay[:, n, :, None, None] + chunk_states[:, n]
+    prev_states = torch.stack(prev, dim=1)               # (B,nc,H,P,N)
+
+    # inter-chunk: y_inter = C_q exp(cum_q) @ state_in
+    y_inter = torch.einsum("bnqhs,bnhps->bnqhp",
+                           Cc * torch.exp(cum)[..., None], prev_states)
+    return (y_intra + y_inter).reshape(Bsz, S, H, Pd), state
+
+
+def ssd_mixer(x, p: SSD, s: SSDCfg, cfg: ModelCfg, *, conv_state=None,
+              ssm_state=None, decode: bool = False):
+    """Mamba-2 block.  Returns (out, new conv state, new SSM state)."""
+    B, S, _ = x.shape
+    H = s.d_inner // s.head_dim
+    xz = x @ p.in_xz
+    bc = x @ p.in_bc
+    dtv = (x @ p.in_dt).float()
+    xi, z = xz.chunk(2, dim=-1)
+    conv_out, new_conv_state = _causal_conv(torch.cat([xi, bc], dim=-1),
+                                            p.conv_w, conv_state)
+    conv_out = F.silu(conv_out)
+    xi = conv_out[..., :s.d_inner]
+    Bm, Cm = conv_out[..., s.d_inner:].reshape(
+        B, -1, 2 * s.n_groups, s.d_state).chunk(2, dim=2)
+
+    dtv = F.softplus(dtv + p.dt_bias)
+    a_log_dt = dtv * -torch.exp(p.A_log)                 # (B,S,H) log decay
+    xi_h = xi.reshape(B, -1, H, s.head_dim).float()
+    xh = xi_h * dtv[..., None]
+
+    if decode:
+        rep = H // s.n_groups
+        a = torch.exp(a_log_dt)[:, 0]                    # (B,H)
+        st = ssm_state * a[..., None, None] + torch.einsum(
+            "bhp,bhn->bhpn", xh[:, 0],
+            Bm[:, 0].repeat_interleave(rep, dim=1).float())
+        y = torch.einsum("bhpn,bhn->bhp", st,
+                         Cm[:, 0].repeat_interleave(rep, dim=1).float())
+        y, new_ssm_state = y[:, None], st
+    else:
+        chunk = next(c for c in range(min(s.chunk, S), 0, -1) if S % c == 0)
+        y, new_ssm_state = _ssd_chunk_scan(xh, a_log_dt, Bm.float(),
+                                           Cm.float(), chunk,
+                                           init_state=ssm_state)
+
+    y = y + xi_h * p.D[:, None]                          # skip (D term)
+    y = y.reshape(B, -1, s.d_inner).to(x.dtype)
+    y = y * F.silu(z)
+    y = rms_norm(y, p.norm_g, cfg.norm_eps)
+    return y @ p.out, new_conv_state, new_ssm_state
+
+
+# --------------------------------------------------------------------------
+# RG-LRU mixer (RecurrentGemma)
+# --------------------------------------------------------------------------
+
+class RGLRU(Params):
+    def __init__(self, cfg: ModelCfg, r: RGLRUCfg, dtype, device):
+        super().__init__(dtype, device)
+        d = cfg.d_model
+        self.weight("in_xy", (d, 2 * r.d_rnn), d)
+        self.weight("conv_w", (r.d_conv, r.d_rnn), r.d_conv)
+        self.weight("w_r", (r.d_rnn, r.d_rnn), r.d_rnn)
+        self.weight("w_i", (r.d_rnn, r.d_rnn), r.d_rnn)
+        # a = sigmoid(a_param)^(c*r): a^c from 0.9 to 0.999
+        self.const("a_param", np.log(np.expm1(
+            np.linspace(0.9, 0.999, r.d_rnn) ** (1.0 / r.c_exponent))),
+            torch.float32)
+        self.weight("out", (r.d_rnn, d), r.d_rnn)
+
+
+def _linear_scan(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``h_t = a_t * h_{t-1} + b_t`` along axis 1 from ``h_{-1} = 0``, in
+    ceil(log2 S) doubling steps (the combine of the reference's
+    ``associative_scan``, applied in another order)."""
+    S, off = a.shape[1], 1
+    while off < S:
+        b = torch.cat([b[:, :off], a[:, off:] * b[:, :-off] + b[:, off:]],
+                      dim=1)
+        a = torch.cat([a[:, :off], a[:, off:] * a[:, :-off]], dim=1)
+        off *= 2
+    return b
+
+
+def rglru_mixer(x, p: RGLRU, r: RGLRUCfg, cfg: ModelCfg, *, conv_state=None,
+                h_state=None, decode: bool = False):
+    """Real-gated LRU: h_t = a_t*h_{t-1} + sqrt(1-a_t^2)*(i_t * x_t).
+    Returns (out, new conv state, new h)."""
+    xb, gate_y = (x @ p.in_xy).chunk(2, dim=-1)
+    xc, new_conv_state = _causal_conv(xb, p.conv_w, conv_state)
+
+    rg = torch.sigmoid((xc @ p.w_r).float())
+    ig = torch.sigmoid((xc @ p.w_i).float())
+    log_a = r.c_exponent * rg * F.logsigmoid(p.a_param)  # (B,S,d_rnn)
+    a = torch.exp(log_a)
+    gated = torch.sqrt(torch.clamp(1.0 - torch.exp(2.0 * log_a), min=1e-12)) \
+        * ig * xc.float()
+
+    if decode:
+        new_h = a[:, 0] * h_state + gated[:, 0]
+        hs = new_h[:, None]
+    else:
+        if h_state is not None:
+            gated = torch.cat([gated[:, :1] + (a[:, 0] * h_state)[:, None],
+                               gated[:, 1:]], dim=1)
+        hs = _linear_scan(a, gated)
+        new_h = hs[:, -1]
+
+    y = hs.to(x.dtype) * F.gelu(gate_y, approximate="tanh")
+    return y @ p.out, new_conv_state, new_h

@@ -1,0 +1,295 @@
+"""Decoder-only LM assembling the mixers and MLPs of layers.py and moe.py
+(PyTorch port).
+
+:class:`LM` holds the embedding, the final norm, the untied unembedding
+where there is one, and every block as one ``ModuleList`` in execution
+order: ``prefix``, ``n_repeats`` times ``pattern``, ``suffix`` (the JAX
+package stacks the repeats on a leading axis and scans over it).
+
+Entry points, with the reference's names:
+  init_params(cfg, seed, device) / params_from_numpy(cfg, tree, device)
+  init_cache(cfg, B, max_len, device)   -> one cache dict per block
+  forward(model, tokens)                -> (final hidden states, aux)
+  logits_from_h(model, h)               -> float32 logits
+  prefill(model, tokens)                -> (last-position logits, cache)
+  decode_step(model, tokens, cache, pos) -> (logits, cache)
+
+A block's decode cache is ``{"k", "v"}`` (B, W, K, hd) for attention,
+``{"conv", "state"}`` for SSD and ``{"conv", "h"}`` for RG-LRU.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Optional
+
+import numpy as np
+import torch
+from torch import nn
+
+from repro_torch.device import resolve_device
+from repro_torch.models import moe as moe_lib
+from repro_torch.models.common import BlockCfg, ModelCfg
+from repro_torch.models.layers import (MLP, RGLRU, SSD, Attention, Params,
+                                       attention, attention_decode, dt,
+                                       init_modules, load_tree, matmul_f32,
+                                       mlp, rglru_mixer, rms_norm, softcap,
+                                       ssd_mixer)
+
+AUX_SUM = ("moe_lb_loss", "moe_z_loss", "dropped_frac")
+AUX_MAX = ("max_expert_load",)
+
+
+# --------------------------------------------------------------------------
+# Parameters
+# --------------------------------------------------------------------------
+
+class Block(Params):
+    """One residual block: a mixer, then a dense or MoE channel MLP."""
+
+    def __init__(self, blk: BlockCfg, cfg: ModelCfg, dtype, device):
+        super().__init__(dtype, device)
+        d = cfg.d_model
+        self.const("norm1", torch.zeros(d))
+        if blk.kind == "attn":
+            self.attn = Attention(cfg, dtype, device)
+        elif blk.kind == "ssd":
+            self.ssd = SSD(cfg, blk.ssd, dtype, device)
+        elif blk.kind == "rglru":
+            self.rglru = RGLRU(cfg, blk.rglru, dtype, device)
+        else:
+            raise ValueError(blk.kind)
+        if blk.moe is not None:
+            self.const("norm2", torch.zeros(d))
+            self.moe = moe_lib.MoE(cfg, blk.moe, dtype, device)
+        elif blk.d_ff:
+            self.const("norm2", torch.zeros(d))
+            self.mlp = MLP(d, blk.d_ff, dtype, device)
+        if blk.post_norms:
+            self.const("norm1_post", torch.zeros(d))
+            self.const("norm2_post", torch.zeros(d))
+
+
+class LM(Params):
+    def __init__(self, cfg: ModelCfg, device):
+        dtype = dt(cfg.param_dtype)
+        super().__init__(dtype, device)
+        self.cfg = cfg
+        self.weight("embed", (cfg.vocab_size, cfg.d_model), cfg.d_model)
+        self.const("final_norm", torch.zeros(cfg.d_model))
+        if not cfg.tie_embeddings:
+            self.weight("unembed", (cfg.d_model, cfg.vocab_size),
+                        cfg.d_model)
+        self.blocks = nn.ModuleList(Block(b, cfg, dtype, device)
+                                    for b in cfg.all_blocks())
+
+
+def init_params(cfg: ModelCfg, seed: int = 0,
+                device: "str | torch.device" = "cuda") -> LM:
+    """An :class:`LM` with the reference's shapes, dtypes, scales and
+    constant leaves, its weights drawn from a ``torch.Generator`` seeded
+    with ``seed`` (not ``jax.random``'s bits)."""
+    dev = resolve_device(device)
+    return init_modules(LM(cfg, dev), seed, dev)
+
+
+def _block_slices(cfg: ModelCfg, tree: dict):
+    """The reference's per-block subtrees, in execution order (the
+    ``pattern`` leaves unstacked along their leading repeat axis)."""
+    out = [tree[f"pre{i}"] for i in range(len(cfg.prefix))]
+    for r in range(cfg.n_repeats):
+        def pick(node):
+            return ({k: pick(v) for k, v in node.items()}
+                    if isinstance(node, dict) else np.asarray(node)[r])
+        out += [pick(tree["pattern"][f"blk{j}"])
+                for j in range(len(cfg.pattern))]
+    return out + [tree[f"suf{i}"] for i in range(len(cfg.suffix))]
+
+
+def params_from_numpy(cfg: ModelCfg, tree: dict,
+                      device: "str | torch.device" = "cuda") -> LM:
+    """The JAX package's ``lm.init_params`` tree (as numpy arrays) as an
+    :class:`LM` on ``device``, dtypes kept."""
+    model = LM(cfg, resolve_device(device))
+    load_tree(model, {k: tree[k] for k in ("embed", "final_norm", "unembed")
+                      if k in tree})
+    for block, sub in zip(model.blocks, _block_slices(cfg, tree)):
+        load_tree(block, sub)
+    return model
+
+
+# --------------------------------------------------------------------------
+# Decode cache
+# --------------------------------------------------------------------------
+
+def _block_cache(blk: BlockCfg, cfg: ModelCfg, B: int, max_len: int,
+                 dtype, device) -> dict:
+    z = lambda *shape, dtype=dtype: torch.zeros(shape, dtype=dtype,
+                                                device=device)
+    if blk.kind == "attn":
+        W = min(blk.window, max_len) if blk.window else max_len
+        return {"k": z(B, W, cfg.n_kv_heads, cfg.head_dim),
+                "v": z(B, W, cfg.n_kv_heads, cfg.head_dim)}
+    if blk.kind == "ssd":
+        s = blk.ssd
+        H = s.d_inner // s.head_dim
+        conv_ch = s.d_inner + 2 * s.n_groups * s.d_state
+        return {"conv": z(B, s.d_conv - 1, conv_ch),
+                "state": z(B, H, s.head_dim, s.d_state,
+                           dtype=torch.float32)}
+    if blk.kind == "rglru":
+        r = blk.rglru
+        return {"conv": z(B, r.d_conv - 1, r.d_rnn),
+                "h": z(B, r.d_rnn, dtype=torch.float32)}
+    raise ValueError(blk.kind)
+
+
+def init_cache(cfg: ModelCfg, B: int, max_len: int,
+               device: "str | torch.device" = "cuda") -> list[dict]:
+    dev = resolve_device(device)
+    return [_block_cache(b, cfg, B, max_len, dt(cfg.param_dtype), dev)
+            for b in cfg.all_blocks()]
+
+
+# --------------------------------------------------------------------------
+# Block application
+# --------------------------------------------------------------------------
+
+def _zero_aux(device) -> dict:
+    return {k: torch.zeros((), dtype=torch.float32, device=device)
+            for k in AUX_SUM + AUX_MAX}
+
+
+def _merge_aux(acc: dict, new: dict) -> dict:
+    out = dict(acc)
+    for k in AUX_SUM:
+        if k in new:
+            out[k] = acc[k] + new[k]
+    for k in AUX_MAX:
+        if k in new:
+            out[k] = torch.maximum(acc[k], new[k])
+    return out
+
+
+def apply_block(h, p: Block, blk: BlockCfg, cfg: ModelCfg, *,
+                positions=None, cache=None, pos=None, decode: bool = False,
+                collect_cache: bool = False):
+    """One residual block.  Returns (h, new_cache, aux).
+
+    ``collect_cache`` (prefill) emits the decode cache of a full-sequence
+    pass (attention K/V, SSD conv + state, RG-LRU conv + h)."""
+    aux: dict = {}
+    x = rms_norm(h, p.norm1, cfg.norm_eps)
+    new_cache = cache
+    if blk.kind == "attn":
+        if decode:
+            y, ck, cv = attention_decode(x, p.attn, blk, cfg,
+                                         cache_k=cache["k"],
+                                         cache_v=cache["v"], pos=pos)
+            new_cache = {"k": ck, "v": cv}
+        elif collect_cache:
+            y, (ck, cv) = attention(x, p.attn, blk, cfg,
+                                    positions=positions, return_kv=True)
+            new_cache = {"k": ck, "v": cv}
+        else:
+            y = attention(x, p.attn, blk, cfg, positions=positions)
+    elif blk.kind == "ssd":
+        y, conv, state = ssd_mixer(
+            x, p.ssd, blk.ssd, cfg, decode=decode,
+            conv_state=None if cache is None else cache["conv"],
+            ssm_state=None if cache is None else cache["state"])
+        if cache is not None or collect_cache:
+            new_cache = {"conv": conv, "state": state}
+    else:
+        y, conv, hst = rglru_mixer(
+            x, p.rglru, blk.rglru, cfg, decode=decode,
+            conv_state=None if cache is None else cache["conv"],
+            h_state=None if cache is None else cache["h"])
+        if cache is not None or collect_cache:
+            new_cache = {"conv": conv, "h": hst}
+    if blk.post_norms:
+        y = rms_norm(y, p.norm1_post, cfg.norm_eps)
+    h = h + y
+
+    if blk.moe is not None or blk.d_ff:
+        x = rms_norm(h, p.norm2, cfg.norm_eps)
+        if blk.moe is not None:
+            y, aux = moe_lib.moe(x, p.moe, blk.moe, cfg, decode=decode)
+        else:
+            y = mlp(x, p.mlp, cfg)
+        if blk.post_norms:
+            y = rms_norm(y, p.norm2_post, cfg.norm_eps)
+        h = h + y
+    return h, new_cache, aux
+
+
+# --------------------------------------------------------------------------
+# Forward, prefill, decode
+# --------------------------------------------------------------------------
+
+def embed_tokens(model: LM, tokens: torch.Tensor,
+                 frontend_embeds: Optional[torch.Tensor] = None):
+    cfg = model.cfg
+    h = model.embed[tokens].to(dt(cfg.compute_dtype))
+    if cfg.emb_scale:
+        # sqrt(d) in float32, then in the compute dtype (a host scalar)
+        h = h * torch.sqrt(torch.tensor(float(cfg.d_model))).to(h.dtype)
+    if frontend_embeds is not None:
+        h = torch.cat([frontend_embeds.to(h.dtype), h], dim=1)
+    return h
+
+
+def _blocks(model: LM):
+    return zip(model.blocks, model.cfg.all_blocks())
+
+
+def forward(model: LM, tokens: torch.Tensor,
+            frontend_embeds: Optional[torch.Tensor] = None):
+    """Full-sequence forward -> (final hidden states, aux)."""
+    cfg = model.cfg
+    h = embed_tokens(model, tokens, frontend_embeds)
+    positions = torch.arange(h.shape[1], device=h.device)
+    aux = _zero_aux(h.device)
+    for p, blk in _blocks(model):
+        h, _, a = apply_block(h, p, blk, cfg, positions=positions)
+        aux = _merge_aux(aux, a)
+    return rms_norm(h, model.final_norm, cfg.norm_eps), aux
+
+
+def logits_from_h(model: LM, h: torch.Tensor) -> torch.Tensor:
+    cfg = model.cfg
+    w = model.embed.t() if cfg.tie_embeddings else model.unembed
+    B, S, d = h.shape
+    logits = matmul_f32(h.reshape(B * S, d), w).reshape(B, S, -1)
+    return softcap(logits, cfg.final_softcap)
+
+
+def prefill(model: LM, tokens: torch.Tensor,
+            frontend_embeds: Optional[torch.Tensor] = None):
+    """Full-context prefill: (last-position logits (B, V), cache).  The
+    cache has ``init_cache``'s layout at max_len == S (window blocks keep
+    the last ``window`` positions); the serving engine places it into its
+    decode buffers."""
+    cfg = model.cfg
+    h = embed_tokens(model, tokens, frontend_embeds)
+    positions = torch.arange(h.shape[1], device=h.device)
+    cache: list[Any] = []
+    for p, blk in _blocks(model):
+        h, c, _ = apply_block(h, p, blk, cfg, positions=positions,
+                              collect_cache=True)
+        cache.append(c)
+    h = rms_norm(h, model.final_norm, cfg.norm_eps)
+    return logits_from_h(model, h[:, -1:])[:, 0], cache
+
+
+def decode_step(model: LM, tokens: torch.Tensor, cache: list, pos: int):
+    """One-token decode.  tokens: (B, 1); ``pos`` the index of the token
+    (the cache holds positions before it).  Attention caches are updated
+    in place.  Returns (logits (B, V), cache)."""
+    cfg = model.cfg
+    h = embed_tokens(model, tokens)
+    new_cache = []
+    for (p, blk), c in zip(_blocks(model), cache):
+        h, c, _ = apply_block(h, p, blk, cfg, cache=c, pos=pos, decode=True)
+        new_cache.append(c)
+    h = rms_norm(h, model.final_norm, cfg.norm_eps)
+    return logits_from_h(model, h)[:, 0], new_cache

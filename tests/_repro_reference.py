@@ -48,7 +48,26 @@ MODULES = {
     "train": "repro.train",
     "train_data": "repro.train.data",
     "train_sparse": "repro.train.sparse",
+    "layers": "repro.models.layers",
+    "lm": "repro.models.lm",
+    "moe": "repro.models.moe",
+    "encdec": "repro.models.encdec",
+    "sharding": "repro.distributed.sharding",
+    "engine": "repro.serve.engine",
 }
+
+
+def auto_mesh():
+    """A one-device ("data", "model") mesh with ``Auto`` axes.  The
+    reference's ``single_device_mesh`` makes ``Explicit`` axes under the
+    installed JAX, on which its sharding constraints raise; with ``Auto``
+    axes its model and serving code run (MoE needs a mesh)."""
+    import jax
+    import numpy as np
+    from jax.sharding import AxisType
+    return jax.make_mesh((1, 1), ("data", "model"),
+                         axis_types=(AxisType.Auto, AxisType.Auto),
+                         devices=np.array(jax.devices()[:1]))
 
 
 def _is_repro(name: str) -> bool:

@@ -140,3 +140,37 @@ def test_training_phases_pass_at_small_widths(tmp_path, capsys):
     assert w["counters"] == "bit-identical to dense"
     assert w["thresholds_vs_cpu_max_rel_diff"] == 0.0
     assert w["launches"] == {"event_matmul2": 0, "window_cumsum": 0}
+
+
+def test_serve_phases_pass_on_smoke_configs(capsys):
+    """Phases (x) to (z) on the CPU with gemma2's and whisper's smoke
+    configs in place of the full ones: serve greedy and sampled, hold the
+    engine to teacher forcing on a short prompt, one crossing the window
+    (5 + 10 tokens past gemma2-smoke's 8) and a chunked prefill (5120
+    tokens), then the card's place taken by the host (so every card-host
+    difference is 0)."""
+    smoke = _chip_smoke()
+    smoke.serve_phases(device="cpu", card="cpu", full=False,
+                       serve_args=dict(batch=4, prompt_len=12, new_tokens=6),
+                       trace_steps=3,
+                       check_prompts=((12, 4), (5, 10), (5120, 2)),
+                       family_steps=4, whisper_steps=6)
+    lines = [json.loads(l) for l in capsys.readouterr().out.splitlines()]
+    assert [l["phase"] for l in lines] == ["serve", "serve_check",
+                                           "serve_families"]
+    x, y, z = lines
+    assert x["arch"] == "gemma2-smoke" and x["greedy_repeats"]
+    assert len(x["decode_ms_steps"]) == 5 and x["decode_ms_per_token"] > 0
+    assert x["ported_kernel_launches"] == {
+        k: 0 for k in ("event_matmul2", "window_cumsum", "flash_attn",
+                       "event_matmul", "sigma_delta")}
+    assert x["sampled"]["identical_twice"] and len(x["sampled"]["row0"]) == 6
+    assert set(x["scalar_vs_true_division_differing_of_2e20"].values()) \
+        == {0}
+    assert [(r["crosses_window"], r["chunked_prefill"]) for r in
+            y["prompts"]] == [(False, False), (True, False), (False, True)]
+    assert all(r["tokens_equal_teacher_forcing"] and
+               r["max_abs_logit_diff"] <= y["tol"] for r in y["prompts"])
+    assert len(z["smoke_configs"]) == 10
+    assert all(r["tokens_equal"] for r in z["smoke_configs"].values())
+    assert z["whisper"]["max_abs_logit_diff_vs_decode_train"] <= 2e-3

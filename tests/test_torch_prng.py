@@ -4,14 +4,17 @@ bit for bit, on the CPU.
 The JAX package's device search draws everything from ``jax.random`` with
 JAX's partitionable threefry layout.  The port's draws must be the same
 bits: keys, splits and fold-ins, 32- and 64-bit raw draws, int32
-``randint`` and float64 ``uniform``, and the device search's own
-``generation_draws`` and ``island_keys``, over a grid of shapes.
+``randint`` and float64 ``uniform``, the serving engine's float32
+``uniform_f32`` (with a range), ``gumbel`` and ``categorical``, and the
+device search's own ``generation_draws`` and ``island_keys``, over a grid
+of shapes.
 """
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 from hypothesis import given, settings
 from hypothesis import strategies as st
 
@@ -99,6 +102,37 @@ def test_uniform_float64_matches_jax(shape):
         got = prng.uniform(kt, shape).numpy()
         assert got.dtype == np.float64 and np.array_equal(got, want)
         assert ((got >= 0.0) & (got < 1.0)).all()
+
+
+@pytest.mark.parametrize("shape", SHAPES)
+@pytest.mark.parametrize("lo,hi", [(0.0, 1.0), (-2.5, 3.1),
+                                   (float(np.finfo(np.float32).tiny), 1.0)])
+def test_uniform_float32_with_range_matches_jax(shape, lo, hi):
+    for seed in SEEDS[:3]:
+        got = prng.uniform_f32(prng.PRNGKey(seed), shape, lo, hi).numpy()
+        want = np.asarray(jax.random.uniform(jax.random.PRNGKey(seed), shape,
+                                             jnp.float32, lo, hi))
+        np.testing.assert_array_equal(got.view(np.int32),
+                                      want.view(np.int32))
+
+
+@pytest.mark.parametrize("shape", SHAPES)
+def test_gumbel_matches_jax(shape):
+    for seed in SEEDS[:3]:
+        got = prng.gumbel(prng.PRNGKey(seed), shape).numpy()
+        want = np.asarray(jax.random.gumbel(jax.random.PRNGKey(seed), shape))
+        np.testing.assert_array_equal(got.view(np.int32),
+                                      want.view(np.int32))
+
+
+@pytest.mark.parametrize("seed", SEEDS)
+def test_categorical_matches_jax(seed):
+    logits = np.random.default_rng(seed % 1000).standard_normal(
+        (4, 512)).astype(np.float32) * 3
+    got = prng.categorical(prng.PRNGKey(seed), torch.from_numpy(logits))
+    want = jax.random.categorical(jax.random.PRNGKey(seed),
+                                  jnp.asarray(logits))
+    assert got.tolist() == np.asarray(want).tolist()
 
 
 def test_streams_in_one_pass_equal_streams_alone():
