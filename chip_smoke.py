@@ -224,6 +224,50 @@ Phases, each printing one JSON line:
                   (1500 frames, 32 decode steps, float32): ``decode_step``
                   logits against ``decode_train``'s.
 
+  (A) lm_train  — training of the LM stack: full-width gemma2-2b in bf16
+                  (2.61 G parameters, as published) built by
+                  ``repro_torch.launch.train`` (weights from seed 0; AdamW
+                  by ``for_arch``; ``lr_for``'s cosine schedule at lr
+                  1e-3), ``SyntheticLM`` at vocab 256,000, seq_len 1024,
+                  global batch 2, seed 0, one microbatch, 8 steps through
+                  ``Trainer.run``: seconds per step (the median after the
+                  first), tokens/s, model-FLOP utilisation (6 N tokens
+                  per step over 989 TFLOP/s), the step's bound (GEMM
+                  operations at 989 TFLOP/s plus AdamW's bytes at 3.35
+                  TB/s, ``lm_step_bound``), peak device memory, 2 more
+                  steps under torch.profiler (idle share, device
+                  operations per step) and the loss curve.  Every loss
+                  finite, the last below the first.
+  (B) lm_grad_check — full-width gemma2-2b in float32, one batch of
+                  1 x 512 tokens: the gradient's directional derivative
+                  <g, d> along seeded random directions d (N(0, 0.02^2)
+                  per entry: over all leaves, then the embedding, the
+                  attention, the MLP and the norm leaves alone) against
+                  the central difference of the loss (Richardson-
+                  extrapolated from eps and eps / 2, eps chosen so the
+                  loss moves by 1e-3), within ``GRAD_CHECK_RTOL``.
+  (C) lm_train_families — the nine decoder-only smoke configs and
+                  whisper's ``encdec.loss_fn``, float32, on the card and
+                  on the host from the same weights: loss, metrics and
+                  every gradient leaf; the parameters after one AdamW and
+                  one Adafactor step (factoring from 32) on the host's
+                  gradients; granite's smoke config through one
+                  ``num_microbatches=2`` step and two ``compress_grads``
+                  steps, each computing its own gradients; within the CPU
+                  tests' tolerances.
+  (D) lm_resume — granite-3-2b's smoke ``Trainer`` on the card for 12
+                  steps (checkpoints every 4 under ``build/repro_torch/
+                  ckpt/lm``, scratch): killed at the start of step 8 and
+                  resumed from its checkpoint, step 12's loss equal to the
+                  continuous run's (bit for bit, or within rtol 1e-5: the
+                  line says which held); a ``RuntimeError`` scripted at
+                  step 6 restored exactly once, and no recovery in any
+                  other run.
+                  Launch counts of the five ported kernels are zeroed
+                  before (A) and read after (A), (C) and (D): the
+                  training path launches none of them (the JAX package's
+                  reaches no Pallas kernel).
+
 Then a ``{"kernels": [...]}`` line, the card's name and power limit as
 nvidia-smi reports them, and a last line ``{"ok": true, "device": ...}``.
 Any failed check raises: the script exits non-zero and prints no result.
@@ -289,7 +333,22 @@ CHECK_PROMPTS = ((128, 16), (4090, 16), (5120, 8))  # (y): (prompt, new)
 FAMILY_STEPS = 6                      # (z): greedy tokens per smoke config
 WHISPER_STEPS = 32                    # (z): full-width whisper decode steps
 
+# phases (A)-(D): training of the LM stack
+LM_ARCH = "gemma2-2b"
+LM_TRAIN = dict(steps=8, batch=2, seq=1024, lr=1e-3)         # (A)
+LM_TRACE_STEPS = 2                    # (A): steps under the profiler
+GRAD_CHECK = dict(batch=1, seq=512, seed=0, scale=0.02,      # (B)
+                  loss_change=1e-3)
+RESUME = dict(steps=12, kill=8, fault=6, ckpt_every=4)       # (D)
+
 # stated tolerances
+GRAD_CHECK_RTOL = 1e-2                # (B) <g, d> vs the central difference
+LM_LOSS_RTOL, LM_GRAD_ATOL = 1e-6, 2e-5  # (C) card vs host: the CPU tests'
+                                      # (grads: of a leaf's largest entry)
+OPT_RTOL, OPT_ATOL = 1e-5, 1e-7       # (C) optimizers on the same grads
+STEP_ATOL = 0.1                       # (C) end-to-end steps, times the lr
+ERR_ATOL, ERR_FLIPS = 1e-6, 1e-3      # (C) compressed step's errors
+RESUME_RTOL = 1e-5                    # (D) the reference's resume bound
 PRE_RTOL, PRE_ATOL = 1e-5, 1e-5       # kernel vs plain / dense pre-acts
 WIN_RTOL, WIN_ATOL = 1e-6, 1e-6       # window_cumsum kernel vs plain
 REPORT_RTOL = 1e-3                    # event vs dense time / energy
@@ -488,6 +547,19 @@ def traced(fn) -> dict:
             "family_device_s": families if busy_s else "not measured",
             "top_kernels": [{"name": k[:90], "device_s": us * 1e-6,
                              "calls": n} for k, us, n in by_kernel[:10]]}
+
+
+def ported_kernels() -> dict:
+    """The five ported kernels' wrappers by name (each counts its
+    launches in ``.launches``)."""
+    from repro_torch.kernels.event_matmul.ops import (event_matmul,
+                                                      event_matmul2)
+    from repro_torch.kernels.flash_attn.ops import flash_attention
+    from repro_torch.kernels.sigma_delta.ops import (sigma_delta_encode,
+                                                     window_cumsum)
+    return {"event_matmul2": event_matmul2, "window_cumsum": window_cumsum,
+            "flash_attn": flash_attention, "event_matmul": event_matmul,
+            "sigma_delta": sigma_delta_encode}
 
 
 def recorder():
@@ -1435,20 +1507,13 @@ def serve_phases(*, device, card: str, full: bool = True,
     import torch
     from repro_torch.configs import registry
     from repro_torch.device import resolve_device
-    from repro_torch.kernels.event_matmul.ops import (event_matmul,
-                                                      event_matmul2)
-    from repro_torch.kernels.flash_attn.ops import flash_attention
-    from repro_torch.kernels.sigma_delta.ops import (sigma_delta_encode,
-                                                     window_cumsum)
     from repro_torch.launch import serve
     from repro_torch.models import encdec, lm
     from repro_torch.serve.engine import Engine, ServeConfig
 
     dev = resolve_device(device)
     on_card = dev.type == "cuda"
-    counted = {"event_matmul2": event_matmul2, "window_cumsum": window_cumsum,
-               "flash_attn": flash_attention, "event_matmul": event_matmul,
-               "sigma_delta": sigma_delta_encode}
+    counted = ported_kernels()
 
     def sync():
         if on_card:
@@ -1692,6 +1757,429 @@ def serve_phases(*, device, card: str, full: bool = True,
                       "max_abs_logit_diff_vs_decode_train": w_err,
                       "tol": SERVE_LOGIT_ATOL, "wall_s": w_s},
           "phase_wall_s": time.perf_counter() - t_phase})
+
+
+def lm_step_bound(cfg, B: int, S: int) -> dict:
+    """The least time of one AdamW training step of a dense attention LM
+    (every block attention plus a dense MLP) on ``B`` sequences of ``S``
+    tokens: its GEMM operations at the bf16 tensor-core rate plus the
+    optimizer's bytes at the HBM rate.  GEMMs: the forward's block
+    weights, the causal QK^T and PV products (window-limited) and the
+    tied logits, counted four times for blocks recomputed in the backward
+    (forward, recompute, two backward products) and three times for the
+    logits.  AdamW reads each gradient and writes each parameter in the
+    parameters' dtype, and reads and writes float32 m, v and master."""
+    d, V, T = cfg.d_model, cfg.vocab_size, B * S
+    w_blocks = attn = 0
+    for blk in cfg.all_blocks():
+        require(blk.kind == "attn" and blk.moe is None,
+                f"lm_step_bound: {blk.kind} block")
+        w_blocks += (d * (cfg.n_heads + 2 * cfg.n_kv_heads) * cfg.head_dim
+                     + cfg.q_dim * d + 3 * d * blk.d_ff)
+        W = blk.window or S
+        pairs = sum(min(q + 1, W) for q in range(S))
+        attn += 2 * 2 * cfg.n_heads * cfg.head_dim * pairs * B
+    passes = 4 if cfg.remat == "block" else 3
+    flops = passes * (2 * T * w_blocks + attn) + 3 * 2 * T * d * V
+    psize = 2 if cfg.param_dtype == "bfloat16" else 4
+    opt_bytes = cfg.param_count() * (2 * psize + 24)
+    return {"gemm_flop": flops, "optimizer_bytes": opt_bytes,
+            "gemm_ms": flops / PEAK_BF16_FLOPS * 1e3,
+            "optimizer_ms": opt_bytes / PEAK_BYTES_PER_S * 1e3,
+            "bound_ms": (flops / PEAK_BF16_FLOPS
+                         + opt_bytes / PEAK_BYTES_PER_S) * 1e3}
+
+
+def lm_train_phases(*, device, card: str, ckpt_root, full: bool = True,
+                    train: dict = LM_TRAIN,
+                    trace_steps: int = LM_TRACE_STEPS,
+                    grad_check: dict = GRAD_CHECK,
+                    resume: dict = RESUME) -> None:
+    """Phases (A) to (D): training of the LM stack (see the module
+    docstring).  ``full=False`` (the tests' rehearsal on the CPU) trains
+    gemma2-2b's smoke config in place of the full one, checks the
+    gradient there, traces nothing, and holds the host against itself in
+    (C).  Checkpoints go under ``ckpt_root`` (scratch, emptied first)."""
+    import dataclasses
+    import gc
+    import math
+
+    import numpy as np
+    import torch
+    from repro_torch.configs import registry
+    from repro_torch.device import resolve_device
+    from repro_torch.distributed import collectives
+    from repro_torch.launch import train as launcher
+    from repro_torch.models import encdec, lm
+    from repro_torch.train import data as data_lib
+    from repro_torch.train import optim, schedules
+    from repro_torch.train import step as step_lib
+    from repro_torch.train.loop import (Trainer, TrainerConfig,
+                                        make_dp_compressed_step)
+    from repro_torch.tree import tree_map
+
+    dev = resolve_device(device)
+    on_card = dev.type == "cuda"
+    counted = ported_kernels()
+    for fn in counted.values():
+        fn.launches = 0
+    shutil.rmtree(ckpt_root, ignore_errors=True)
+
+    def free():
+        gc.collect()
+        if on_card:
+            torch.cuda.empty_cache()
+
+    def paths(tree, prefix=""):
+        for k in sorted(tree):
+            v = tree[k]
+            if isinstance(v, dict):
+                yield from paths(v, f"{prefix}{k}.")
+            else:
+                yield prefix + k, v
+
+    # ------------------------------------------------------ (A) lm_train
+    t_phase = time.perf_counter()
+    B, S, steps, lr = (train[k] for k in ("batch", "seq", "steps", "lr"))
+    held_before = (torch.cuda.memory_allocated() if on_card
+                   else "not measured")
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    trainer = launcher.build(launcher.parse_args(
+        ["--arch", LM_ARCH, "--steps", str(steps), "--batch", str(B),
+         "--seq", str(S), "--lr", str(lr), "--device", device]
+        + ([] if full else ["--smoke"])))
+    trainer.tcfg.log_every = 1
+    init_s = time.perf_counter() - t0
+    cfg = trainer.cfg
+    hist = trainer.run()
+    losses = [h["loss"] for h in hist]
+    step_s = statistics.median(h["dt"] for h in hist[1:])
+    require(len(losses) == steps and all(map(math.isfinite, losses)),
+            f"(A) losses {losses}")
+    require(losses[-1] < losses[0], f"(A) loss did not fall: {losses}")
+    batch = trainer._put_batch(trainer.data.batch(steps))
+
+    def more_steps():
+        for _ in range(trace_steps):
+            trainer.state, _ = trainer.step_fn(trainer.state, batch)
+    if on_card:
+        trace = traced(more_steps)
+        trace["device_ops_per_step"] = trace["device_ops"] / trace_steps
+    else:
+        more_steps()
+        trace = "not measured (CPU)"
+    peak = torch.cuda.max_memory_allocated() if on_card else "not measured"
+    n_params = cfg.param_count()
+    tokens = B * S
+    bound = lm_step_bound(cfg, B, S)
+    launches = {k: fn.launches for k, fn in counted.items()}
+    emit({"phase": "lm_train", "card": card, "arch": cfg.name,
+          "dtype": cfg.param_dtype, "optimizer": trainer.opt.name,
+          "schedule": f"cosine(lr={lr}, warmup={max(steps // 20, 1)}, "
+                      f"total={steps})",
+          "batch": B, "seq_len": S, "steps": steps, "params": n_params,
+          "init_s": init_s, "loss_curve": losses,
+          "step_s": [h["dt"] for h in hist], "s_per_step": step_s,
+          "tokens_per_s": tokens / step_s,
+          "mfu": 6 * n_params * tokens / step_s / PEAK_BF16_FLOPS,
+          "step_bound": bound, "step_over_bound":
+              step_s * 1e3 / bound["bound_ms"],
+          "peak_device_bytes": peak, "device_bytes_held_before": held_before,
+          "traced_steps": trace_steps, "traced": trace,
+          "straggler_events": len(trainer.monitor.events),
+          "ported_kernel_launches": launches,
+          "phase_wall_s": time.perf_counter() - t_phase})
+    require(not any(launches.values()),
+            f"(A) the training path launched a ported kernel: {launches}")
+    del trainer, batch, more_steps
+    free()
+
+    # -------------------------------------------------- (B) lm_grad_check
+    t_phase = time.perf_counter()
+    entry = registry.get(LM_ARCH)
+    cfg32 = dataclasses.replace(entry.config if full else entry.smoke(),
+                                param_dtype="float32",
+                                compute_dtype="float32")
+    model = lm.init_params(cfg32, 0, device)
+    data = data_lib.SyntheticLM(data_lib.LMTaskConfig(
+        vocab_size=cfg32.vocab_size, seq_len=grad_check["seq"],
+        global_batch=grad_check["batch"], seed=grad_check["seed"]))
+    gbatch = {k: torch.from_numpy(v).to(dev)
+              for k, v in data.batch(0).items()}
+    t0 = time.perf_counter()
+    total, _, grads = step_lib.value_and_grad(model, gbatch)
+    grad_s = time.perf_counter() - t0
+    params = step_lib.param_tree(model)
+    gen = torch.Generator(device=dev).manual_seed(grad_check["seed"])
+    direction = tree_map(lambda p: torch.randn(
+        p.shape, generator=gen, device=dev) * grad_check["scale"], params)
+    saved = tree_map(lambda p: p.detach().clone(), params)
+    groups = {"all": lambda k: True,
+              "embed": lambda k: k == "embed",
+              "attention": lambda k: ".attn." in k,
+              "mlp": lambda k: ".mlp." in k,
+              "norms": lambda k: "norm" in k}
+
+    def loss_at(eps, pick):
+        with torch.no_grad():
+            for (k, p), (_, p0), (_, d) in zip(paths(params), paths(saved),
+                                                paths(direction)):
+                p.copy_(p0 + eps * d if pick(k) else p0)
+            return float(lm.loss_fn(model, gbatch)[0])
+
+    checks = {}
+    for name, pick in groups.items():
+        dot = sum(float((g.double() * d.double()).sum())
+                  for (k, g), (_, d) in zip(paths(grads), paths(direction))
+                  if pick(k))
+        eps = grad_check["loss_change"] / max(abs(dot), 1e-30)
+        central = [(loss_at(h, pick) - loss_at(-h, pick)) / (2 * h)
+                   for h in (eps, eps / 2)]
+        # Richardson: the central difference's eps^2 term cancels
+        fd = (4 * central[1] - central[0]) / 3
+        rel = abs(fd - dot) / max(abs(dot), 1e-30)
+        checks[name] = {"directional_derivative": dot,
+                        "central_difference": fd, "eps": eps,
+                        "central_at_eps_and_half": central,
+                        "rel_err": rel}
+        require(rel <= GRAD_CHECK_RTOL,
+                f"(B) {name}: <g, d> {dot} vs central difference {fd} "
+                f"(eps {eps}): rel err {rel} beyond {GRAD_CHECK_RTOL}")
+    loss_at(0.0, groups["all"])                   # the weights back
+    emit({"phase": "lm_grad_check", "card": card, "arch": cfg32.name,
+          "dtype": "float32", "batch": grad_check["batch"],
+          "seq_len": grad_check["seq"], "loss": float(total),
+          "value_and_grad_s": grad_s, "direction_std": grad_check["scale"],
+          "loss_change_at_eps": grad_check["loss_change"],
+          "tol": GRAD_CHECK_RTOL, "checks": checks,
+          "phase_wall_s": time.perf_counter() - t_phase})
+    del model, params, grads, direction, saved, gbatch
+    free()
+
+    # --------------------------------------------- (C) lm_train_families
+    t_phase = time.perf_counter()
+    fams = {}
+
+    def host(t):
+        return t.detach().float().cpu()
+
+    def trees_close(got, want, rtol, atol_of, what):
+        worst = 0.0
+        w = dict(paths(want))
+        for k, g in paths(got):
+            a, b = host(g), host(w[k])
+            atol = atol_of(b)
+            err = float((a - b).abs().max())
+            require(torch.allclose(a, b, rtol=rtol, atol=atol),
+                    f"(C) {what} {k}: card vs host {err} beyond rtol {rtol} "
+                    f"atol {atol}")
+            worst = max(worst, err)
+        return worst
+
+    def pair(scfg, lib):
+        hm = lib.init_params(scfg, 0, "cpu")
+        cm = lib.params_from_numpy(scfg, lib.params_to_numpy(hm), device)
+        return hm, cm
+
+    for arch in registry.ARCH_IDS:
+        entry = registry.get(arch)
+        scfg = entry.smoke()
+        lib = encdec if entry.is_encdec else lm
+        rng = np.random.default_rng(12)
+        F = (0 if entry.is_encdec or scfg.frontend == "none"
+             else scfg.frontend_tokens)
+        nb = {}
+        if entry.is_encdec or F:
+            nb["frontend_embeds"] = rng.standard_normal(
+                (2, scfg.n_frames if entry.is_encdec else F,
+                 scfg.d_model)).astype(np.float32)
+        nb["tokens"] = rng.integers(0, scfg.vocab_size, (2, 16 - F)).astype(
+            np.int32)
+        nb["labels"] = rng.integers(0, scfg.vocab_size, (2, 16)).astype(
+            np.int32)
+        hm, cm = pair(scfg, lib)
+        out = {}
+        for where, m in (("host", hm), ("card", cm)):
+            d = m.embed.device
+            out[where] = step_lib.value_and_grad(
+                m, {k: torch.from_numpy(v).to(d) for k, v in nb.items()})
+        (ht, hmet, hg), (ct, cmet, cg) = out["host"], out["card"]
+        loss_err = abs(float(ct) - float(ht))
+        require(loss_err <= LM_LOSS_RTOL * abs(float(ht)),
+                f"(C) {arch}: loss card {float(ct)} host {float(ht)}")
+        for k in hmet:
+            require(abs(float(cmet[k]) - float(hmet[k]))
+                    <= LM_LOSS_RTOL * abs(float(hmet[k])) + 1e-6,
+                    f"(C) {arch}: metric {k}")
+        row = {"loss": float(ht), "loss_abs_diff": loss_err,
+               "grad_max_abs_diff": trees_close(
+                   cg, hg, 0, lambda b: LM_GRAD_ATOL * float(b.abs().max()),
+                   f"{arch} grad")}
+        # both optimizers from the same weights on the host's gradients
+        for name, make in (("adamw", lambda: optim.adamw(
+                schedules.constant(1e-3))), ("adafactor", lambda: optim.
+                adafactor(schedules.constant(1e-3), min_dim_factored=32))):
+            upd = {}
+            for where, m in (("host", hm), ("card", cm)):
+                d = m.embed.device
+                p = tree_map(lambda t: t.detach().clone(),
+                             step_lib.param_tree(m))
+                opt = make()
+                upd[where], _ = opt.update(
+                    tree_map(lambda g: g.to(d), hg), opt.init(p), p,
+                    torch.zeros((), dtype=torch.int32, device=d))
+            row[f"{name}_params_max_abs_diff"] = trees_close(
+                upd["card"], upd["host"], OPT_RTOL, lambda b: OPT_ATOL,
+                f"{arch} {name} step")
+        fams[arch] = row
+
+    # granite: two microbatches, and the compressed step twice
+    gcfg = registry.get("granite-3-2b").smoke()
+    lr = 1e-3
+    nb = data_lib.SyntheticLM(data_lib.LMTaskConfig(
+        vocab_size=gcfg.vocab_size, seq_len=16, global_batch=4, seed=3))
+    gtree = lm.params_to_numpy(lm.init_params(gcfg, 0, "cpu"))
+    runs = {}
+    for where, d in (("host", torch.device("cpu")), ("card", dev)):
+        def batch(i):
+            return {k: torch.from_numpy(v).to(d)
+                    for k, v in nb.batch(i).items()}
+        m = lm.params_from_numpy(gcfg, gtree, d)
+        opt = optim.adamw(schedules.constant(lr))
+        st = step_lib.make_train_step(m, opt, num_microbatches=2)(
+            step_lib.init_state(m, opt), batch(0))
+        mb2 = (float(st[1]["loss"]), tree_map(host, st[0]["params"]))
+        m = lm.params_from_numpy(gcfg, gtree, d)
+        opt = optim.adamw(schedules.constant(lr))
+        st = step_lib.init_state(m, opt)
+        st["err"] = collectives.init_error_feedback(st["params"])
+        fn = make_dp_compressed_step(m, opt)
+        for i in range(2):
+            st, met = fn(st, batch(1 + i))
+        runs[where] = (mb2, (float(met["loss"]),
+                             tree_map(host, st["params"]),
+                             tree_map(host, st["err"])))
+    (hmb, hcs), (cmb, ccs) = runs["host"], runs["card"]
+    step_tol = lambda b: STEP_ATOL * lr
+    extra = {"microbatches_2": {
+        "loss_abs_diff": abs(cmb[0] - hmb[0]),
+        "params_max_abs_diff": trees_close(cmb[1], hmb[1], 0, step_tol,
+                                           "granite M=2 params")},
+        "compressed": {"loss_abs_diff": abs(ccs[0] - hcs[0]),
+                       "params_max_abs_diff": trees_close(
+                           ccs[1], hcs[1], 0, step_tol,
+                           "granite compressed params")}}
+    require(abs(cmb[0] - hmb[0]) <= LM_LOSS_RTOL * abs(hmb[0])
+            and abs(ccs[0] - hcs[0]) <= LM_LOSS_RTOL * abs(hcs[0]),
+            f"(C) granite M=2 / compressed losses {cmb[0]} {hmb[0]} "
+            f"{ccs[0]} {hcs[0]}")
+    flips, err_max = 0.0, 0.0
+    herr = dict(paths(hcs[2]))
+    for k, e in paths(ccs[2]):
+        diff = (e - herr[k]).abs()
+        one_step = 2 * max(float(e.abs().max()), float(herr[k].abs().max()))
+        require(bool((diff <= one_step + ERR_ATOL).all()),
+                f"(C) compressed error {k}: beyond one quantization step")
+        share = float((diff > ERR_ATOL).float().mean())
+        require(share <= ERR_FLIPS, f"(C) compressed error {k}: {share} "
+                f"of it beyond {ERR_ATOL}")
+        flips, err_max = max(flips, share), max(err_max, float(diff.max()))
+    extra["compressed"].update(err_share_beyond_atol=flips,
+                               err_max_abs_diff=err_max)
+    launches = {k: fn.launches for k, fn in counted.items()}
+    emit({"phase": "lm_train_families", "card": card,
+          "smoke_configs": fams, "granite": extra,
+          "tol": {"loss_rtol": LM_LOSS_RTOL, "grad_atol_of_leaf_max":
+                  LM_GRAD_ATOL, "opt": [OPT_RTOL, OPT_ATOL],
+                  "step_atol_of_lr": STEP_ATOL,
+                  "err": [ERR_ATOL, ERR_FLIPS]},
+          "ported_kernel_launches": launches,
+          "phase_wall_s": time.perf_counter() - t_phase})
+    require(not any(launches.values()),
+            f"(C) the training path launched a ported kernel: {launches}")
+    free()
+
+    # --------------------------------------------------- (D) lm_resume
+    t_phase = time.perf_counter()
+    rcfg = registry.get("granite-3-2b").smoke()
+
+    class Killed(Exception):
+        """A process killed at the start of a step."""
+
+    def make(name, steps, ckpt_every=100, resume_=False, hook=None):
+        t = Trainer(rcfg, None, optim.adamw(schedules.constant(2e-3)),
+                    data_lib.SyntheticLM(data_lib.LMTaskConfig(
+                        vocab_size=rcfg.vocab_size, seq_len=32,
+                        global_batch=4, seed=1)),
+                    TrainerConfig(steps=steps, log_every=4,
+                                  ckpt_every=ckpt_every,
+                                  ckpt_dir=str(pathlib.Path(ckpt_root) / name),
+                                  resume=resume_), device=device)
+        t.fault_hook = hook
+        return t
+
+    def at(hist, step):
+        return next(h["loss"] for h in hist if h["step"] == step)
+
+    n, kill, fault = resume["steps"], resume["kill"], resume["fault"]
+    cont = make("continuous", n)
+    full_hist = cont.run()
+
+    def kill_hook(step):
+        if step == kill:
+            raise Killed(f"killed at step {step}")
+    first = make("killed", n, resume["ckpt_every"], hook=kill_hook)
+    try:
+        first.run()
+        require(False, "(D) the scripted kill did not fire")
+    except Killed:
+        pass
+    second = make("killed", n, resume["ckpt_every"], resume_=True)
+    resumed_hist = second.run()
+    calls = []
+
+    def fault_hook(step):
+        if step == fault and not calls:
+            calls.append(step)
+            raise RuntimeError(f"scripted fault at step {step}")
+    recovered = make("fault", n, resume["ckpt_every"], hook=fault_hook)
+    fault_hist = recovered.run()
+    unscripted = {k: t.recoveries for k, t in
+                  (("continuous", cont), ("killed", first),
+                   ("resumed", second)) if t.recoveries}
+    require(not unscripted, f"(D) unscripted recoveries: {unscripted}")
+    require(calls == [fault] and [s for s, _ in recovered.recoveries]
+            == [fault], f"(D) recoveries {recovered.recoveries}")
+    require(second.start_step == kill, f"(D) resumed at {second.start_step}")
+
+    def held(a, b, what):
+        if a == b:
+            return "bit-identical"
+        require(abs(a - b) <= RESUME_RTOL * abs(b),
+                f"(D) {what}: {a} vs continuous {b}")
+        return f"rtol {RESUME_RTOL}"
+    want = at(full_hist, n)
+    launches = {k: fn.launches for k, fn in counted.items()}
+    emit({"phase": "lm_resume", "card": card, "arch": rcfg.name,
+          "steps": n, "continuous_losses": [h["loss"] for h in full_hist],
+          "kill_and_resume": {"killed_at": kill,
+                              "resumed_from": second.start_step,
+                              "loss": at(resumed_hist, n),
+                              "held_to": held(at(resumed_hist, n), want,
+                                              "resumed")},
+          "fault": {"scripted_at": fault,
+                    "recoveries": [list(r) for r in recovered.recoveries],
+                    "loss": at(fault_hist, n),
+                    "held_to": held(at(fault_hist, n), want, "recovered")},
+          "unscripted_recoveries": 0,
+          "ported_kernel_launches": launches,
+          "phase_wall_s": time.perf_counter() - t_phase})
+    require(not any(launches.values()),
+            f"(D) the training path launched a ported kernel: {launches}")
+    del cont, first, second, recovered
+    free()
 
 
 def main() -> int:
@@ -2808,6 +3296,11 @@ def main() -> int:
     # ---------------- (x)-(z) the model and serving stack at full width
     torch.cuda.empty_cache()
     serve_phases(device=DEVICE, card=card)
+
+    # ------------------ (A)-(D) training of the LM stack at full width
+    torch.cuda.empty_cache()
+    lm_train_phases(device=DEVICE, card=card,
+                    ckpt_root=build.BUILD_DIR / "ckpt" / "lm")
 
     emit({"kernels": [mm, wc, fa, em1, sdk]})
     print(card, flush=True)

@@ -4,6 +4,7 @@ attention-logit softcap 50, final-logit softcap 30, post-block RMSNorms,
 tied embeddings, sqrt(d) embedding scaling, GeGLU MLP, head_dim=256.
 """
 
+from repro_torch.configs.shapes import FULL_ATTN_SHAPES
 from repro_torch.models.common import BlockCfg, ModelCfg
 
 ARCH_ID = "gemma2-2b"
@@ -18,6 +19,8 @@ CONFIG = ModelCfg(
     act_fn="gelu", rope_theta=10_000.0, tie_embeddings=True, emb_scale=True,
     attn_softcap=50.0, final_softcap=30.0,
 )
+
+SHAPES = FULL_ATTN_SHAPES
 
 
 def smoke() -> ModelCfg:

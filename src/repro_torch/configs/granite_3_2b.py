@@ -3,6 +3,7 @@
 49,408 (multiple of 256).  Tied embeddings, SwiGLU.
 """
 
+from repro_torch.configs.shapes import FULL_ATTN_SHAPES
 from repro_torch.models.common import BlockCfg, ModelCfg
 
 ARCH_ID = "granite-3-2b"
@@ -14,6 +15,8 @@ CONFIG = ModelCfg(
     pattern=(BlockCfg(kind="attn", d_ff=8192),), n_repeats=40,
     act_fn="silu", rope_theta=10_000.0, tie_embeddings=True,
 )
+
+SHAPES = FULL_ATTN_SHAPES
 
 
 def smoke() -> ModelCfg:

@@ -5,6 +5,7 @@ d_ff=2048, top-8) and 1 shared expert, vocab=163,840, head_dim=112
 (64x112=7168).
 """
 
+from repro_torch.configs.shapes import FULL_ATTN_SHAPES
 from repro_torch.models.common import BlockCfg, ModelCfg, MoECfg
 
 ARCH_ID = "kimi-k2-1t-a32b"
@@ -20,6 +21,8 @@ CONFIG = ModelCfg(
     pattern=(BlockCfg(kind="attn", moe=_MOE),), n_repeats=60,
     act_fn="silu", rope_theta=50_000.0,
 )
+
+SHAPES = FULL_ATTN_SHAPES
 
 
 def smoke() -> ModelCfg:

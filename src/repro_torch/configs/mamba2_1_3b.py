@@ -4,6 +4,7 @@ d_inner=4096, 64 heads x head_dim 64, no MLP (pure Mamba-2 block).
 Logical vocab 50,280 padded to 50,432.
 """
 
+from repro_torch.configs.shapes import SUBQUAD_SHAPES
 from repro_torch.models.common import BlockCfg, ModelCfg, SSDCfg
 
 ARCH_ID = "mamba2-1.3b"
@@ -17,6 +18,8 @@ CONFIG = ModelCfg(
     pattern=(BlockCfg(kind="ssd", ssd=_SSD),), n_repeats=48,
     act_fn="silu",
 )
+
+SHAPES = SUBQUAD_SHAPES
 
 
 def smoke() -> ModelCfg:

@@ -3,6 +3,7 @@
 padded to 122,880 (multiple of 256).
 """
 
+from repro_torch.configs.shapes import FULL_ATTN_SHAPES
 from repro_torch.models.common import BlockCfg, ModelCfg
 
 ARCH_ID = "minicpm-2b"
@@ -14,6 +15,8 @@ CONFIG = ModelCfg(
     pattern=(BlockCfg(kind="attn", d_ff=5760),), n_repeats=40,
     act_fn="silu", rope_theta=10_000.0, tie_embeddings=True,
 )
+
+SHAPES = FULL_ATTN_SHAPES
 
 
 def smoke() -> ModelCfg:

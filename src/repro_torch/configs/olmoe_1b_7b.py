@@ -3,6 +3,7 @@
 vocab 50,304, head_dim=128.
 """
 
+from repro_torch.configs.shapes import FULL_ATTN_SHAPES
 from repro_torch.models.common import BlockCfg, ModelCfg, MoECfg
 
 ARCH_ID = "olmoe-1b-7b"
@@ -16,6 +17,8 @@ CONFIG = ModelCfg(
     pattern=(BlockCfg(kind="attn", moe=_MOE),), n_repeats=16,
     act_fn="silu", rope_theta=10_000.0, qk_norm=True,
 )
+
+SHAPES = FULL_ATTN_SHAPES
 
 
 def smoke() -> ModelCfg:

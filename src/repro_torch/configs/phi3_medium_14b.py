@@ -2,6 +2,7 @@
 [arXiv:2404.14219; unverified].  RoPE + SwiGLU + GQA, vocab 100,352.
 """
 
+from repro_torch.configs.shapes import FULL_ATTN_SHAPES
 from repro_torch.models.common import BlockCfg, ModelCfg
 
 ARCH_ID = "phi3-medium-14b"
@@ -13,6 +14,8 @@ CONFIG = ModelCfg(
     pattern=(BlockCfg(kind="attn", d_ff=17_920),), n_repeats=40,
     act_fn="silu", rope_theta=10_000.0,
 )
+
+SHAPES = FULL_ATTN_SHAPES
 
 
 def smoke() -> ModelCfg:

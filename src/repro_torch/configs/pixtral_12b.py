@@ -5,6 +5,7 @@ stub: 256 precomputed patch embeddings per sample are prepended to the
 token embeddings.
 """
 
+from repro_torch.configs.shapes import FULL_ATTN_SHAPES
 from repro_torch.models.common import BlockCfg, ModelCfg
 
 ARCH_ID = "pixtral-12b"
@@ -17,6 +18,8 @@ CONFIG = ModelCfg(
     act_fn="silu", rope_theta=1e6,
     frontend="patches", frontend_tokens=256,
 )
+
+SHAPES = FULL_ATTN_SHAPES
 
 
 def smoke() -> ModelCfg:

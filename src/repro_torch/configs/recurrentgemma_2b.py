@@ -5,6 +5,7 @@ with a (rec, rec) prefix = 26 layers.  head_dim=256, d_rnn=2560,
 vocab=256,000, tied + scaled embeddings, GeGLU.
 """
 
+from repro_torch.configs.shapes import SUBQUAD_SHAPES
 from repro_torch.models.common import BlockCfg, ModelCfg, RGLRUCfg
 
 ARCH_ID = "recurrentgemma-2b"
@@ -21,6 +22,8 @@ CONFIG = ModelCfg(
     pattern=(_REC, _REC, _ATT), n_repeats=8,
     act_fn="gelu", rope_theta=10_000.0, tie_embeddings=True, emb_scale=True,
 )
+
+SHAPES = SUBQUAD_SHAPES
 
 
 def smoke() -> ModelCfg:

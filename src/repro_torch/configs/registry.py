@@ -1,10 +1,9 @@
-"""Architecture registry: arch id -> config, smoke config and family.
+"""Architecture registry: ``--arch <id>`` resolution for every launcher.
 
-Each entry carries the exact assigned config and a reduced smoke config;
-the model code that runs them is :mod:`repro_torch.models` and the
-serving launcher :mod:`repro_torch.launch.serve`.  The JAX package's
-entries also carry dry-run shape cells and input specs, which belong to
-its training and dry-run launchers and are not ported.
+Each entry carries the exact assigned config, its shape cells (with the
+long_500k skips applied per family), a reduced smoke config and the
+abstract input specs of a cell; the model code that runs them is
+:mod:`repro_torch.models`, the launchers :mod:`repro_torch.launch`.
 """
 
 from __future__ import annotations
@@ -16,6 +15,8 @@ from repro_torch.configs import (gemma2_2b, granite_3_2b, kimi_k2_1t_a32b,
                                  mamba2_1_3b, minicpm_2b, olmoe_1b_7b,
                                  phi3_medium_14b, pixtral_12b,
                                  recurrentgemma_2b, whisper_base)
+from repro_torch.configs.shapes import (ShapeSpec, encdec_input_specs,
+                                        lm_input_specs)
 from repro_torch.models.encdec import EncDecCfg
 
 
@@ -23,12 +24,18 @@ from repro_torch.models.encdec import EncDecCfg
 class ArchEntry:
     arch_id: str
     config: object                    # ModelCfg | EncDecCfg
+    shapes: dict[str, ShapeSpec]
     smoke: Callable[[], object]
     family: str
 
     @property
     def is_encdec(self) -> bool:
         return isinstance(self.config, EncDecCfg)
+
+    def input_specs(self, shape: ShapeSpec, microbatch: int | None = None,
+                    cfg=None):
+        fn = encdec_input_specs if self.is_encdec else lm_input_specs
+        return fn(cfg if cfg is not None else self.config, shape, microbatch)
 
 
 _MODULES = {
@@ -44,8 +51,8 @@ REGISTRY: dict[str, ArchEntry] = {}
 for family, mods in _MODULES.items():
     for mod in mods:
         REGISTRY[mod.ARCH_ID] = ArchEntry(
-            arch_id=mod.ARCH_ID, config=mod.CONFIG, smoke=mod.smoke,
-            family=family)
+            arch_id=mod.ARCH_ID, config=mod.CONFIG, shapes=dict(mod.SHAPES),
+            smoke=mod.smoke, family=family)
 
 ARCH_IDS = sorted(REGISTRY)
 
@@ -54,3 +61,8 @@ def get(arch_id: str) -> ArchEntry:
     if arch_id not in REGISTRY:
         raise KeyError(f"unknown arch {arch_id!r}; available: {ARCH_IDS}")
     return REGISTRY[arch_id]
+
+
+def all_cells() -> list[tuple[str, str]]:
+    """Every assigned (arch, shape) pair, skips applied."""
+    return [(a, s) for a in ARCH_IDS for s in REGISTRY[a].shapes]

@@ -4,6 +4,7 @@ encoder sees 1500 precomputed frame embeddings.  Logical vocab 51,865
 padded to 52,224.  The decoder's published context (``n_text_ctx``) is 448.
 """
 
+from repro_torch.configs.shapes import FULL_ATTN_SHAPES
 from repro_torch.models.encdec import EncDecCfg
 
 ARCH_ID = "whisper-base"
@@ -15,6 +16,8 @@ CONFIG = EncDecCfg(
     n_enc_layers=6, n_dec_layers=6, n_frames=1500,
     act_fn="gelu",
 )
+
+SHAPES = FULL_ATTN_SHAPES
 
 
 def smoke() -> EncDecCfg:

@@ -8,8 +8,11 @@ embeddings, and cross-attention none, as in the JAX package.  The
 model-zoo frontend also lowers :class:`EncDecCfg` onto the simulator.
 
 Entry points, with the reference's names: ``init_params`` /
-``params_from_numpy``, ``encode``, ``decode_train``, ``init_cache``,
-``precompute_cross_cache`` and ``decode_step``.
+``params_from_numpy`` (and the inverse ``params_to_numpy``, with
+``param_layout``), ``encode``, ``decode_train``, ``loss_fn``,
+``init_cache``, ``precompute_cross_cache`` and ``decode_step``.  With
+``cfg.remat == "block"`` a forward that records gradients recomputes each
+layer in the backward, as the reference's ``jax.checkpoint`` does.
 """
 
 from __future__ import annotations
@@ -18,13 +21,16 @@ import dataclasses
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import resolve_device
 from repro_torch.models.common import BlockCfg, ModelCfg
 from repro_torch.models.layers import (MLP, Attention, Params, attention,
                                        attention_decode, dt, init_modules,
-                                       load_tree, matmul_f32, mlp,
-                                       rms_norm)
+                                       layout_to_numpy, load_tree,
+                                       matmul_f32, mlp, rms_norm,
+                                       stacked_layout)
+from repro_torch.models.lm import sharded_xent
 
 
 @dataclasses.dataclass(frozen=True)
@@ -126,6 +132,22 @@ def params_from_numpy(cfg: EncDecCfg, tree: dict,
     return model
 
 
+def param_layout(model: EncDec) -> dict:
+    """The reference's parameter tree of ``model``: each leaf the
+    parameter that holds it or, under ``enc`` and ``dec``, the tuple of
+    the layers' parameters that the reference stacks on a leading axis."""
+    tree: dict = dict(model.named_parameters(recurse=False))
+    tree["enc"] = stacked_layout(model.enc)
+    tree["dec"] = stacked_layout(model.dec)
+    return tree
+
+
+def params_to_numpy(model: EncDec) -> dict:
+    """The inverse of :func:`params_from_numpy` (float32 numpy arrays,
+    ``enc``/``dec`` stacked)."""
+    return layout_to_numpy(param_layout(model))
+
+
 def _layer(tree: dict, i: int) -> dict:
     return {k: _layer(v, i) if isinstance(v, dict) else v[i]
             for k, v in tree.items()}
@@ -137,18 +159,42 @@ def _embed(model: EncDec, tokens: torch.Tensor) -> torch.Tensor:
     return model.embed[tokens].to(dt(model.cfg.compute_dtype))
 
 
+def _layers(fn, h, layers, cfg: EncDecCfg, *args):
+    """``h`` through ``fn(h, p, cfg, *args)`` for each layer ``p``, each
+    recomputed in the backward under ``cfg.remat == "block"``."""
+    remat = cfg.remat == "block" and torch.is_grad_enabled()
+    for p in layers:
+        h = (checkpoint(fn, h, p, cfg, *args, use_reentrant=False) if remat
+             else fn(h, p, cfg, *args))
+    return h
+
+
+def _enc_layer(h, p: EncBlock, cfg: EncDecCfg, positions):
+    mc = cfg.mc
+    x = rms_norm(h, p.norm1, cfg.norm_eps)
+    h = h + attention(x, p.attn, _BLK, mc, positions=positions,
+                      causal=False)
+    x = rms_norm(h, p.norm2, cfg.norm_eps)
+    return h + mlp(x, p.mlp, mc)
+
+
+def _dec_layer(h, p: DecBlock, cfg: EncDecCfg, positions, enc_out):
+    mc = cfg.mc
+    x = rms_norm(h, p.norm1, cfg.norm_eps)
+    h = h + attention(x, p.attn, _BLK, mc, positions=positions)
+    x = rms_norm(h, p.norm_x, cfg.norm_eps)
+    h = h + attention(x, p.xattn, _BLK, mc, positions=positions,
+                      causal=False, xkv=enc_out)
+    x = rms_norm(h, p.norm2, cfg.norm_eps)
+    return h + mlp(x, p.mlp, mc)
+
+
 def encode(model: EncDec, frames: torch.Tensor) -> torch.Tensor:
     """frames: (B, n_frames, d) precomputed embeddings (frontend stub)."""
     cfg = model.cfg
-    mc = cfg.mc
     h = frames.to(dt(cfg.compute_dtype))
     positions = torch.arange(h.shape[1], device=h.device)
-    for p in model.enc:
-        x = rms_norm(h, p.norm1, cfg.norm_eps)
-        h = h + attention(x, p.attn, _BLK, mc, positions=positions,
-                          causal=False)
-        x = rms_norm(h, p.norm2, cfg.norm_eps)
-        h = h + mlp(x, p.mlp, mc)
+    h = _layers(_enc_layer, h, model.enc, cfg, positions)
     return rms_norm(h, model.enc_norm, cfg.norm_eps)
 
 
@@ -156,17 +202,9 @@ def decode_train(model: EncDec, enc_out: torch.Tensor,
                  tokens: torch.Tensor) -> torch.Tensor:
     """The decoder over a whole token sequence -> final hidden states."""
     cfg = model.cfg
-    mc = cfg.mc
     h = _embed(model, tokens)
     positions = torch.arange(h.shape[1], device=h.device)
-    for p in model.dec:
-        x = rms_norm(h, p.norm1, cfg.norm_eps)
-        h = h + attention(x, p.attn, _BLK, mc, positions=positions)
-        x = rms_norm(h, p.norm_x, cfg.norm_eps)
-        h = h + attention(x, p.xattn, _BLK, mc, positions=positions,
-                          causal=False, xkv=enc_out)
-        x = rms_norm(h, p.norm2, cfg.norm_eps)
-        h = h + mlp(x, p.mlp, mc)
+    h = _layers(_dec_layer, h, model.dec, cfg, positions, enc_out)
     return rms_norm(h, model.dec_norm, cfg.norm_eps)
 
 
@@ -174,6 +212,16 @@ def logits_from_h(model: EncDec, h: torch.Tensor) -> torch.Tensor:
     """float32 logits against the tied embedding."""
     B, S, d = h.shape
     return matmul_f32(h.reshape(B * S, d), model.embed.t()).reshape(B, S, -1)
+
+
+def loss_fn(model: EncDec, batch: dict, *, z_weight: float = 1e-4):
+    """batch: {"frontend_embeds" (B, n_frames, d), "tokens" (B, S),
+    "labels" (B, S)[, "weights"]} -> (total loss, {"loss", "z_loss"})."""
+    enc_out = encode(model, batch["frontend_embeds"])
+    h = decode_train(model, enc_out, batch["tokens"])
+    loss, z_loss = sharded_xent(logits_from_h(model, h), batch["labels"],
+                                batch.get("weights"))
+    return loss + z_weight * z_loss, {"loss": loss, "z_loss": z_loss}
 
 
 # ----------------------------------------------------------------- decoding

@@ -14,8 +14,10 @@ float32 products of the (possibly bfloat16) operands, and ``rms_norm``,
 scaled by ``1 / sqrt(hd)`` as a float32 product, as XLA compiles a
 division by a constant (and as CUDA divides a tensor by a Python scalar).
 
-The serving path reaches no Pallas kernel in the reference, so nothing
-here launches a kernel of :mod:`repro_torch.kernels`.
+Training differentiates these functions with autograd (the reference's
+``jax.value_and_grad``).  The serving and training paths reach no Pallas
+kernel in the reference, so nothing here launches a kernel of
+:mod:`repro_torch.kernels`.
 """
 
 from __future__ import annotations
@@ -107,6 +109,69 @@ def load_tree(module: nn.Module, tree: dict) -> None:
         dst.copy_(src)
 
 
+def module_tree(module: nn.Module) -> dict:
+    """``module``'s parameters as the reference's nested dict: each
+    parameter and each child module by its attribute name."""
+    tree: dict = dict(module.named_parameters(recurse=False))
+    tree.update((name, module_tree(child))
+                for name, child in module.named_children())
+    return tree
+
+
+def stacked_layout(modules) -> dict:
+    """The reference's subtree of same-shaped ``modules`` stacked on a
+    leading axis, each leaf the tuple of the modules' parameters of that
+    name (a parameter layout, see ``lm.param_layout``)."""
+    def zip_trees(trees):
+        return {k: zip_trees([t[k] for t in trees])
+                if isinstance(v, dict) else tuple(t[k] for t in trees)
+                for k, v in trees[0].items()}
+    return zip_trees([module_tree(m) for m in modules])
+
+
+def map_layout(fn, layout: dict) -> dict:
+    """``fn`` over the leaves of a parameter layout: each a parameter, or
+    the tuple of the parameters of a stacked leaf."""
+    return {k: map_layout(fn, v) if isinstance(v, dict) else fn(v)
+            for k, v in layout.items()}
+
+
+def layout_to_numpy(layout: dict) -> dict:
+    """The values of a parameter layout as float32 numpy arrays, stacked
+    leaves stacked on their leading axis (bfloat16 widens exactly)."""
+    def one(x):
+        t = torch.stack(x) if isinstance(x, tuple) else x
+        return t.detach().float().cpu().numpy()
+    return map_layout(one, layout)
+
+
+class _MatmulF32(torch.autograd.Function):
+    """``torch.mm(a, b, out_dtype=float32)`` with a backward: autograd has
+    no derivative for that overload (``aten::mm.dtype``).
+
+    JAX transposes the reference's ``preferred_element_type=float32``
+    einsum into a product of the float32 cotangent with the other operand
+    computed in float32, then converts it to the operand's dtype
+    (``dot_general``'s transpose rule); the backward here computes the
+    same, as the CPU branch of :func:`matmul_f32` does through
+    autograd."""
+
+    @staticmethod
+    def forward(ctx, a, b):
+        ctx.save_for_backward(a, b)
+        return torch.mm(a, b, out_dtype=torch.float32)
+
+    @staticmethod
+    def backward(ctx, g):
+        a, b = ctx.saved_tensors
+        ga = gb = None
+        if ctx.needs_input_grad[0]:
+            ga = (g @ b.float().t()).to(a.dtype)
+        if ctx.needs_input_grad[1]:
+            gb = (a.float().t() @ g).to(b.dtype)
+        return ga, gb
+
+
 def matmul_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """(M, K) @ (K, N) with float32 output (the reference's
     ``preferred_element_type=float32``) without a float32 copy of ``b``:
@@ -114,7 +179,7 @@ def matmul_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     if a.dtype == torch.float32 and b.dtype == torch.float32:
         return a @ b
     if a.is_cuda:
-        return torch.mm(a, b, out_dtype=torch.float32)
+        return _MatmulF32.apply(a, b)
     return a.float() @ b.float()
 
 

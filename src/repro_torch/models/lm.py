@@ -8,14 +8,21 @@ package stacks the repeats on a leading axis and scans over it).
 
 Entry points, with the reference's names:
   init_params(cfg, seed, device) / params_from_numpy(cfg, tree, device)
+  params_to_numpy(model) / param_layout(model)  -> the reference's tree
   init_cache(cfg, B, max_len, device)   -> one cache dict per block
   forward(model, tokens)                -> (final hidden states, aux)
   logits_from_h(model, h)               -> float32 logits
+  loss_fn(model, batch)                 -> (total loss, metrics)
   prefill(model, tokens)                -> (last-position logits, cache)
   decode_step(model, tokens, cache, pos) -> (logits, cache)
 
 A block's decode cache is ``{"k", "v"}`` (B, W, K, hd) for attention,
 ``{"conv", "state"}`` for SSD and ``{"conv", "h"}`` for RG-LRU.
+
+With ``cfg.remat == "block"`` a forward that records gradients
+recomputes each block's activations in the backward
+(``torch.utils.checkpoint``), as the reference's ``jax.checkpoint`` of
+its scan body does; the numbers are the same either way.
 """
 
 from __future__ import annotations
@@ -25,15 +32,17 @@ from typing import Any, Optional
 import numpy as np
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import resolve_device
 from repro_torch.models import moe as moe_lib
 from repro_torch.models.common import BlockCfg, ModelCfg
 from repro_torch.models.layers import (MLP, RGLRU, SSD, Attention, Params,
                                        attention, attention_decode, dt,
-                                       init_modules, load_tree, matmul_f32,
-                                       mlp, rglru_mixer, rms_norm, softcap,
-                                       ssd_mixer)
+                                       init_modules, layout_to_numpy,
+                                       load_tree, matmul_f32, mlp,
+                                       module_tree, rglru_mixer, rms_norm,
+                                       softcap, ssd_mixer, stacked_layout)
 
 AUX_SUM = ("moe_lb_loss", "moe_z_loss", "dropped_frac")
 AUX_MAX = ("max_expert_load",)
@@ -115,6 +124,31 @@ def params_from_numpy(cfg: ModelCfg, tree: dict,
     for block, sub in zip(model.blocks, _block_slices(cfg, tree)):
         load_tree(block, sub)
     return model
+
+
+def param_layout(model: LM) -> dict:
+    """The reference's parameter tree of ``model``: each leaf the
+    parameter that holds it or, under ``pattern``, the tuple of the
+    ``n_repeats`` blocks' parameters that the reference stacks on a
+    leading axis."""
+    cfg = model.cfg
+    blocks = list(model.blocks)
+    P, J, R = len(cfg.prefix), len(cfg.pattern), cfg.n_repeats
+    tree: dict = dict(model.named_parameters(recurse=False))
+    tree.update((f"pre{i}", module_tree(blocks[i])) for i in range(P))
+    if R:
+        tree["pattern"] = {f"blk{j}": stacked_layout(blocks[P + j:P + J * R:J])
+                           for j in range(J)}
+    tree.update((f"suf{i}", module_tree(b))
+                for i, b in enumerate(blocks[P + J * R:]))
+    return tree
+
+
+def params_to_numpy(model: LM) -> dict:
+    """The inverse of :func:`params_from_numpy`: the reference's tree,
+    pattern leaves stacked on the leading repeat axis, as float32 numpy
+    arrays (bfloat16 leaves widened exactly)."""
+    return layout_to_numpy(param_layout(model))
 
 
 # --------------------------------------------------------------------------
@@ -249,8 +283,13 @@ def forward(model: LM, tokens: torch.Tensor,
     h = embed_tokens(model, tokens, frontend_embeds)
     positions = torch.arange(h.shape[1], device=h.device)
     aux = _zero_aux(h.device)
+    remat = cfg.remat == "block" and torch.is_grad_enabled()
     for p, blk in _blocks(model):
-        h, _, a = apply_block(h, p, blk, cfg, positions=positions)
+        if remat:
+            h, _, a = checkpoint(apply_block, h, p, blk, cfg,
+                                 positions=positions, use_reentrant=False)
+        else:
+            h, _, a = apply_block(h, p, blk, cfg, positions=positions)
         aux = _merge_aux(aux, a)
     return rms_norm(h, model.final_norm, cfg.norm_eps), aux
 
@@ -261,6 +300,41 @@ def logits_from_h(model: LM, h: torch.Tensor) -> torch.Tensor:
     B, S, d = h.shape
     logits = matmul_f32(h.reshape(B * S, d), w).reshape(B, S, -1)
     return softcap(logits, cfg.final_softcap)
+
+
+def sharded_xent(logits: torch.Tensor, labels: torch.Tensor,
+                 weights: Optional[torch.Tensor] = None):
+    """(mean cross entropy, mean squared log-normaliser) of float32
+    ``logits`` (B, S, V) against ``labels`` (B, S), weighted.  The label's
+    log-likelihood is a gather where the reference sums a one-hot product:
+    that sum has one non-zero term, so both are exact."""
+    logits = logits.float()
+    lse = torch.logsumexp(logits, dim=-1)
+    ll = logits.gather(-1, labels.long()[..., None])[..., 0]
+    nll = lse - ll
+    if weights is None:
+        weights = torch.ones_like(nll)
+    denom = torch.clamp(weights.sum(), min=1.0)
+    loss = (nll * weights).sum() / denom
+    z_loss = (lse.square() * weights).sum() / denom
+    return loss, z_loss
+
+
+def loss_fn(model: LM, batch: dict, *, z_weight: float = 1e-4):
+    """batch: {"tokens" (B, S'), "labels" (B, S)[, "frontend_embeds"]
+    [, "weights"]}.  Returns (total loss, metrics): the cross entropy plus
+    ``z_weight`` times the z-loss and, with MoE blocks, the router's
+    load-balance and z terms at the first MoE block's weights."""
+    cfg = model.cfg
+    h, aux = forward(model, batch["tokens"], batch.get("frontend_embeds"))
+    logits = logits_from_h(model, h)
+    loss, z_loss = sharded_xent(logits, batch["labels"], batch.get("weights"))
+    total = loss + z_weight * z_loss
+    m = next((b.moe for b in cfg.all_blocks() if b.moe is not None), None)
+    if m is not None:
+        total = (total + m.router_aux_weight * aux["moe_lb_loss"]
+                 + m.router_z_weight * aux["moe_z_loss"])
+    return total, {"loss": loss, "z_loss": z_loss, **aux}
 
 
 def prefill(model: LM, tokens: torch.Tensor,

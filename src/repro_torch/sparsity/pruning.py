@@ -17,22 +17,7 @@ from typing import Callable
 import numpy as np
 import torch
 
-
-def _tree_map(fn, tree, *rest):
-    if isinstance(tree, dict):
-        return {k: _tree_map(fn, tree[k], *(r[k] for r in rest))
-                for k in sorted(tree)}
-    if isinstance(tree, (list, tuple)):
-        return type(tree)(_tree_map(fn, *xs) for xs in zip(tree, *rest))
-    return fn(tree, *rest)
-
-
-def _tree_leaves(tree) -> list:
-    if isinstance(tree, dict):
-        return [x for k in sorted(tree) for x in _tree_leaves(tree[k])]
-    if isinstance(tree, (list, tuple)):
-        return [x for v in tree for x in _tree_leaves(v)]
-    return [tree]
+from repro_torch.tree import tree_leaves, tree_map
 
 
 def _kept(n: int, sparsity) -> int:
@@ -61,16 +46,16 @@ def magnitude_prune_masks(params, sparsity, *, min_size: int = 64):
         mask = torch.zeros(n, dtype=torch.float32, device=p.device)
         mask[order] = keep
         return mask.reshape(p.shape)
-    return _tree_map(one, params)
+    return tree_map(one, params)
 
 
 def apply_masks(params, masks):
-    return _tree_map(lambda p, m: (p.to(torch.float32) * m).to(p.dtype),
+    return tree_map(lambda p, m: (p.to(torch.float32) * m).to(p.dtype),
                      params, masks)
 
 
 def weight_sparsity(params, masks=None) -> float:
-    leaves = _tree_leaves(masks if masks is not None else params)
+    leaves = tree_leaves(masks if masks is not None else params)
     nz = sum(int((m != 0).sum()) for m in leaves)
     tot = sum(m.numel() for m in leaves)
     return 1.0 - nz / max(tot, 1)

@@ -14,7 +14,9 @@ in order) under its path names — a dict entry is ``['name']``, a sequence
 entry ``[i]``, nested entries are joined by ``/`` — and stored with ``/``
 replaced by ``|``: the trainer's ``{"params": [w0, w1], ...}`` saves
 ``['params']|[0]`` and ``['params']|[1]``.  Tensors are saved from the
-host and restored onto the device of the matching leaf of ``like_state``.
+host and restored onto the device of the matching leaf of ``like_state``;
+bfloat16 tensors are stored as the JAX package stores them, as 2-byte
+void entries.
 """
 
 from __future__ import annotations
@@ -56,7 +58,12 @@ def _unflatten(like, leaves):
 
 def _to_host(v) -> np.ndarray:
     if isinstance(v, torch.Tensor):
-        return v.detach().to("cpu").numpy()
+        v = v.detach().to("cpu")
+        if v.dtype == torch.bfloat16:
+            # numpy has no bfloat16: the JAX package's npz holds its raw
+            # 2-byte words as void ("|V2") entries, and so does this one
+            return v.view(torch.int16).numpy().view("V2")
+        return v.numpy()
     return np.asarray(v)
 
 
@@ -143,8 +150,9 @@ def restore(ckpt_dir: str, like_state, *, step: int | None = None):
         for k, like in _flatten(like_state):
             a = data[_npz_key(k)]
             if isinstance(like, torch.Tensor):
-                out.append(torch.from_numpy(a).to(device=like.device,
-                                                  dtype=like.dtype))
+                t = (torch.from_numpy(a.view(np.int16)).view(torch.bfloat16)
+                     if a.dtype == np.dtype("V2") else torch.from_numpy(a))
+                out.append(t.to(device=like.device, dtype=like.dtype))
             else:
                 dt = np.asarray(like).dtype
                 out.append(a.astype(dt) if a.dtype != dt else a)

@@ -1,0 +1,156 @@
+"""Train and serve step builders (PyTorch port of ``repro.train.step``).
+
+A model's parameters are modules (one per block); the optimizer and the
+checkpoints see the reference's tree, in which each ``pattern`` (or
+``enc`` / ``dec``) leaf holds every repeat of a block stacked on a
+leading axis.  :func:`param_tree` builds that tree over the model's own
+storage, so an update of the tree is an update of the model.
+
+``make_train_step`` follows the reference on both of its paths.  With one
+microbatch the gradients are those of the parameters, in their dtype, so
+gradient clipping rounds them to bfloat16 for a bfloat16 model.  With
+``M > 1`` microbatches, gradients accumulate in ``grad_accum_dtype``
+(float32 by default) and are divided by ``M``.  The reference's
+``state_spec_tree`` (sharding specs) has no counterpart: one card has no
+mesh.
+"""
+
+from __future__ import annotations
+
+from typing import Callable
+
+import torch
+
+from repro_torch.models import encdec, lm
+from repro_torch.models.encdec import EncDec, EncDecCfg
+from repro_torch.models.layers import dt, map_layout
+from repro_torch.train.optim import Optimizer
+from repro_torch.train.schedules import f32_reciprocal
+from repro_torch.tree import tree_map
+
+
+def _lib(model):
+    return encdec if isinstance(model, EncDec) else lm
+
+
+@torch.no_grad()
+def _share(x):
+    """A layout leaf as one tensor: a stacked leaf's parameters become
+    views of one new (R, ...) tensor, which is returned."""
+    if not isinstance(x, tuple):
+        return x
+    stacked = torch.stack(x)
+    for p, view in zip(x, stacked):
+        p.data = view
+    return stacked
+
+
+def param_tree(model) -> dict:
+    """The reference's parameter tree over ``model``'s storage, every
+    parameter trainable.  On the first call each stacked leaf's block
+    parameters are moved into one (R, ...) tensor and become views of it;
+    later calls return the same tree.  Place the model on its device
+    first: ``Module.to`` would give the parameters storage of their own."""
+    tree = getattr(model, "_param_tree", None)
+    if tree is None:
+        model.requires_grad_(True)
+        tree = map_layout(_share, _lib(model).param_layout(model))
+        model._param_tree = tree
+    return tree
+
+
+def value_and_grad(model, batch: dict):
+    """(total loss, metrics, gradients) of the model's ``loss_fn`` on
+    ``batch``: the gradients in the reference's tree, each in its
+    parameter's dtype, stacked leaves stacked."""
+    param_tree(model)                   # every parameter trainable
+    params = list(model.parameters())
+    total, metrics = _lib(model).loss_fn(model, batch)
+    grads = dict(zip(params, torch.autograd.grad(total, params,
+                                                 materialize_grads=True)))
+
+    def gather(x):
+        if isinstance(x, tuple):
+            return torch.stack([grads.pop(p) for p in x])
+        return grads.pop(x)
+    layout = _lib(model).param_layout(model)
+    return (total.detach(), {k: v.detach() for k, v in metrics.items()},
+            map_layout(gather, layout))
+
+
+def make_train_step(model, optimizer: Optimizer, *,
+                    num_microbatches: int = 1,
+                    grad_accum_dtype: str | None = None) -> Callable:
+    """Returns ``train_step(state, batch) -> (state, metrics)``.
+
+    ``state`` is :func:`init_state`'s ``{"params", "opt", "step"}`` for
+    this ``model``; batch leaves are tensors on its device with a leading
+    global batch dim divisible by ``num_microbatches``.  The state's
+    tensors are updated in place."""
+    params = param_tree(model)
+    M = num_microbatches
+
+    def train_step(state, batch):
+        if state["params"] is not params:
+            raise ValueError("state['params'] is not this model's "
+                             "param_tree; build it with init_state")
+        if M == 1:
+            _, metrics, grads = value_and_grad(model, batch)
+        else:
+            acc = dt(grad_accum_dtype or "float32")
+            grads = tree_map(lambda p: torch.zeros(p.shape, dtype=acc,
+                                                   device=p.device), params)
+            metrics = None
+            for i in range(M):
+                mb = {k: v.reshape((M, v.shape[0] // M) + v.shape[1:])[i]
+                      for k, v in batch.items()}
+                _, m, g = value_and_grad(model, mb)
+                tree_map(lambda a, b: a.add_(b.to(a.dtype)), grads, g)
+                metrics = m if metrics is None else {
+                    k: metrics[k] + m[k] for k in metrics}
+            # XLA divides by the constant M as a product with 1/M
+            grads = tree_map(lambda g: g * f32_reciprocal(M), grads)
+            metrics = {k: v * f32_reciprocal(M) for k, v in metrics.items()}
+
+        new_params, new_opt = optimizer.update(
+            grads, state["opt"], params, state["step"])
+        return ({"params": new_params, "opt": new_opt,
+                 "step": state["step"] + 1}, metrics)
+
+    return train_step
+
+
+def make_prefill_step(cfg) -> Callable:
+    """``step(model, batch) -> (last-position logits, cache or encoder
+    output)``."""
+    if isinstance(cfg, EncDecCfg):
+        @torch.no_grad()
+        def step(model, batch):
+            enc_out = encdec.encode(model, batch["frontend_embeds"])
+            h = encdec.decode_train(model, enc_out, batch["tokens"])
+            return encdec.logits_from_h(model, h[:, -1:])[:, 0], enc_out
+        return step
+
+    @torch.no_grad()
+    def step(model, batch):
+        return lm.prefill(model, batch["tokens"],
+                          batch.get("frontend_embeds"))
+    return step
+
+
+def make_serve_step(cfg) -> Callable:
+    """``step(model, cache, tokens, pos) -> (logits, cache)``."""
+    decode = encdec.decode_step if isinstance(cfg, EncDecCfg) \
+        else lm.decode_step
+    return torch.no_grad()(decode)
+
+
+def init_state(model, optimizer: Optimizer) -> dict:
+    """``{"params": param_tree(model), "opt": optimizer.init(params),
+    "step": 0}``, the step a 0-d int32 tensor on the model's device.
+    The reference draws the parameters here from a key; the port's come
+    from ``init_params(cfg, seed, device)`` or ``params_from_numpy``."""
+    params = param_tree(model)
+    device = next(model.parameters()).device
+    return {"params": params, "opt": optimizer.init(params),
+            "step": torch.zeros((), dtype=torch.int32, device=device)}

@@ -54,6 +54,12 @@ MODULES = {
     "encdec": "repro.models.encdec",
     "sharding": "repro.distributed.sharding",
     "engine": "repro.serve.engine",
+    "optim": "repro.train.optim",
+    "schedules": "repro.train.schedules",
+    "step": "repro.train.step",
+    "loop": "repro.train.loop",
+    "collectives": "repro.distributed.collectives",
+    "shapes": "repro.configs.shapes",
 }
 
 

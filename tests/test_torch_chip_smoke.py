@@ -174,3 +174,42 @@ def test_serve_phases_pass_on_smoke_configs(capsys):
     assert len(z["smoke_configs"]) == 10
     assert all(r["tokens_equal"] for r in z["smoke_configs"].values())
     assert z["whisper"]["max_abs_logit_diff_vs_decode_train"] <= 2e-3
+
+
+def test_lm_train_phases_pass_on_smoke_configs(tmp_path, capsys):
+    """Phases (A) to (D) on the CPU with gemma2's smoke config in place of
+    the full one: train through the launcher, check the gradient along
+    random directions against central differences, hold the card (here
+    the host again) to the host on every smoke config, and kill, resume
+    and recover the granite trainer."""
+    smoke = _chip_smoke()
+    smoke.lm_train_phases(device="cpu", card="cpu", full=False,
+                          ckpt_root=tmp_path / "lm",
+                          train=dict(steps=4, batch=2, seq=32, lr=1e-2),
+                          trace_steps=1,
+                          grad_check=dict(batch=1, seq=16, seed=0,
+                                          scale=0.02, loss_change=1e-3))
+    lines = [json.loads(l) for l in capsys.readouterr().out.splitlines()
+             if l.startswith("{")]
+    assert [l["phase"] for l in lines] == [
+        "lm_train", "lm_grad_check", "lm_train_families", "lm_resume"]
+    a, b, c, d = lines
+    zero = {k: 0 for k in ("event_matmul2", "window_cumsum", "flash_attn",
+                           "event_matmul", "sigma_delta")}
+    assert a["arch"] == "gemma2-smoke" and a["optimizer"] == "adamw"
+    assert len(a["loss_curve"]) == 4
+    assert a["loss_curve"][-1] < a["loss_curve"][0]
+    assert a["mfu"] > 0 and a["step_bound"]["bound_ms"] > 0
+    assert a["ported_kernel_launches"] == zero
+    assert set(b["checks"]) == {"all", "embed", "attention", "mlp", "norms"}
+    assert all(r["rel_err"] <= b["tol"] for r in b["checks"].values())
+    assert len(c["smoke_configs"]) == 10
+    assert all(r["loss_abs_diff"] == 0 and r["grad_max_abs_diff"] == 0
+               for r in c["smoke_configs"].values())
+    assert c["granite"]["compressed"]["err_share_beyond_atol"] == 0
+    assert c["ported_kernel_launches"] == zero
+    assert d["kill_and_resume"]["resumed_from"] == 8
+    assert d["kill_and_resume"]["held_to"] == "bit-identical"
+    assert d["fault"]["recoveries"][0][0] == 6
+    assert len(d["fault"]["recoveries"]) == 1
+    assert d["fault"]["held_to"] == "bit-identical"

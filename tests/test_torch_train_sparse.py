@@ -40,6 +40,7 @@ from repro_torch.core import prng
 from repro_torch.neuromorphic import loihi2_like
 from repro_torch.train import data as D
 from repro_torch.train.sparse import params_from_numpy
+from repro_torch.tree import tree_leaves, tree_map
 
 SIZES = (32, 48, 32, 10)            # images task: 32 = 2*4^2
 REG_RTOL = 5e-6                     # regularizer values vs the JAX package
@@ -88,8 +89,15 @@ def _carry(rt, *, layer_weights=None, **kw) -> "T.SparseTrainer":
 # ------------------------------------------------------------------ exports
 
 def test_exports_match_reference(ref):
+    """The reference's names; ``repro_torch.train`` also exports the LM
+    trainer's, which the reference exports from its submodules."""
+    import importlib
     assert S.__all__ == ref.sparsity.__all__
-    assert T.__all__ == ref.train.__all__
+    assert set(ref.train.__all__) <= set(T.__all__)
+    subs = [importlib.import_module(f"repro.train.{m}")
+            for m in ("loop", "optim", "step")]
+    for name in set(T.__all__) - set(ref.train.__all__):
+        assert any(hasattr(m, name) for m in subs), name
     for name in S.__all__:
         assert getattr(S, name) is not None
     for name in T.__all__:
@@ -126,11 +134,11 @@ def _prune_cases():
 @pytest.mark.parametrize("case", sorted(_prune_cases()))
 def test_prune_masks_bit_identical(ref, case):
     tree, s, min_size = _prune_cases()[case]
-    to_t = lambda t: S.pruning._tree_map(torch.from_numpy, t)
+    to_t = lambda t: tree_map(torch.from_numpy, t)
     got = S.magnitude_prune_masks(to_t(tree), s, min_size=min_size)
     want = ref.pruning.magnitude_prune_masks(
         jax.tree.map(jnp.asarray, tree), s, min_size=min_size)
-    g_leaves = S.pruning._tree_leaves(got)
+    g_leaves = tree_leaves(got)
     w_leaves = jax.tree.leaves(want)
     assert len(g_leaves) == len(w_leaves)
     for g, w, p in zip(g_leaves, w_leaves, jax.tree.leaves(tree)):
@@ -138,7 +146,7 @@ def test_prune_masks_bit_identical(ref, case):
         assert np.array_equal(_np(g), np.asarray(w))
     assert type(got) is type(tree)
     masked = S.apply_masks(to_t(tree), got)
-    for g, w in zip(S.pruning._tree_leaves(masked), jax.tree.leaves(
+    for g, w in zip(tree_leaves(masked), jax.tree.leaves(
             ref.pruning.apply_masks(jax.tree.map(jnp.asarray, tree),
                                     want))):
         assert np.array_equal(_np(g), np.asarray(w))
