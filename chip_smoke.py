@@ -268,6 +268,29 @@ Phases, each printing one JSON line:
                   training path launches none of them (the JAX package's
                   reaches no Pallas kernel).
 
+  (E) step_bound — the step's three-term bound (``repro_torch.core.
+                  {hlo_cost,tpu_floorline}``): (A)'s full-width gemma2-2b
+                  bf16 step (batch 2 x 1024, AdamW) counted once on the
+                  card's tensors (matmul FLOPs, HBM bytes of every
+                  dispatched op, collective bytes 0), its compute, memory
+                  and link terms beside ``lm_step_bound`` and (A)'s
+                  measured step, and the step's ratio to each bound; the
+                  same cell counted on meta by the dry-run (the same FLOPs
+                  required) with its flash-adjusted terms and its peak of
+                  live bytes beside (A)'s measured peak.  Each dtype's
+                  products are priced at its own peak.  Then olmoe-1b-7b (full width, 6 of its
+                  16 layers, so that AdamW fits) and mamba2-1.3b (full),
+                  bf16, batch 2 x 1024: seconds per step (median of 5 after
+                  a warm-up), the counted bound and the step over it.
+  (F) dryrun    — ``repro_torch.launch.dryrun`` on meta tensors (nothing
+                  allocated) over every arch's train_4k cell at full size
+                  (the whole sweep is the CLI's ``--all``): dominant term,
+                  bound, useful-FLOPs ratio and whether it fits the card;
+                  then one ``hillclimb`` over gemma2-2b's train_4k cell
+                  with one card's moves (remat, microbatch count), its
+                  markdown log printed.  Both phases require that no ported
+                  kernel launched.
+
 Then a ``{"kernels": [...]}`` line, the card's name and power limit as
 nvidia-smi reports them, and a last line ``{"ok": true, "device": ...}``.
 Any failed check raises: the script exits non-zero and prints no result.
@@ -289,16 +312,15 @@ import time
 ROOT = pathlib.Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
-# Published H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit):
-# HBM3 bandwidth, the float32 rate outside the tensor cores, and the
-# tensor-core rates: TF32 (the float32 value products run as 3xTF32:
-# three TF32 products per multiply-add), bf16 and int8 (0/1 counter
-# products are exact in int8 with int32 sums).
-PEAK_BYTES_PER_S = 3.35e12
-PEAK_FP32_FLOPS = 67e12
-PEAK_TF32_FLOPS = 495e12
-PEAK_BF16_FLOPS = 989e12
-PEAK_INT8_OPS = 1979e12
+# Published H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit;
+# one table, in the port's floorline): HBM3 bandwidth, the float32 rate
+# outside the tensor cores, and the tensor-core rates: TF32 (the float32
+# value products run as 3xTF32: three TF32 products per multiply-add),
+# bf16 and int8 (0/1 counter products are exact in int8 with int32 sums).
+from repro_torch.core.tpu_floorline import HBM_BW as PEAK_BYTES_PER_S
+from repro_torch.core.tpu_floorline import PEAK_FLOPS as PEAK_BF16_FLOPS
+from repro_torch.core.tpu_floorline import (PEAK_FP32_FLOPS, PEAK_INT8_OPS,
+                                            PEAK_TF32_FLOPS)
 TILE = 128
 DEVICE = "cuda"
 THETA = 0.05                          # sigma-delta threshold, phases (j)-(l)
@@ -340,6 +362,9 @@ LM_TRACE_STEPS = 2                    # (A): steps under the profiler
 GRAD_CHECK = dict(batch=1, seq=512, seed=0, scale=0.02,      # (B)
                   loss_change=1e-3)
 RESUME = dict(steps=12, kill=8, fault=6, ckpt_every=4)       # (D)
+BOUND_MOE_REPEATS = 6                 # (E): olmoe's 16 layers cut to fit
+BOUND_STEPS = 5                       # (E): timed steps after a warm-up
+DRYRUN_SHAPES = ("train_4k",)         # (F): the sweep's cells, on meta
 
 # stated tolerances
 GRAD_CHECK_RTOL = 1e-2                # (B) <g, d> vs the central difference
@@ -547,19 +572,6 @@ def traced(fn) -> dict:
             "family_device_s": families if busy_s else "not measured",
             "top_kernels": [{"name": k[:90], "device_s": us * 1e-6,
                              "calls": n} for k, us, n in by_kernel[:10]]}
-
-
-def ported_kernels() -> dict:
-    """The five ported kernels' wrappers by name (each counts its
-    launches in ``.launches``)."""
-    from repro_torch.kernels.event_matmul.ops import (event_matmul,
-                                                      event_matmul2)
-    from repro_torch.kernels.flash_attn.ops import flash_attention
-    from repro_torch.kernels.sigma_delta.ops import (sigma_delta_encode,
-                                                     window_cumsum)
-    return {"event_matmul2": event_matmul2, "window_cumsum": window_cumsum,
-            "flash_attn": flash_attention, "event_matmul": event_matmul,
-            "sigma_delta": sigma_delta_encode}
 
 
 def recorder():
@@ -1506,6 +1518,7 @@ def serve_phases(*, device, card: str, full: bool = True,
     import numpy as np
     import torch
     from repro_torch.configs import registry
+    from repro_torch.core.hlo_cost import ported_kernels
     from repro_torch.device import resolve_device
     from repro_torch.launch import serve
     from repro_torch.models import encdec, lm
@@ -1807,6 +1820,7 @@ def lm_train_phases(*, device, card: str, ckpt_root, full: bool = True,
     import numpy as np
     import torch
     from repro_torch.configs import registry
+    from repro_torch.core.hlo_cost import ported_kernels
     from repro_torch.device import resolve_device
     from repro_torch.distributed import collectives
     from repro_torch.launch import train as launcher
@@ -2180,6 +2194,203 @@ def lm_train_phases(*, device, card: str, ckpt_root, full: bool = True,
             f"(D) the training path launched a ported kernel: {launches}")
     del cont, first, second, recovered
     free()
+    return {"step_s": step_s, "peak_device_bytes": peak,
+            "device_bytes_held_before": held_before, "step_bound": bound,
+            "batch": B, "seq": S}
+
+
+def time_steps(step_fn, state, batch, steps: int, sync) -> list[float]:
+    """Host-clock seconds of ``steps`` train steps after one warm-up,
+    each ending in a synchronise."""
+    times = []
+    for i in range(steps + 1):
+        t0 = time.perf_counter()
+        state, _ = step_fn(state, batch)
+        sync()
+        if i:
+            times.append(time.perf_counter() - t0)
+    return times
+
+
+def step_bound_phases(*, device, card: str, lm_a: dict, full: bool = True
+                      ) -> None:
+    """Phase (E): the step's three-term bound (see the module docstring).
+    ``lm_a`` is phase (A)'s result.  ``full=False`` (the tests' rehearsal
+    on the CPU) counts the smoke configs and times 2 steps."""
+    import dataclasses
+    import gc
+
+    import torch
+    from repro_torch.configs import registry
+    from repro_torch.configs.shapes import ShapeSpec
+    from repro_torch.core import hlo_cost
+    from repro_torch.core import tpu_floorline as tfl
+    from repro_torch.device import resolve_device
+    from repro_torch.launch import dryrun
+    from repro_torch.launch import train as launcher
+    from repro_torch.models import lm
+    from repro_torch.train import data as data_lib
+    from repro_torch.train import optim, schedules
+    from repro_torch.train import step as step_lib
+
+    t_phase = time.perf_counter()
+    dev = resolve_device(device)
+    on_card = dev.type == "cuda"
+    sync = (lambda: torch.cuda.synchronize(dev)) if on_card else \
+        (lambda: None)
+    counted = hlo_cost.ported_kernels()
+    for fn in counted.values():
+        fn.launches = 0
+    B, S = lm_a["batch"], lm_a["seq"]
+
+    def bound_row(cost, cfg, what):
+        terms = tfl.terms_from_step(cost, model_flops=tfl.model_flops_for(
+            cfg, "train", S, B), label=what)
+        return terms, {**terms.row(), "flops": cost.flops,
+                       "hbm_bytes": cost.hbm_bytes,
+                       "flops_by_dtype": cost.flops_by_dtype,
+                       "device_ops": cost.n_ops,
+                       "top_dots": cost.top_dots[:4],
+                       "top_hbm": cost.top_hbm[:4]}
+
+    # ---- (A)'s gemma2-2b step, counted on the card's tensors
+    trainer = launcher.build(launcher.parse_args(
+        ["--arch", LM_ARCH, "--steps", "1", "--batch", str(B), "--seq",
+         str(S), "--device", device] + ([] if full else ["--smoke"])))
+    cfg = trainer.cfg
+    batch = trainer._put_batch(trainer.data.batch(0))
+    t0 = time.perf_counter()
+    cost = hlo_cost.analyze(trainer.step_fn, trainer.state, batch)
+    sync()
+    count_s = time.perf_counter() - t0
+    terms, row = bound_row(cost, cfg,
+                           f"{cfg.name} {cfg.param_dtype} {B}x{S}")
+    del trainer, batch
+    gc.collect()
+    # the same cell on meta: the dry-run's count and memory account
+    cell = dryrun.run_cell(LM_ARCH, ShapeSpec("lm_train", S, B, "train"),
+                           smoke=not full, microbatches=1, quiet=True)
+    require(cell["hlo_cost"]["flops"] == cost.flops,
+            f"(E) meta flops {cell['hlo_cost']['flops']} != card flops "
+            f"{cost.flops}")
+    held = lm_a["device_bytes_held_before"]
+    measured_peak = (lm_a["peak_device_bytes"] - held if on_card
+                     else "not measured")
+    meta_peak = cell["memory_analysis"]["peak_bytes"]
+    step_s = lm_a["step_s"]
+    gemma = {"arch": cfg.name, "batch": B, "seq_len": S,
+             "count_wall_s": count_s, "terms": row,
+             "lm_step_bound_ms": lm_a["step_bound"]["bound_ms"],
+             "measured_step_s": step_s,
+             "step_over_counted_bound": step_s / terms.bound,
+             "step_over_lm_step_bound": step_s * 1e3
+             / lm_a["step_bound"]["bound_ms"],
+             "meta_count_equals_card_count": True,
+             "meta_hbm_bytes": cell["hlo_cost"]["hbm_bytes"],
+             "meta_score_bytes": cell["hlo_cost"]["score_bytes"],
+             "meta_flash_adjusted_terms": cell["roofline"],
+             "meta_peak_bytes": meta_peak,
+             "meta_argument_bytes":
+                 cell["memory_analysis"]["argument_bytes"],
+             "measured_peak_bytes_less_held": measured_peak,
+             "meta_over_measured_peak": (meta_peak / measured_peak
+                                         if on_card else "not measured")}
+    free_card = torch.cuda.empty_cache if on_card else (lambda: None)
+    free_card()
+
+    # ---- one MoE and one SSD arch: counted and timed
+    others = {}
+    for arch, repeats in (("olmoe-1b-7b", BOUND_MOE_REPEATS),
+                          ("mamba2-1.3b", None)):
+        entry = registry.get(arch)
+        acfg = entry.config if full else entry.smoke()
+        if full and repeats is not None:
+            acfg = dataclasses.replace(acfg, n_repeats=repeats)
+        model = lm.init_params(acfg, 0, device)
+        opt = optim.for_arch(acfg.param_count(), schedules.constant(1e-4))
+        state = step_lib.init_state(model, opt)
+        step_fn = step_lib.make_train_step(model, opt)
+        data = data_lib.SyntheticLM(data_lib.LMTaskConfig(
+            vocab_size=acfg.vocab_size, seq_len=S, global_batch=B, seed=0))
+        abatch = {k: torch.from_numpy(v).to(dev)
+                  for k, v in data.batch(0).items()}
+        if on_card:
+            torch.cuda.reset_peak_memory_stats()
+        times = time_steps(step_fn, state, abatch,
+                           BOUND_STEPS if full else 2, sync)
+        peak = (torch.cuda.max_memory_allocated() if on_card
+                else "not measured")
+        acost = hlo_cost.analyze(step_fn, state, abatch)
+        aterms, arow = bound_row(acost, acfg, f"{acfg.name} {B}x{S}")
+        med = statistics.median(times)
+        others[arch] = {"config": acfg.name, "n_repeats": acfg.n_repeats,
+                        "params": acfg.param_count(),
+                        "dtype": acfg.param_dtype, "optimizer": opt.name,
+                        "step_s": times, "median_step_s": med,
+                        "terms": arow,
+                        "step_over_bound": med / aterms.bound,
+                        "peak_device_bytes": peak}
+        del model, state, step_fn, abatch
+        gc.collect()
+        free_card()
+    launches = {k: fn.launches for k, fn in counted.items()}
+    emit({"phase": "step_bound", "card": card, "gemma2": gemma,
+          "others": others,
+          "peaks": {"flops_per_s": tfl.PEAK_FLOPS, "bytes_per_s": tfl.HBM_BW,
+                    "link_bytes_per_s": tfl.LINK_BW},
+          "ported_kernel_launches": launches,
+          "phase_wall_s": time.perf_counter() - t_phase})
+    require(not any(launches.values()),
+            f"(E) a counted step launched a ported kernel: {launches}")
+
+
+def dryrun_phases(*, card: str, full: bool = True) -> None:
+    """Phase (F): the one-card dry-run on ``meta`` tensors over every
+    arch's cells of ``DRYRUN_SHAPES``, and one hillclimb (see the module
+    docstring).  ``full=False`` (the tests' rehearsal) counts the smoke
+    configs."""
+    from repro_torch.configs import registry
+    from repro_torch.core.hlo_cost import ported_kernels
+    from repro_torch.launch import dryrun
+
+    t_phase = time.perf_counter()
+    counted = ported_kernels()
+    for fn in counted.values():
+        fn.launches = 0
+    rows = {}
+    for arch, shape in registry.all_cells():
+        if shape not in DRYRUN_SHAPES:
+            continue
+        rec = dryrun.run_cell(arch, shape, smoke=not full, quiet=True)
+        require(rec["hlo_cost"]["flops"] > 0
+                and rec["hlo_cost"]["collective_bytes"] == 0,
+                f"(F) {arch} {shape}: {rec['hlo_cost']['flops']} flops, "
+                f"{rec['hlo_cost']['collective_bytes']} collective bytes")
+        r = rec["roofline"]
+        rows[f"{arch}|{shape}"] = {
+            "dominant": r["dominant"], "bound_s": r["bound_s"],
+            "useful_flops_ratio": r["useful_flops_ratio"],
+            "fits": rec["memory_analysis"]["fits"],
+            "peak_bytes": rec["memory_analysis"]["peak_bytes"],
+            "microbatches": rec.get("microbatches"),
+            "count_s": rec["count_s"]}
+    sweep_s = time.perf_counter() - t_phase
+    t0 = time.perf_counter()
+    hill = dryrun.hillclimb_cell(LM_ARCH, "train_4k", smoke=not full)
+    launches = {k: fn.launches for k, fn in counted.items()}
+    emit({"phase": "dryrun", "card": card, "shapes": list(DRYRUN_SHAPES),
+          "smoke": not full, "cells": rows, "sweep_s": sweep_s,
+          "card_bytes": dryrun.card_bytes(),
+          "hillclimb": {"cell": f"{LM_ARCH}|train_4k",
+                        "best_overrides": hill.best_overrides,
+                        "best": hill.best,
+                        "steps": len(hill.log),
+                        "wall_s": time.perf_counter() - t0},
+          "ported_kernel_launches": launches,
+          "phase_wall_s": time.perf_counter() - t_phase})
+    print(hill.markdown(), flush=True)
+    require(not any(launches.values()),
+            f"(F) the dry-run launched a ported kernel: {launches}")
 
 
 def main() -> int:
@@ -3299,8 +3510,13 @@ def main() -> int:
 
     # ------------------ (A)-(D) training of the LM stack at full width
     torch.cuda.empty_cache()
-    lm_train_phases(device=DEVICE, card=card,
-                    ckpt_root=build.BUILD_DIR / "ckpt" / "lm")
+    lm_a = lm_train_phases(device=DEVICE, card=card,
+                           ckpt_root=build.BUILD_DIR / "ckpt" / "lm")
+
+    # -------------- (E)-(F) the step's bound and the one-card dry-run
+    torch.cuda.empty_cache()
+    step_bound_phases(device=DEVICE, card=card, lm_a=lm_a)
+    dryrun_phases(card=card)
 
     emit({"kernels": [mm, wc, fa, em1, sdk]})
     print(card, flush=True)

@@ -10,7 +10,9 @@ model-zoo frontend also lowers :class:`EncDecCfg` onto the simulator.
 Entry points, with the reference's names: ``init_params`` /
 ``params_from_numpy`` (and the inverse ``params_to_numpy``, with
 ``param_layout``), ``encode``, ``decode_train``, ``loss_fn``,
-``init_cache``, ``precompute_cross_cache`` and ``decode_step``.  With
+``init_cache``, ``precompute_cross_cache`` and ``decode_step``;
+``abstract_params`` and ``abstract_cache`` build on ``meta`` tensors for
+the dry-run.  With
 ``cfg.remat == "block"`` a forward that records gradients recomputes each
 layer in the backward, as the reference's ``jax.checkpoint`` does.
 """
@@ -117,6 +119,12 @@ def init_params(cfg: EncDecCfg, seed: int = 0,
     from a ``torch.Generator`` seeded with ``seed``."""
     dev = resolve_device(device)
     return init_modules(EncDec(cfg, dev), seed, dev)
+
+
+def abstract_params(cfg: EncDecCfg) -> EncDec:
+    """An :class:`EncDec` of ``cfg``'s shapes on ``meta`` tensors, which
+    allocate nothing; nothing is drawn."""
+    return EncDec(cfg, torch.device("meta"))
 
 
 def params_from_numpy(cfg: EncDecCfg, tree: dict,
@@ -230,7 +238,15 @@ def init_cache(cfg: EncDecCfg, B: int, max_len: int,
                device: "str | torch.device" = "cuda") -> list[dict]:
     """Per decoder layer: self-attention K/V over ``max_len`` slots and the
     cross-attention K/V of the ``n_frames`` encoder frames."""
-    dev = resolve_device(device)
+    return _cache(cfg, B, max_len, resolve_device(device))
+
+
+def abstract_cache(cfg: EncDecCfg, B: int, max_len: int) -> list[dict]:
+    """:func:`init_cache`'s layout on ``meta`` tensors."""
+    return _cache(cfg, B, max_len, torch.device("meta"))
+
+
+def _cache(cfg: EncDecCfg, B: int, max_len: int, dev) -> list[dict]:
     dtype = dt(cfg.param_dtype)
     kv = (B, max_len, cfg.n_kv_heads, cfg.head_dim)
     xv = (B, cfg.n_frames, cfg.n_kv_heads, cfg.head_dim)

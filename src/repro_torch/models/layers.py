@@ -175,10 +175,12 @@ class _MatmulF32(torch.autograd.Function):
 def matmul_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """(M, K) @ (K, N) with float32 output (the reference's
     ``preferred_element_type=float32``) without a float32 copy of ``b``:
-    on CUDA a bfloat16 product accumulates and returns float32."""
+    on CUDA a bfloat16 product accumulates and returns float32.  ``meta``
+    tensors (the dry-run's) take the card's branch, so that their op
+    counts are the card's."""
     if a.dtype == torch.float32 and b.dtype == torch.float32:
         return a @ b
-    if a.is_cuda:
+    if a.is_cuda or a.is_meta:
         return _MatmulF32.apply(a, b)
     return a.float() @ b.float()
 
@@ -313,6 +315,13 @@ def _chunked_sdpa(q, k, v, q_pos, kv_pos, window, cfg: ModelCfg,
     return out.reshape(B, Sq, H, hd).to(q.dtype)
 
 
+def score_cols(skv: int) -> int:
+    """The key columns of one score block of :func:`attention` over
+    ``skv`` keys: past 4096 keys (a multiple of 1024) it runs
+    :func:`_chunked_sdpa` over 1024-key chunks."""
+    return 1024 if skv > 4096 and skv % 1024 == 0 else skv
+
+
 def attention(x: torch.Tensor, p: Attention, blk: BlockCfg, cfg: ModelCfg,
               *, positions: torch.Tensor, causal: bool = True,
               xkv: Optional[torch.Tensor] = None, return_kv: bool = False):
@@ -334,7 +343,7 @@ def attention(x: torch.Tensor, p: Attention, blk: BlockCfg, cfg: ModelCfg,
         k = rope(k, kv_pos, cfg.rope_theta)
 
     Skv = k.shape[1]
-    if Skv > 4096 and Skv % 1024 == 0:
+    if score_cols(Skv) != Skv:
         out = _chunked_sdpa(q, k, v, positions, kv_pos, blk.window, cfg,
                             causal=causal)
     else:

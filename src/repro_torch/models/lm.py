@@ -10,6 +10,8 @@ Entry points, with the reference's names:
   init_params(cfg, seed, device) / params_from_numpy(cfg, tree, device)
   params_to_numpy(model) / param_layout(model)  -> the reference's tree
   init_cache(cfg, B, max_len, device)   -> one cache dict per block
+  abstract_params(cfg) / abstract_cache(cfg, B, max_len) -> the same on
+                                           ``meta`` tensors (the dry-run)
   forward(model, tokens)                -> (final hidden states, aux)
   logits_from_h(model, h)               -> float32 logits
   loss_fn(model, batch)                 -> (total loss, metrics)
@@ -20,9 +22,10 @@ A block's decode cache is ``{"k", "v"}`` (B, W, K, hd) for attention,
 ``{"conv", "state"}`` for SSD and ``{"conv", "h"}`` for RG-LRU.
 
 With ``cfg.remat == "block"`` a forward that records gradients
-recomputes each block's activations in the backward
-(``torch.utils.checkpoint``), as the reference's ``jax.checkpoint`` of
-its scan body does; the numbers are the same either way.
+recomputes each repeat of the ``pattern`` in the backward
+(``torch.utils.checkpoint`` of its blocks together), as the reference's
+``jax.checkpoint`` of its scan body does; the prefix and suffix blocks
+are not recomputed.  The numbers are the same either way.
 """
 
 from __future__ import annotations
@@ -99,6 +102,13 @@ def init_params(cfg: ModelCfg, seed: int = 0,
     with ``seed`` (not ``jax.random``'s bits)."""
     dev = resolve_device(device)
     return init_modules(LM(cfg, dev), seed, dev)
+
+
+def abstract_params(cfg: ModelCfg) -> LM:
+    """An :class:`LM` of ``cfg``'s shapes and dtypes on ``meta`` tensors,
+    which allocate nothing (the reference's ``jax.eval_shape`` of
+    ``init_params``): nothing is drawn."""
+    return LM(cfg, torch.device("meta"))
 
 
 def _block_slices(cfg: ModelCfg, tree: dict):
@@ -179,8 +189,16 @@ def _block_cache(blk: BlockCfg, cfg: ModelCfg, B: int, max_len: int,
 
 def init_cache(cfg: ModelCfg, B: int, max_len: int,
                device: "str | torch.device" = "cuda") -> list[dict]:
-    dev = resolve_device(device)
-    return [_block_cache(b, cfg, B, max_len, dt(cfg.param_dtype), dev)
+    return _cache(cfg, B, max_len, resolve_device(device))
+
+
+def abstract_cache(cfg: ModelCfg, B: int, max_len: int) -> list[dict]:
+    """:func:`init_cache`'s layout on ``meta`` tensors."""
+    return _cache(cfg, B, max_len, torch.device("meta"))
+
+
+def _cache(cfg: ModelCfg, B: int, max_len: int, device) -> list[dict]:
+    return [_block_cache(b, cfg, B, max_len, dt(cfg.param_dtype), device)
             for b in cfg.all_blocks()]
 
 
@@ -276,6 +294,13 @@ def _blocks(model: LM):
     return zip(model.blocks, model.cfg.all_blocks())
 
 
+def _apply_blocks(h, aux: dict, blocks, cfg: ModelCfg, positions):
+    for p, blk in blocks:
+        h, _, a = apply_block(h, p, blk, cfg, positions=positions)
+        aux = _merge_aux(aux, a)
+    return h, aux
+
+
 def forward(model: LM, tokens: torch.Tensor,
             frontend_embeds: Optional[torch.Tensor] = None):
     """Full-sequence forward -> (final hidden states, aux)."""
@@ -283,14 +308,20 @@ def forward(model: LM, tokens: torch.Tensor,
     h = embed_tokens(model, tokens, frontend_embeds)
     positions = torch.arange(h.shape[1], device=h.device)
     aux = _zero_aux(h.device)
+    blocks = list(_blocks(model))
+    P, J = len(cfg.prefix), len(cfg.pattern)
+    h, aux = _apply_blocks(h, aux, blocks[:P], cfg, positions)
+    # the reference checkpoints its scan body, one repeat of the pattern
     remat = cfg.remat == "block" and torch.is_grad_enabled()
-    for p, blk in _blocks(model):
+    for r in range(cfg.n_repeats):
+        group = blocks[P + r * J:P + (r + 1) * J]
         if remat:
-            h, _, a = checkpoint(apply_block, h, p, blk, cfg,
-                                 positions=positions, use_reentrant=False)
+            h, aux = checkpoint(_apply_blocks, h, aux, group, cfg,
+                                positions, use_reentrant=False)
         else:
-            h, _, a = apply_block(h, p, blk, cfg, positions=positions)
-        aux = _merge_aux(aux, a)
+            h, aux = _apply_blocks(h, aux, group, cfg, positions)
+    h, aux = _apply_blocks(h, aux, blocks[P + cfg.n_repeats * J:], cfg,
+                           positions)
     return rms_norm(h, model.final_norm, cfg.norm_eps), aux
 
 
@@ -307,11 +338,18 @@ def sharded_xent(logits: torch.Tensor, labels: torch.Tensor,
     """(mean cross entropy, mean squared log-normaliser) of float32
     ``logits`` (B, S, V) against ``labels`` (B, S), weighted.  The label's
     log-likelihood is a gather where the reference sums a one-hot product:
-    that sum has one non-zero term, so both are exact."""
+    that sum has one non-zero term, so both are exact.  A label outside
+    [0, V) matches no column of the one-hot, so its log-likelihood is 0
+    (its nll is ``lse``, and its gradient has no -1 term).  The gather
+    reads a clamped index: on CUDA an out-of-range index is a device-side
+    assert, which poisons the context."""
     logits = logits.float()
+    V = logits.shape[-1]
     lse = torch.logsumexp(logits, dim=-1)
-    ll = logits.gather(-1, labels.long()[..., None])[..., 0]
-    nll = lse - ll
+    labels = labels.long()
+    inside = (labels >= 0) & (labels < V)
+    ll = logits.gather(-1, labels.clamp(0, V - 1)[..., None])[..., 0]
+    nll = lse - torch.where(inside, ll, 0.0)
     if weights is None:
         weights = torch.ones_like(nll)
     denom = torch.clamp(weights.sum(), min=1.0)

@@ -11,7 +11,10 @@ Fault model:
                           go on from there.  Every recovery is recorded in
                           ``Trainer.recoveries``, so a caller can require
                           that none happened unscripted: a restore must
-                          not hide a fault of the card;
+                          not hide a fault of the card.  A step that
+                          fails again after the restore, before the run
+                          has passed it, raises: the fault is not
+                          transient (the reference restores forever);
   * straggler steps    -> StragglerMonitor flags steps > k x EWMA.
 
 Checkpoints have the reference's layout (``params``, ``opt``, ``step``,
@@ -159,6 +162,7 @@ class Trainer:
     def run(self) -> list[dict]:
         tcfg = self.tcfg
         step = int(self.start_step)
+        failed_at = None            # the step that failed before a restore
         while step < tcfg.steps:
             try:
                 if self.fault_hook:
@@ -171,6 +175,8 @@ class Trainer:
                 slow = self.monitor.record(step, dt)
                 step += 1
                 self.data_step += 1
+                if failed_at is not None and step > failed_at:
+                    failed_at = None
                 if step % tcfg.log_every == 0 or step == tcfg.steps:
                     m = {k: float(v) for k, v in metrics.items()}
                     m.update(step=step, dt=round(dt, 4), straggler=slow)
@@ -185,7 +191,11 @@ class Trainer:
                 if not (tcfg.ckpt_dir
                         and ckpt_lib.latest_step(tcfg.ckpt_dir) is not None):
                     raise
+                if failed_at == step:
+                    raise RuntimeError(f"step {step} failed again after a "
+                                       f"restore: {e}") from e
                 print(f"[trainer] step {step} failed ({e}); restoring")
+                failed_at = step
                 self.recoveries.append((step, str(e)))
                 step = self._restore()
                 self.fault_hook = None

@@ -78,6 +78,74 @@ def value_and_grad(model, batch: dict):
             map_layout(gather, layout))
 
 
+def microbatches(batch: dict, M: int):
+    """Yields the ``M`` microbatches of ``batch`` along its leading dim
+    (views)."""
+    if M == 1:
+        yield batch
+        return
+    for i in range(M):
+        yield {k: v.reshape((M, v.shape[0] // M) + v.shape[1:])[i]
+               for k, v in batch.items()}
+
+
+def train_step_parts(model, optimizer: Optimizer, *,
+                     num_microbatches: int = 1,
+                     grad_accum_dtype: str | None = None):
+    """The train step as ``(start, body, finish)``: ``carry = start()``,
+    ``carry = body(carry, mb)`` for each microbatch (the reference's scan
+    body), then ``finish(state, carry) -> (state, metrics)``.  The body's
+    work is the same for every microbatch, so ``core.hlo_cost`` counts it
+    once and scales it by the count."""
+    params = param_tree(model)
+    M = num_microbatches
+
+    def _update(state, grads, metrics):
+        new_params, new_opt = optimizer.update(
+            grads, state["opt"], params, state["step"])
+        return ({"params": new_params, "opt": new_opt,
+                 "step": state["step"] + 1}, metrics)
+
+    if M == 1:
+        # the gradients of the parameters, in their dtype
+        def start():
+            return None
+
+        def body(carry, mb):
+            _, metrics, grads = value_and_grad(model, mb)
+            return grads, metrics
+
+        def finish(state, carry):
+            grads, metrics = carry
+            return _update(state, grads, metrics)
+        return start, body, finish
+
+    acc = dt(grad_accum_dtype or "float32")
+
+    def start():
+        zeros = tree_map(lambda p: torch.zeros(p.shape, dtype=acc,
+                                               device=p.device), params)
+        zero = torch.zeros((), dtype=torch.float32,
+                           device=next(model.parameters()).device)
+        return zeros, {}, zero
+
+    def body(carry, mb):
+        grads, metrics, zero = carry
+        _, m, g = value_and_grad(model, mb)
+        tree_map(lambda a, b: a.add_(b.to(a.dtype)), grads, g)
+        return grads, {k: metrics.get(k, zero) + v for k, v in m.items()}, \
+            zero
+
+    def finish(state, carry):
+        grads, metrics, _ = carry
+        # XLA divides by the constant M as a product with 1/M
+        grads = tree_map(lambda g: g * f32_reciprocal(M), grads)
+        metrics = {k: v * f32_reciprocal(M) for k, v in metrics.items()}
+        return _update(state, grads, metrics)
+
+    return start, body, finish
+
+
 def make_train_step(model, optimizer: Optimizer, *,
                     num_microbatches: int = 1,
                     grad_accum_dtype: str | None = None) -> Callable:
@@ -88,34 +156,18 @@ def make_train_step(model, optimizer: Optimizer, *,
     global batch dim divisible by ``num_microbatches``.  The state's
     tensors are updated in place."""
     params = param_tree(model)
-    M = num_microbatches
+    start, body, finish = train_step_parts(
+        model, optimizer, num_microbatches=num_microbatches,
+        grad_accum_dtype=grad_accum_dtype)
 
     def train_step(state, batch):
         if state["params"] is not params:
             raise ValueError("state['params'] is not this model's "
                              "param_tree; build it with init_state")
-        if M == 1:
-            _, metrics, grads = value_and_grad(model, batch)
-        else:
-            acc = dt(grad_accum_dtype or "float32")
-            grads = tree_map(lambda p: torch.zeros(p.shape, dtype=acc,
-                                                   device=p.device), params)
-            metrics = None
-            for i in range(M):
-                mb = {k: v.reshape((M, v.shape[0] // M) + v.shape[1:])[i]
-                      for k, v in batch.items()}
-                _, m, g = value_and_grad(model, mb)
-                tree_map(lambda a, b: a.add_(b.to(a.dtype)), grads, g)
-                metrics = m if metrics is None else {
-                    k: metrics[k] + m[k] for k in metrics}
-            # XLA divides by the constant M as a product with 1/M
-            grads = tree_map(lambda g: g * f32_reciprocal(M), grads)
-            metrics = {k: v * f32_reciprocal(M) for k, v in metrics.items()}
-
-        new_params, new_opt = optimizer.update(
-            grads, state["opt"], params, state["step"])
-        return ({"params": new_params, "opt": new_opt,
-                 "step": state["step"] + 1}, metrics)
+        carry = start()
+        for mb in microbatches(batch, num_microbatches):
+            carry = body(carry, mb)
+        return finish(state, carry)
 
     return train_step
 

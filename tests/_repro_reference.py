@@ -60,6 +60,9 @@ MODULES = {
     "loop": "repro.train.loop",
     "collectives": "repro.distributed.collectives",
     "shapes": "repro.configs.shapes",
+    "hlo_cost": "repro.core.hlo_cost",
+    "tpu_floorline": "repro.core.tpu_floorline",
+    "autoshard": "repro.distributed.autoshard",
 }
 
 

@@ -148,3 +148,52 @@ def assert_logits_close(pair, what: str) -> None:
     assert got.shape == want.shape, what
     np.testing.assert_allclose(got, want, rtol=LOGIT_RTOL, atol=LOGIT_ATOL,
                                err_msg=what)
+
+
+#: loss_fn of the two packages: the loss within rtol ``LOSS_RTOL``, each
+#: gradient leaf within ``GRAD_ATOL`` of its largest entry (float32 sums
+#: in another order through the whole backward, as in
+#: ``tests/test_torch_train_lm.py``)
+LOSS_RTOL, GRAD_ATOL = 1e-6, 2e-5
+
+
+def out_of_range_labels(labels: np.ndarray, V: int) -> tuple:
+    """``labels`` with -1 and ``V`` at two positions of each row, and
+    weights that keep one of them (weight 1) and drop the other (0): a
+    label outside [0, V) has a log-likelihood of 0 in the reference's
+    one-hot sum."""
+    labels = labels.copy()
+    labels[:, 1], labels[:, -1] = -1, V
+    weights = np.ones(labels.shape, np.float32)
+    weights[0, 1] = weights[-1, -1] = 0.0
+    return labels, weights
+
+
+def assert_loss_and_grads_match(R, lib_ref, lib_port, cfg, params, model,
+                                batch: dict) -> None:
+    """The reference's jitted ``value_and_grad`` of ``loss_fn`` against the
+    port's ``step.value_and_grad`` on the same numpy ``batch``."""
+    from repro_torch.train import step as S
+
+    def leaves(tree, prefix=""):
+        for k in sorted(tree):
+            v = tree[k]
+            if isinstance(v, dict):
+                yield from leaves(v, f"{prefix}{k}.")
+            else:
+                yield prefix + k, v
+
+    c = R.sharding.make_ctx(auto_mesh())
+    (total, _), grads = jax.jit(jax.value_and_grad(
+        lambda p, b: lib_ref.loss_fn(p, b, cfg, c), has_aux=True))(
+        params, jax.tree.map(jnp.asarray, batch))
+    ptotal, _, pgrads = S.value_and_grad(
+        model, {k: torch.from_numpy(v) for k, v in batch.items()})
+    np.testing.assert_allclose(float(ptotal), float(total), rtol=LOSS_RTOL)
+    got = dict(leaves(pgrads))
+    want = dict(leaves(jax.tree.map(np.asarray, grads)))
+    assert sorted(got) == sorted(want)
+    for k, w in want.items():
+        np.testing.assert_allclose(np_(got[k]), w, rtol=0,
+                                   atol=GRAD_ATOL * np.abs(w).max(),
+                                   err_msg=k)

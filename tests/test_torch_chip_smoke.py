@@ -213,3 +213,41 @@ def test_lm_train_phases_pass_on_smoke_configs(tmp_path, capsys):
     assert d["fault"]["recoveries"][0][0] == 6
     assert len(d["fault"]["recoveries"]) == 1
     assert d["fault"]["held_to"] == "bit-identical"
+
+
+def test_bound_and_dryrun_phases_pass_on_smoke_configs(capsys):
+    """Phases (E) and (F) on the CPU with the smoke configs in place of
+    the full ones: count gemma2's step on the host's tensors and on meta
+    (the same FLOPs), count and time olmoe's and mamba2's steps, then the
+    dry-run's train cells on meta and a hillclimb over gemma2's.  (A)'s
+    result is stood in for: a step of 1 s at batch 2 x 32."""
+    from repro_torch.configs import registry
+    smoke = _chip_smoke()
+    cfg = registry.get("gemma2-2b").smoke()
+    lm_a = {"step_s": 1.0, "peak_device_bytes": "not measured",
+            "device_bytes_held_before": "not measured",
+            "step_bound": smoke.lm_step_bound(cfg, 2, 32), "batch": 2,
+            "seq": 32}
+    smoke.step_bound_phases(device="cpu", card="cpu", lm_a=lm_a, full=False)
+    smoke.dryrun_phases(card="cpu", full=False)
+    out = capsys.readouterr().out.splitlines()
+    lines = [json.loads(l) for l in out if l.startswith("{")]
+    assert [l["phase"] for l in lines] == ["step_bound", "dryrun"]
+    e, f = lines
+    zero = {k: 0 for k in ("event_matmul2", "window_cumsum", "flash_attn",
+                           "event_matmul", "sigma_delta")}
+    g = e["gemma2"]
+    assert g["arch"] == "gemma2-smoke" and g["meta_count_equals_card_count"]
+    assert g["terms"]["bound_s"] > 0 and g["terms"]["t_collective_s"] == 0
+    assert g["step_over_counted_bound"] == 1.0 / g["terms"]["bound_s"]
+    assert g["meta_peak_bytes"] > g["meta_argument_bytes"] > 0
+    assert g["measured_peak_bytes_less_held"] == "not measured"
+    assert sorted(e["others"]) == ["mamba2-1.3b", "olmoe-1b-7b"]
+    for r in e["others"].values():
+        assert len(r["step_s"]) == 2 and r["step_over_bound"] > 0
+        assert r["terms"]["flops"] > 0
+    assert e["ported_kernel_launches"] == f["ported_kernel_launches"] == zero
+    assert sorted(f["cells"]) == [f"{a}|train_4k" for a in registry.ARCH_IDS]
+    assert all(r["fits"] and r["bound_s"] > 0 for r in f["cells"].values())
+    assert f["hillclimb"]["steps"] >= 1
+    assert any(l.startswith("| # | move |") for l in out)

@@ -16,7 +16,8 @@ import pytest
 import torch
 
 from _repro_reference import reference
-from _torch_models import np_
+from _torch_models import (assert_loss_and_grads_match, np_,
+                           out_of_range_labels)
 from repro_torch.configs import registry
 from repro_torch.models import encdec as E
 
@@ -95,3 +96,24 @@ def test_encdec_init_params_shapes(ref):
                                          jax.tree.leaves(tree))
     assert (tuple(model.dec[1].xattn.wo.shape)
             == tree["dec"]["xattn"]["wo"].shape[1:])
+
+
+def test_loss_fn_takes_out_of_range_labels_as_the_reference(ref):
+    """``encdec.loss_fn`` and every gradient leaf with labels -1 and V in
+    the batch (one kept, one dropped by its weight), whisper's smoke
+    config: the decoder's loss goes through ``lm.sharded_xent``."""
+    cfg = ref.registry.get("whisper-base").smoke()
+    params = ref.encdec.init_params(cfg, jax.random.PRNGKey(5))
+    model = E.params_from_numpy(registry.get("whisper-base").smoke(),
+                                jax.tree.map(np.asarray, params), "cpu")
+    rng = np.random.default_rng(6)
+    labels, weights = out_of_range_labels(
+        rng.integers(0, cfg.vocab_size, (2, 8)).astype(np.int32),
+        cfg.vocab_size)
+    batch = {"frontend_embeds": rng.standard_normal(
+                 (2, cfg.n_frames, cfg.d_model)).astype(np.float32),
+             "tokens": rng.integers(0, cfg.vocab_size, (2, 8)).astype(
+                 np.int32),
+             "labels": labels, "weights": weights}
+    assert_loss_and_grads_match(ref, ref.encdec, E, cfg, params, model,
+                                batch)

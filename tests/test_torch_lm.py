@@ -29,8 +29,9 @@ import pytest
 import torch
 
 from _repro_reference import reference
-from _torch_models import (DECODER_ARCHS, assert_logits_close, lm_logits,
-                           lm_pair, np_, port_cfg)
+from _torch_models import (DECODER_ARCHS, assert_logits_close,
+                           assert_loss_and_grads_match, lm_logits, lm_pair,
+                           np_, out_of_range_labels, port_cfg)
 from repro_torch.configs import registry
 from repro_torch.models import lm
 from repro_torch.models.layers import Params
@@ -138,3 +139,46 @@ def test_entry_points_default_to_the_card():
         lm.init_params(cfg, 0)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         lm.init_cache(cfg, 1, 4)
+
+
+@pytest.mark.parametrize("bad", [-1, 5])
+def test_sharded_xent_takes_out_of_range_labels_as_the_reference(ref, bad):
+    """A label outside [0, V) has a log-likelihood of 0, as in the
+    reference's one-hot sum: the values of ROADMAP's repro 1, and the
+    gradients of both outputs (softmax times the weight, no -1 term, where
+    such a label is kept)."""
+    logits = np.random.default_rng(0).standard_normal((1, 3, 5)).astype(
+        np.float32)
+    labels = np.array([[0, 1, bad]], np.int32)
+    for w in ([[1.0, 1.0, 0.0]], [[1.0, 1.0, 1.0]]):
+        weights = np.array(w, np.float32)
+        x = torch.from_numpy(logits).requires_grad_()
+        got = lm.sharded_xent(x, torch.from_numpy(labels),
+                              torch.from_numpy(weights))
+        for i in range(2):
+            want, grad = jax.value_and_grad(
+                lambda l: ref.lm.sharded_xent(l, labels, weights)[i])(
+                jnp.asarray(logits))
+            g, = torch.autograd.grad(got[i], x, retain_graph=True)
+            np.testing.assert_allclose(float(got[i].detach()), float(want),
+                                       rtol=1e-6)
+            np.testing.assert_allclose(np_(g), np.asarray(grad), rtol=1e-6,
+                                       atol=1e-7)
+        if w[0][2] == 0.0:
+            np.testing.assert_allclose([float(v.detach()) for v in got],
+                                       [1.2153597, 3.7685568], rtol=1e-6)
+
+
+def test_loss_fn_takes_out_of_range_labels_as_the_reference(ref):
+    """``lm.loss_fn`` and every gradient leaf with labels -1 and V in the
+    batch (one kept, one dropped by its weight), on granite's smoke
+    config."""
+    cfg = ref.registry.get("granite-3-2b").smoke()
+    params, model = lm_pair(ref, cfg)
+    rng = np.random.default_rng(4)
+    toks = rng.integers(0, cfg.vocab_size, (2, 8)).astype(np.int32)
+    labels, weights = out_of_range_labels(
+        rng.integers(0, cfg.vocab_size, (2, 8)).astype(np.int32),
+        cfg.vocab_size)
+    assert_loss_and_grads_match(ref, ref.lm, lm, cfg, params, model, {
+        "tokens": toks, "labels": labels, "weights": weights})

@@ -312,6 +312,77 @@ def test_fault_recovery_restores_once(runs, tmp_path):
     assert _loss_at(hist, 12) == _loss_at(runs["port"], 12)
 
 
+class _BadLabel:
+    """ROADMAP's repro 2: all-one weights, and at data step 3 the first
+    label -1 with weight 0 (a label outside [0, V))."""
+
+    def __init__(self, data):
+        self.data = data
+
+    def batch(self, step):
+        b = dict(self.data.batch(step))
+        b["weights"] = np.ones(b["labels"].shape, np.float32)
+        if step == 3:
+            b["labels"] = b["labels"].copy()
+            b["labels"][0, 0], b["weights"][0, 0] = -1, 0.0
+        return b
+
+
+def test_trainer_trains_through_an_out_of_range_label(ref, tmp_path):
+    """Repro 2 of the fault the port repaired: granite's smoke trainer,
+    from the reference's step-0 checkpoint, trains all 6 steps with no
+    recovery, on the reference's loss curve."""
+    def tcfg(lib, d, steps, resume=False):
+        return lib.TrainerConfig(steps=steps, ckpt_every=2, log_every=1,
+                                 ckpt_dir=str(tmp_path / d), resume=resume)
+
+    def data(lib):
+        return _BadLabel(lib.SyntheticLM(lib.LMTaskConfig(
+            vocab_size=cfg.vocab_size, seq_len=16, global_batch=2, seed=0)))
+    cfg = ref.registry.get("granite-3-2b").smoke()
+    opt = ref.optim.adamw(ref.schedules.constant(1e-3))
+    ref.loop.Trainer(cfg, auto_mesh(), opt, data(ref.train_data),
+                     tcfg(ref.loop, "r0", 0)).run()
+    want = ref.loop.Trainer(cfg, auto_mesh(), opt, data(ref.train_data),
+                            tcfg(ref.loop, "ref", 6)).run()
+    shutil.copytree(tmp_path / "r0", tmp_path / "port")
+    t = Trainer(registry.get("granite-3-2b").smoke(), None,
+                optim.adamw(schedules.constant(1e-3)), data(data_lib),
+                tcfg(types.SimpleNamespace(TrainerConfig=TrainerConfig),
+                     "port", 6, resume=True), device="cpu")
+    got = t.run()
+    assert t.recoveries == []
+    assert [h["step"] for h in got] == [h["step"] for h in want] \
+        == [1, 2, 3, 4, 5, 6]
+    np.testing.assert_allclose([h["loss"] for h in got],
+                               [h["loss"] for h in want], rtol=CURVE_RTOL)
+    np.testing.assert_allclose([want[0]["loss"], want[-1]["loss"]],
+                               [6.3782, 6.7595], rtol=1e-4)
+
+
+def test_trainer_raises_when_a_step_fails_again_after_a_restore(tmp_path):
+    """A step that fails again right after its restore is no transient
+    fault: the trainer raises (the reference restores forever)."""
+    class BadBatch:
+        def __init__(self, data):
+            self.data = data
+
+        def batch(self, step):
+            if step == 3:
+                raise RuntimeError("bad batch")
+            return self.data.batch(step)
+    cfg = registry.get("granite-3-2b").smoke()
+    t = Trainer(cfg, None, optim.adamw(schedules.constant(1e-3)),
+                BadBatch(data_lib.SyntheticLM(data_lib.LMTaskConfig(
+                    vocab_size=cfg.vocab_size, seq_len=16, global_batch=2,
+                    seed=0))),
+                TrainerConfig(steps=6, ckpt_every=2, log_every=1,
+                              ckpt_dir=str(tmp_path / "c")), device="cpu")
+    with pytest.raises(RuntimeError, match="failed again.*bad batch"):
+        t.run()
+    assert [s for s, _ in t.recoveries] == [3]
+
+
 def test_trainer_refuses_a_mesh_and_restarts_without_checkpoint():
     cfg = registry.get("granite-3-2b").smoke()
     opt = optim.adamw(schedules.constant(2e-3))
