@@ -129,8 +129,9 @@ Phases, each printing one JSON line:
                   run's, bit for bit where the device pricer gives the same
                   bits twice and in other batches (checked first), else
                   within rtol 1e-9.  Then ``FaultPlan(fail={"device": 2})``:
-                  exactly one demotion, device to numpy, and a trajectory
-                  within rtol 1e-9 of the numpy-only run.
+                  exactly one demotion, device to vmap (the chain's next
+                  link), and a trajectory within rtol 1e-9 of the
+                  numpy-only run.
   (r) device_search — ``evolutionary_search(engine="device")`` on the
                   profiled cell from (p)'s cache and greedy walk
                   (population 64, 10 generations, seed 0, a snapshot every
@@ -291,6 +292,31 @@ Phases, each printing one JSON line:
                   markdown log printed.  Both phases require that no ported
                   kernel launched.
 
+  (G) event_options — ``EventCompute``'s options on the slice-1 cell
+                  (fc 1024-2048-1024-1024-512, T = 1024) copied onto the
+                  1/8 grid: weights and inputs rounded to nonzero
+                  multiples of 1/8 and the sigma-delta threshold 0.125, so
+                  every sum is exact in float32 in any order (on the float
+                  cell, phase (d) shows quantiser ties moving messages
+                  between summation orders); inputs bursty, with events in
+                  the first 64 of every 256 steps.  Five option sets in
+                  kernel mode on the card (``delta_window`` 16 and 32,
+                  ``delta_mode="cumsum"``, ``threshold=0.05``, ``bm = bk =
+                  64``), each against the host's gather run with the same
+                  options: every counter bit-identical, outputs within
+                  phase (d)'s rtol; launches counted per set (11
+                  ``event_matmul2`` and 3 ``window_cumsum`` windowed, 8 and
+                  0 for cumsum); ``run_batch`` walls side by side, windowed
+                  and cumsum (the sd_window arm of the JAX package's
+                  ``benchmarks/sim_speed.py``).
+  (H) vmap_pricing — phase (m)'s 1024 candidates priced from phase (p)'s
+                  cache (the profiled cell) through ``evaluate_population``
+                  with the ``vmap``, ``device`` and ``numpy`` backends:
+                  vmap and device within rtol 1e-9 of numpy; candidates
+                  per second each; then ``FaultPlan(fail={"device": 2})``:
+                  exactly one demotion, device to vmap, as the JAX
+                  package records it, priced within rtol 1e-9 of numpy.
+
 Then a ``{"kernels": [...]}`` line, the card's name and power limit as
 nvidia-smi reports them, and a last line ``{"ok": true, "device": ...}``.
 Any failed check raises: the script exits non-zero and prints no result.
@@ -323,6 +349,8 @@ from repro_torch.core.tpu_floorline import (PEAK_FP32_FLOPS, PEAK_INT8_OPS,
                                             PEAK_TF32_FLOPS)
 TILE = 128
 DEVICE = "cuda"
+SLICE1_SIZES = (1024, 2048, 1024, 1024, 512)   # the slice-1 cell, (b)
+SLICE1_T = 1024
 THETA = 0.05                          # sigma-delta threshold, phases (j)-(l)
 K_POP = 1024                          # candidates priced in phase (m)
 PROFILE_PATH = ROOT / "tests" / "golden" / "trained_profile.npz"
@@ -365,6 +393,17 @@ RESUME = dict(steps=12, kill=8, fault=6, ckpt_every=4)       # (D)
 BOUND_MOE_REPEATS = 6                 # (E): olmoe's 16 layers cut to fit
 BOUND_STEPS = 5                       # (E): timed steps after a warm-up
 DRYRUN_SHAPES = ("train_4k",)         # (F): the sweep's cells, on meta
+# phase (G): EventCompute's options on the slice-1 cell copied onto the 1/8
+# grid, its input bursty: events in the first 64 steps of every 256
+OPTION_PERIOD, OPTION_KEEP = 256, 64
+OPTION_THETA = 0.125                  # (G): sigma-delta threshold, 1/8
+OPTION_REPS = 3                       # (G): timed run_batch calls
+EVENT_OPTIONS = (("delta_window=16", dict(delta_window=16)),
+                 ("delta_window=32", dict(delta_window=32)),
+                 ("delta_mode=cumsum", dict(delta_mode="cumsum")),
+                 ("threshold=0.05", dict(threshold=0.05)),
+                 ("bm=bk=64", dict(bm=64, bk=64)))
+VMAP_BACKENDS = ("vmap", "device", "numpy")   # (H)
 
 # stated tolerances
 GRAD_CHECK_RTOL = 1e-2                # (B) <g, d> vs the central difference
@@ -614,7 +653,7 @@ def live_tiles(x, w):
 def search_phases(net, xs, chip, *, ckpt_root, expect_launches: dict,
                   card: str, search: dict = SEARCH,
                   throughput: dict = THROUGHPUT,
-                  islands: dict = ISLANDS) -> None:
+                  islands: dict = ISLANDS) -> tuple:
     """Phases (o) to (t) on the slice-1 cell ``(net, xs, chip)``: the
     committed trained profile applied to it, the greedy-then-evolutionary
     search over the profiled cell with both population backends,
@@ -622,7 +661,8 @@ def search_phases(net, xs, chip, *, ckpt_root, expect_launches: dict,
     (:func:`device_search_phases`).  ``expect_launches`` is the kernel
     launches of one ``run_batch`` of the cell (none on the CPU, where
     every wrapper runs its plain version).  Search snapshots go under
-    ``ckpt_root`` (scratch, emptied first)."""
+    ``ckpt_root`` (scratch, emptied first).  Returns the profiled cell's
+    network and phase (p)'s pricing cache (phase H prices from it)."""
     import dataclasses
 
     import numpy as np
@@ -912,8 +952,8 @@ def search_phases(net, xs, chip, *, ckpt_root, expect_launches: dict,
                                 fault_plan=R.FaultPlan(fail={"device": 2}),
                                 **search)
     dem = ev_f.demotions
-    require(len(dem) == 1 and (dem[0].frm, dem[0].to) == ("device", "numpy")
-            and res_f.demotions == dem and ev_f.active_backend == "numpy",
+    require(len(dem) == 1 and (dem[0].frm, dem[0].to) == ("device", "vmap")
+            and res_f.demotions == dem and ev_f.active_backend == "vmap",
             f"scripted demotion: {dem}")
     f_rel = [abs(a.best_time - b.best_time) / b.best_time
              for a, b in zip(res_f.history, h_np)]
@@ -938,6 +978,7 @@ def search_phases(net, xs, chip, *, ckpt_root, expect_launches: dict,
                          same_bits_twice=not diff_twice,
                          ckpt_root=ckpt_root, card=card, search=search,
                          throughput=throughput, islands=islands)
+    return pnet, ev_dev.cache
 
 
 def snapshots(d) -> list[dict]:
@@ -2393,6 +2434,181 @@ def dryrun_phases(*, card: str, full: bool = True) -> None:
             f"(F) the dry-run launched a ported kernel: {launches}")
 
 
+def eighths(t):
+    """``t`` with each nonzero entry rounded to a nonzero multiple of 1/8
+    (zeros, and so densities, kept)."""
+    import torch
+    q = torch.clamp(torch.round(t.abs() * 8), min=1) / 8
+    return torch.where(t != 0, torch.sign(t) * q, t)
+
+
+def event_options_phase(*, device, card: str, sizes=SLICE1_SIZES,
+                        T: int = SLICE1_T, reps: int = OPTION_REPS) -> dict:
+    """Phase (G): ``EventCompute``'s options, each of ``EVENT_OPTIONS`` in
+    kernel mode on ``device`` against the host's gather run with the same
+    options, on the slice-1 cell copied onto the 1/8 grid (see the module
+    docstring).  Returns the phase's line."""
+    import torch
+    from repro_torch.core.hlo_cost import ported_kernels
+    from repro_torch.neuromorphic import (EventCompute, SimLayer,
+                                          SimNetwork, fc_network,
+                                          make_inputs)
+
+    t_phase = time.perf_counter()
+    dev = torch.device(device)
+    host = torch.device("cpu")
+    on_card = dev.type == "cuda"
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize()
+
+    base = fc_network(list(sizes), weight_density=0.5,
+                      neuron_model="sd_relu", seed=0, device=dev)
+
+    def grid_copy(d):
+        return SimNetwork(layers=[SimLayer(
+            name=l.name, kind="fc", weights=eighths(l.weights).to(d),
+            neuron_model="sd_relu", threshold=OPTION_THETA)
+            for l in base.layers], in_size=sizes[0])
+    net, net_h = grid_copy(dev), grid_copy(host)
+    xs = eighths(make_inputs(sizes[0], density=0.1, steps=T, seed=1,
+                             device=dev))
+    xs[(torch.arange(T, device=dev) % OPTION_PERIOD) >= OPTION_KEEP] = 0.0
+    xs_h = xs.cpu()
+    n_delta = len(net.layers) - 1          # every layer after an sd_relu one
+    counted = ported_kernels()
+    rows = {}
+    for name, kw in EVENT_OPTIONS:
+        cc = EventCompute(mode="kernel", **kw)
+        windowed = kw.get("delta_mode", "window") == "window"
+        # a value and a counter launch per layer, one value-only launch for
+        # each delta layer's base rows when windowed
+        expect = {"event_matmul2": (2 * len(net.layers)
+                                    + (n_delta if windowed else 0)),
+                  "window_cumsum": n_delta if windowed else 0}
+        if not on_card:
+            expect = dict.fromkeys(expect, 0)
+        for fn in counted.values():
+            fn.launches = 0
+        sync()
+        t0 = time.perf_counter()
+        out, cnt = net.run_batch(xs, compute=cc)
+        sync()
+        first_s = time.perf_counter() - t0
+        launches = {k: counted[k].launches for k in expect}
+        require(launches == expect
+                and not any(fn.launches for k, fn in counted.items()
+                            if k not in expect),
+                f"(G) {name}: launches {launches} != {expect}")
+        walls = []
+        for _ in range(reps):
+            sync()
+            t0 = time.perf_counter()
+            net.run_batch(xs, compute=cc)
+            sync()
+            walls.append(time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        out_h, cnt_h = net_h.run_batch(
+            xs_h, compute=EventCompute(mode="gather", **kw))
+        host_s = time.perf_counter() - t0
+        for layer, a, b in zip(net.layers, cnt, cnt_h):
+            for f in FIELDS:
+                exact(getattr(a, f).cpu(), getattr(b, f),
+                      f"(G) {name}: {layer.name} {f} against the host")
+        err = close(out.cpu(), out_h, REPORT_RTOL, 0.0,
+                    f"(G) {name}: outputs against the host")
+        require(bool(torch.isfinite(out).all()), f"(G) {name}: non-finite")
+        rows[name] = {
+            "window": cc._delta_window_size(dev) if windowed else None,
+            "launches": launches, "first_run_s": first_s,
+            "run_batch_s": statistics.median(walls), "run_batch_s_all": walls,
+            "host_gather_run_batch_s": host_s,
+            "outputs_max_abs_err": err,
+            "msgs_out_per_layer": [int(c.msgs_out.sum()) for c in cnt]}
+    window_rows = [n for n, kw in EVENT_OPTIONS if "delta_mode" not in kw]
+    line = {"phase": "event_options", "card": card,
+            "cell": {"sizes": list(sizes), "T": T,
+                     "grid": "weights, inputs and threshold multiples of "
+                             "1/8", "sigma_delta_threshold": OPTION_THETA,
+                     "bursty": f"events in the first {OPTION_KEEP} of "
+                               f"every {OPTION_PERIOD} steps"},
+            "counters": "bit-identical to the host's gather run",
+            "outputs_rtol": REPORT_RTOL, "options": rows,
+            "run_batch_s_window_vs_cumsum": {
+                n: rows[n]["run_batch_s"]
+                for n in window_rows + ["delta_mode=cumsum"]},
+            "phase_wall_s": time.perf_counter() - t_phase}
+    emit(line)
+    return line
+
+
+def vmap_pricing_phase(pnet, xs, chip, *, cache, cands, card: str) -> dict:
+    """Phase (H): ``cands`` priced through ``evaluate_population`` with
+    each of ``VMAP_BACKENDS`` from ``cache`` (phase p's pricing cache of
+    the profiled cell ``(pnet, xs, chip)``), ``"vmap"`` and ``"device"``
+    held to ``"numpy"`` at ``POP_RTOL``; then one scripted fault at the
+    device site, which must demote to vmap.  Returns the phase's line."""
+    import dataclasses
+
+    import torch
+    from repro_torch.core import resilience as R
+    from repro_torch.core.partitioner import SimEvaluator
+
+    t_phase = time.perf_counter()
+    on_card = pnet.device.type == "cuda"
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize()
+
+    K = len(cands)
+    reports, walls, peaks = {}, {}, {}
+    for backend in VMAP_BACKENDS:
+        ev = SimEvaluator(pnet, xs, chip, cache=cache,
+                          population_backend=backend, fallback=False)
+        # the vmap and device pricers are built on first use: time a
+        # second call too
+        for run in ("timed",) if backend == "numpy" else ("first", "timed"):
+            if on_card:
+                torch.cuda.reset_peak_memory_stats()
+            sync()
+            t0 = time.perf_counter()
+            reports[backend] = ev.evaluate_population(cands)
+            sync()
+            walls[f"{backend}_{run}"] = time.perf_counter() - t0
+        if on_card:
+            peaks[backend] = torch.cuda.max_memory_allocated()
+        require(ev.n_evals == K * (1 if backend == "numpy" else 2)
+                and ev.active_backend == backend,
+                f"(H) {backend}: {ev.n_evals} evaluations")
+    err = {b: reports_close(reports[b], reports["numpy"], POP_RTOL)
+           for b in ("vmap", "device")}
+    ev_f = SimEvaluator(pnet, xs, chip, cache=cache,
+                        population_backend="device",
+                        fault_plan=R.FaultPlan(fail={"device": 2}))
+    r_f = ev_f.evaluate_population(cands)
+    dem = ev_f.demotions
+    require(len(dem) == 1 and (dem[0].frm, dem[0].to) == ("device", "vmap")
+            and ev_f.active_backend == "vmap",
+            f"(H) scripted demotion: {dem}")
+    demoted_err = reports_close(r_f, reports["numpy"], POP_RTOL)
+    line = {"phase": "vmap_pricing", "card": card, "candidates": K,
+            "cache": "phase (p), the profiled slice-1 cell",
+            "wall_s": walls,
+            "candidates_per_s": {b: K / walls[f"{b}_timed"]
+                                 for b in VMAP_BACKENDS},
+            "peak_device_bytes": peaks,
+            "max_rel_diff_vs_numpy": err, "rtol": POP_RTOL,
+            "scripted_demotion": {
+                "fault_plan": "fail={'device': 2}",
+                "demotions": [dataclasses.asdict(d) for d in dem],
+                "max_rel_diff_vs_numpy": demoted_err},
+            "phase_wall_s": time.perf_counter() - t_phase}
+    emit(line)
+    return line
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2467,8 +2683,8 @@ def main() -> int:
           "cuda": torch.version.cuda})
 
     # -------------------------------------------------------- (b) main path
-    sizes = [1024, 2048, 1024, 1024, 512]
-    T = 1024
+    sizes = list(SLICE1_SIZES)
+    T = SLICE1_T
     net = fc_network(sizes, weight_density=0.5, neuron_model="sd_relu",
                      seed=0, device=DEVICE)
     for layer in net.layers:
@@ -3496,8 +3712,9 @@ def main() -> int:
     # ------------- (o)-(q) trained profile, search, resume at the cell
     del cache, run_p, ev_np, ev_dev, r_np, r_dev
     torch.cuda.empty_cache()
-    search_phases(net, xs, prof, ckpt_root=build.BUILD_DIR / "ckpt",
-                  expect_launches=expect, card=card)
+    pnet, pcache = search_phases(net, xs, prof,
+                                 ckpt_root=build.BUILD_DIR / "ckpt",
+                                 expect_launches=expect, card=card)
 
     # --------- (u)-(w) sparsity-aware training and the iso-accuracy loop
     torch.cuda.empty_cache()
@@ -3517,6 +3734,11 @@ def main() -> int:
     torch.cuda.empty_cache()
     step_bound_phases(device=DEVICE, card=card, lm_a=lm_a)
     dryrun_phases(card=card)
+
+    # ------------ (G)-(H) EventCompute's options, the vmap population
+    torch.cuda.empty_cache()
+    event_options_phase(device=DEVICE, card=card)
+    vmap_pricing_phase(pnet, xs, prof, cache=pcache, cands=cands, card=card)
 
     emit({"kernels": [mm, wc, fa, em1, sdk]})
     print(card, flush=True)

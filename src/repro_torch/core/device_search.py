@@ -15,7 +15,7 @@ tensors on the pricing cache's device:
    into the :class:`~repro_torch.core.search.MoveTables` matrix, and the
    fallback is a masked cascade (split, then merge, then swap);
 3. **pricing**: the cache's :class:`~repro_torch.neuromorphic.timestep.
-   PopulationPricer` over the offspring rows;
+   DevicePopulationPricer` over the offspring rows;
 4. **survival** (:func:`pareto_ranks_array`, :func:`survival_order_array`):
    nondomination ranks, the ``(rank, time, energy, index)`` order and a
    sort-based phenotype dedup, keeping the ``population_size`` best unique
@@ -595,7 +595,7 @@ class _GenerationProgram:
 class DeviceSearchEngine(_GenerationProgram):
     """One workload's generation machinery on the pricing cache's device,
     priced by the cache's :class:`~repro_torch.neuromorphic.timestep.
-    PopulationPricer` (:func:`~repro_torch.neuromorphic.timestep.
+    DevicePopulationPricer` (:func:`~repro_torch.neuromorphic.timestep.
     device_pricer`).  State is a dict of device tensors ``{cores, perm,
     times, energies, stage, hot_mem, hot_act}`` kept (rank, time,
     energy)-sorted."""

@@ -54,8 +54,9 @@ class SimEvaluator:
 
     ``population_backend`` selects how :meth:`evaluate_population` prices
     a population: ``"numpy"`` (per candidate, bit-identical to
-    ``simulate``) or ``"device"`` (one batched program; float64
-    roundoff).
+    ``simulate``), ``"vmap"`` (``torch.func.vmap`` of one candidate's
+    pricer) or ``"device"`` (one batched program); the last two agree
+    with ``"numpy"`` to float64 roundoff.
 
     ``sparsity_profile`` programs a trained
     :class:`~repro_torch.sparsity.profile.SparsityProfile` onto ``net``
@@ -63,7 +64,8 @@ class SimEvaluator:
     shared ``cache``, which is bound to the un-profiled network.
 
     Population pricing degrades gracefully: a backend failure is retried
-    per ``retry`` and then demoted down the ``device -> numpy`` chain
+    per ``retry`` and then demoted down the ``device -> vmap -> numpy``
+    chain
     (:class:`~repro_torch.core.resilience.FallbackChain`; sticky, logged,
     recorded in :attr:`demotions`).  The chain wraps population pricing
     only, never the functional run: a kernel that fails to build or launch

@@ -10,10 +10,9 @@ primitives keep it alive and honest, as in the JAX package:
   ``.npz`` next to the arrays it describes.  Resume is bit-identical to
   the uninterrupted run, and a snapshot written by either package restores
   in the other.
-* :class:`FallbackChain` — graceful pricing degradation ``device ->
-  numpy`` with structured retry / backoff.  The port has no ``"vmap"``
-  backend, so its chain has two links where the JAX package's has three.
-  The two population backends agree at float64 roundoff, so a mid-run
+* :class:`FallbackChain` — graceful pricing degradation ``device -> vmap
+  -> numpy`` with structured retry / backoff, the JAX package's three
+  links.  The population backends agree at float64 roundoff, so a mid-run
   demotion changes the trajectory by at most rtol 1e-9 against a
   numpy-only run.
 * :func:`quarantine_rows` — non-finite screening: NaN/inf (time, energy)
@@ -154,7 +153,7 @@ class Demotion:
 
 
 class FallbackChain:
-    """Sticky pricing-backend degradation ``device -> numpy``.
+    """Sticky pricing-backend degradation ``device -> vmap -> numpy``.
 
     :meth:`run` calls ``attempt(backend)`` with the current backend,
     retrying per the :class:`RetryPolicy`; when a backend's retries are
@@ -163,7 +162,7 @@ class FallbackChain:
     link; its failure propagates.  :class:`SimulatedCrash` is never
     absorbed."""
 
-    CHAIN = ("device", "numpy")
+    CHAIN = ("device", "vmap", "numpy")
 
     def __init__(self, backend: str = "numpy",
                  retry: RetryPolicy | None = None):

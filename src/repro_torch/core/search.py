@@ -7,9 +7,10 @@ backtrack.  That is cheap but easily trapped.  A population-based search
 holds many (partition, mapping) hypotheses at once, and the batched
 engine's pricing split makes it affordable: one functional run + per-layer
 counter cumsums (:func:`repro_torch.neuromorphic.timestep.
-precompute_pricing`) price a whole generation, per candidate (``"numpy"``)
-or as one batched device program (``"device"``, the
-:class:`~repro_torch.neuromorphic.timestep.PopulationPricer`).
+precompute_pricing`) price a whole generation, per candidate (``"numpy"``),
+as one ``torch.func.vmap`` over padded structures (``"vmap"``) or as one
+batched device program (``"device"``, the
+:class:`~repro_torch.neuromorphic.timestep.DevicePopulationPricer`).
 
 The genome representation is tensor-first: a generation lives in a
 :class:`Population` — a ``(K, n_layers)`` core-count matrix plus a

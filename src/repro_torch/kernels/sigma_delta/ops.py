@@ -118,7 +118,10 @@ def window_reconstruct(x: torch.Tensor, acc: torch.Tensor, *, window: int
     window] + xwin[t]`` (see :func:`..ref.window_reconstruct_ref`): the
     per-window carried accumulators, the within-window cumulative sums
     (exact zeros throughout quiet windows), and the accumulator to carry
-    into the next batch."""
+    into the next batch.  ``window`` must be a multiple of 8, as the JAX
+    package's kernel requires."""
+    if window % 8:
+        raise ValueError(f"window must be a multiple of 8, got {window}")
     T, n = x.shape
     pt = (-T) % window
     xp = F.pad(x.to(torch.float32), (0, 0, 0, pt))

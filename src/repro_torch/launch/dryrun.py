@@ -12,7 +12,12 @@ analyzer scales its scan body.  Each record holds the count, the three
 floorline terms and a one-card memory account: the step's argument
 bytes, the peak of live bytes during the counted call, and whether the
 two fit the card's memory (a cell that does not is recorded with
-``"fits": false``, not as an error).
+``"fits": false``, not as an error).  Beside the card's state bytes,
+``mesh_state_bytes_per_device`` holds the per-device state bytes on the
+reference's production meshes (``launch.mesh.PRODUCTION_MESHES``), from
+the sharding specs (``distributed.sharding.spec_bytes``): parameters and
+optimizer state for a train cell, parameters for prefill, parameters and
+the decode cache (the port's cache layout) for decode.
 
   python -m repro_torch.launch.dryrun --arch gemma2-2b --shape train_4k
   python -m repro_torch.launch.dryrun --arch olmoe-1b-7b --shape train_4k \\
@@ -40,7 +45,8 @@ from repro_torch.configs import registry
 from repro_torch.configs.shapes import ShapeSpec
 from repro_torch.core import hlo_cost
 from repro_torch.core import tpu_floorline as tfl
-from repro_torch.distributed import autoshard
+from repro_torch.distributed import autoshard, sharding
+from repro_torch.launch.mesh import PRODUCTION_MESHES
 from repro_torch.models import encdec, layers, lm
 from repro_torch.train import optim, schedules
 from repro_torch.train import step as step_lib
@@ -102,6 +108,19 @@ def build_cell(arch_id: str, shape: "str | ShapeSpec", *,
     meta = {"arch": arch_id, "shape": shape.name, "kind": shape.kind,
             "seq_len": shape.seq_len, "global_batch": shape.global_batch,
             "n_chips": 1, "params": int(cfg.param_count())}
+    ctxs = {name: (mesh, sharding.make_ctx(mesh,
+                                           batch_size=shape.global_batch))
+            for name, mesh in PRODUCTION_MESHES.items()}
+
+    def mesh_bytes(trees) -> dict:
+        """Per-device bytes on each production mesh of the (tree, specs
+        of a ShardCtx) pairs ``trees(ctx)`` gives."""
+        return {name: sum(sharding.spec_bytes(t, s, mesh)
+                          for t, s in trees(ctx))
+                for name, (mesh, ctx) in ctxs.items()}
+
+    params = step_lib.param_tree(model)
+    pspecs = lambda ctx: sharding.param_specs(cfg, ctx)
 
     if shape.kind == "train":
         M = microbatches or shape.global_batch
@@ -116,16 +135,22 @@ def build_cell(arch_id: str, shape: "str | ShapeSpec", *,
                                           grad_accum_dtype=accum)
         meta.update(microbatches=M, optimizer=opt.name,
                     state_bytes_per_device=_bytes(state["params"])
-                    + _bytes(state["opt"]))
+                    + _bytes(state["opt"]),
+                    mesh_state_bytes_per_device=mesh_bytes(lambda ctx: (
+                        (params, pspecs(ctx)),
+                        (state["opt"], opt.state_specs(params, pspecs(ctx),
+                                                       ctx)))))
         return Cell(fn, (state, batch), meta, cfg, shape,
                     _bytes((state, batch)), parts)
 
     if shape.kind == "prefill":
         batch = _inputs(entry.input_specs(shape, cfg=cfg))
-        params = _bytes(step_lib.param_tree(model))
-        meta["state_bytes_per_device"] = params
+        meta["state_bytes_per_device"] = _bytes(params)
+        meta["mesh_state_bytes_per_device"] = mesh_bytes(
+            lambda ctx: ((params, pspecs(ctx)),))
         return Cell(lambda b: step_lib.make_prefill_step(cfg)(model, b),
-                    (batch,), meta, cfg, shape, params + _bytes(batch))
+                    (batch,), meta, cfg, shape,
+                    meta["state_bytes_per_device"] + _bytes(batch))
 
     # decode: one token at the last position of a full seq_len cache
     B = shape.global_batch
@@ -133,8 +158,10 @@ def build_cell(arch_id: str, shape: "str | ShapeSpec", *,
     tokens = torch.empty((B, 1), dtype=torch.int32, device=META)
     serve = step_lib.make_serve_step(cfg)
     meta["cache_bytes_per_device"] = _bytes(cache)
-    meta["state_bytes_per_device"] = (_bytes(step_lib.param_tree(model))
+    meta["state_bytes_per_device"] = (_bytes(params)
                                       + meta["cache_bytes_per_device"])
+    meta["mesh_state_bytes_per_device"] = mesh_bytes(lambda ctx: (
+        (params, pspecs(ctx)), (cache, lib.cache_spec(cfg, ctx))))
     return Cell(lambda c, t: serve(model, t, c, shape.seq_len - 1),
                 (cache, tokens), meta, cfg, shape,
                 meta["state_bytes_per_device"] + _bytes(tokens))

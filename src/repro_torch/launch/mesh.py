@@ -11,6 +11,11 @@ from __future__ import annotations
 
 import math
 
+#: The reference's production meshes as axis-name -> size mappings, in axis
+#: order: one 256-chip pod and two pods of 256 chips.
+PRODUCTION_MESHES = {"pod": {"data": 16, "model": 16},
+                     "multipod": {"pod": 2, "data": 16, "model": 16}}
+
 
 def make_mesh(shape: tuple[int, ...], axes: tuple[str, ...]
               ) -> tuple[str, ...]:
@@ -27,7 +32,9 @@ def make_mesh(shape: tuple[int, ...], axes: tuple[str, ...]
 
 def make_production_mesh(*, multi_pod: bool = False):
     """The reference's production mesh, which one card cannot hold."""
-    n, shape = (512, (2, 16, 16)) if multi_pod else (256, (16, 16))
+    shape = tuple(PRODUCTION_MESHES["multipod" if multi_pod
+                                    else "pod"].values())
+    n = math.prod(shape)
     raise RuntimeError(f"the production mesh {shape} needs {n} chips; the "
                        "port runs on one card (launch.dryrun counts each "
                        "cell on it)")

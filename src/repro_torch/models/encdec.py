@@ -10,7 +10,8 @@ model-zoo frontend also lowers :class:`EncDecCfg` onto the simulator.
 Entry points, with the reference's names: ``init_params`` /
 ``params_from_numpy`` (and the inverse ``params_to_numpy``, with
 ``param_layout``), ``encode``, ``decode_train``, ``loss_fn``,
-``init_cache``, ``precompute_cross_cache`` and ``decode_step``;
+``init_cache`` (its sharding specs ``cache_spec``),
+``precompute_cross_cache`` and ``decode_step``;
 ``abstract_params`` and ``abstract_cache`` build on ``meta`` tensors for
 the dry-run.  With
 ``cfg.remat == "block"`` a forward that records gradients recomputes each
@@ -252,6 +253,19 @@ def _cache(cfg: EncDecCfg, B: int, max_len: int, dev) -> list[dict]:
     xv = (B, cfg.n_frames, cfg.n_kv_heads, cfg.head_dim)
     z = lambda shape: torch.zeros(shape, dtype=dtype, device=dev)
     return [{"k": z(kv), "v": z(kv), "xk": z(xv), "xv": z(xv)}
+            for _ in range(cfg.n_dec_layers)]
+
+
+def cache_spec(cfg: EncDecCfg, ctx) -> list[dict]:
+    """Sharding specs of the decode cache (``distributed.sharding``), one
+    dict per decoder layer as :func:`init_cache` lays it out: the self-
+    attention KV sequence over `model`; the cross K/V span the fixed
+    encoder frames (not 16-divisible, and small) and are replicated over
+    `model`.  The JAX package's specs less its stacked layer axis."""
+    dp = ctx.dp_spec
+    s = (dp, ctx.tp, None, None)        # (B, S, K, hd): S over model
+    x = (dp, None, None, None)
+    return [{"k": s, "v": s, "xk": x, "xv": x}
             for _ in range(cfg.n_dec_layers)]
 
 

@@ -10,6 +10,7 @@ Entry points, with the reference's names:
   init_params(cfg, seed, device) / params_from_numpy(cfg, tree, device)
   params_to_numpy(model) / param_layout(model)  -> the reference's tree
   init_cache(cfg, B, max_len, device)   -> one cache dict per block
+  cache_spec(cfg, ctx)                  -> its sharding specs, per block
   abstract_params(cfg) / abstract_cache(cfg, B, max_len) -> the same on
                                            ``meta`` tensors (the dry-run)
   forward(model, tokens)                -> (final hidden states, aux)
@@ -200,6 +201,29 @@ def abstract_cache(cfg: ModelCfg, B: int, max_len: int) -> list[dict]:
 def _cache(cfg: ModelCfg, B: int, max_len: int, device) -> list[dict]:
     return [_block_cache(b, cfg, B, max_len, dt(cfg.param_dtype), device)
             for b in cfg.all_blocks()]
+
+
+def cache_spec(cfg: ModelCfg, ctx) -> list[dict]:
+    """Sharding specs of the decode cache (``distributed.sharding``), one
+    dict per block as :func:`init_cache` lays it out: the KV sequence over
+    `model` (flash-decoding), recurrent states channel-sharded over
+    `model`.  The JAX package stacks the pattern's repeats on a leading
+    axis; here each block has its own entry, so the specs are the JAX
+    package's less the repeat axis.  A window block holds ``min(window,
+    max_len)`` slots in both packages' ``init_cache`` (the reference's
+    serving engine grows it to ``max_len``, ROADMAP reference fault 2;
+    the specs follow this layout)."""
+    dp = ctx.dp_spec
+
+    def blk_spec(blk: BlockCfg) -> dict:
+        if blk.kind == "attn":
+            return {"k": (dp, ctx.tp, None, None),
+                    "v": (dp, ctx.tp, None, None)}
+        if blk.kind == "ssd":
+            return {"conv": (dp, None, ctx.tp),
+                    "state": (dp, ctx.tp, None, None)}
+        return {"conv": (dp, None, ctx.tp), "h": (dp, ctx.tp)}
+    return [blk_spec(b) for b in cfg.all_blocks()]
 
 
 # --------------------------------------------------------------------------

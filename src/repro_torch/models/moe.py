@@ -34,6 +34,20 @@ class MoE(Params):
             self.weight("s_wo", (ffs, d), ffs)
 
 
+def moe_param_specs(cfg: ModelCfg, m: MoECfg, ctx) -> dict:
+    """Sharding specs of an :class:`MoE` block's leaves
+    (``distributed.sharding``): experts over `data` when there is a mesh,
+    their feed-forward dims over `model`."""
+    ep = "data" if ctx.mesh is not None else None
+    tp = ctx.tp
+    specs = {"router": (None, None), "wi": (ep, None, tp),
+             "wg": (ep, None, tp), "wo": (ep, tp, None)}
+    if m.n_shared_experts:
+        specs.update({"s_wi": (None, tp), "s_wg": (None, tp),
+                      "s_wo": (tp, None)})
+    return specs
+
+
 def moe(x: torch.Tensor, p: MoE, m: MoECfg, cfg: ModelCfg, *,
         decode: bool = False):
     """MoE block.  x: (B, S, d).  Returns (y, aux dict of 0-d tensors)."""

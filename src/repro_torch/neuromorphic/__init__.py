@@ -26,15 +26,18 @@ from repro_torch.neuromorphic.partition import (Partition, minimal_partition,
 from repro_torch.neuromorphic.platform import (NEURON_COST, PROFILES,
                                                ChipProfile, akd1000_like,
                                                loihi2_like, speck_like)
-from repro_torch.neuromorphic.timestep import (LayerStageTimes,
-                                               PopulationPricer,
+from repro_torch.neuromorphic.timestep import (DevicePopulationPricer,
+                                               LayerStageTimes,
+                                               PopulationBatch,
                                                PricingCache, SimReport,
+                                               build_population_batch,
                                                device_pricer,
                                                layer_stage_times,
                                                precompute_pricing,
                                                price_candidate,
                                                price_population_device,
                                                price_population_sharded,
+                                               price_population_vmap,
                                                simulate, simulate_population)
 
 __all__ = [
@@ -50,8 +53,10 @@ __all__ = [
     "Partition", "minimal_partition", "validate_partition",
     "NEURON_COST", "PROFILES", "ChipProfile", "akd1000_like", "loihi2_like",
     "speck_like",
-    "LayerStageTimes", "PopulationPricer", "PricingCache", "SimReport",
-    "device_pricer", "layer_stage_times",
+    "DevicePopulationPricer", "LayerStageTimes", "PopulationBatch",
+    "PricingCache", "SimReport",
+    "build_population_batch", "device_pricer", "layer_stage_times",
     "precompute_pricing", "price_candidate", "price_population_device",
-    "price_population_sharded", "simulate", "simulate_population",
+    "price_population_sharded", "price_population_vmap", "simulate",
+    "simulate_population",
 ]

@@ -22,7 +22,7 @@ model prices.  :class:`SimLayer` delegates it to a :class:`LayerCompute`:
     (:func:`repro_torch.kernels.sigma_delta.ops.window_reconstruct`).  On
     CPU tensors the kernel wrappers run their plain PyTorch versions.
   - ``"gather"`` — the column-granular host expression of the same
-    contract: per :data:`GATHER_BM`-row tile the union of active input columns
+    contract: per ``gather_bm``-row tile the union of active input columns
     is compacted and only those weight rows enter one dense contraction.
   - ``"auto"`` picks ``kernel`` for layers on a CUDA device and ``gather``
     on the CPU.
@@ -37,15 +37,13 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels.event_matmul.ops import (KERNEL_TILE, KernelWeights,
+                                                  event_matmul2,
                                                   event_matmul_packed,
                                                   weight_block_occupancy)
 from repro_torch.kernels.sigma_delta.ops import window_reconstruct
 
 #: Backend used when a ``compute=`` argument is omitted.
 DEFAULT_COMPUTE = "dense"
-
-#: Row tile of the gather mode's column compaction (timesteps per tile).
-GATHER_BM = 32
 
 
 def _seq_cumsum(x: torch.Tensor) -> torch.Tensor:
@@ -187,15 +185,15 @@ def _patch_weights(layer) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
 class _WeightBlocks:
     """Block-CSR weight-sparsity structure for one 2-D weight matrix
     ``w``: ``live`` (K,) bool marks weight rows with >= 1 nonzero; ``occ``
-    is the (Kb, Nb) bool :data:`KERNEL_TILE`-square weight-tile occupancy
-    map on the weights' device."""
+    is the (Kb, Nb) bool (bk, bn) weight-tile occupancy map on the
+    weights' device."""
 
-    __slots__ = ("w", "live", "occ", "_kernel")
+    __slots__ = ("w", "live", "occ", "bk", "bn", "_kernel")
 
-    def __init__(self, w2: torch.Tensor):
-        self.w = w2
+    def __init__(self, w2: torch.Tensor, bk: int, bn: int):
+        self.w, self.bk, self.bn = w2, bk, bn
         self.live = (w2 != 0).any(dim=1)
-        self.occ = weight_block_occupancy(w2, KERNEL_TILE, KERNEL_TILE)
+        self.occ = weight_block_occupancy(w2, bk, bn)
         self._kernel = None
 
     @classmethod
@@ -203,15 +201,16 @@ class _WeightBlocks:
         """Row-liveness-only structure (conv gather, where the patch-weight
         feature axis is compacted per call)."""
         wb = cls.__new__(cls)
-        wb.w = wb._kernel = None
+        wb.w = wb._kernel = wb.bk = wb.bn = None
         wb.live = live
         wb.occ = torch.ones((1, 1), dtype=torch.bool, device=live.device)
         return wb
 
     def kernel_weights(self) -> tuple[KernelWeights, KernelWeights]:
         """The value weights (float32) and their nnz mask (int8) in the
-        kernel's layout, both with ``occ``: built at first use, then
-        cached with this structure, i.e. once per layer."""
+        kernel's layout, both with ``occ`` (128-square tiles only): built
+        at first use, then cached with this structure, i.e. once per
+        layer."""
         if self._kernel is None:
             self._kernel = (
                 KernelWeights(self.w.to(torch.float32), self.occ),
@@ -219,15 +218,16 @@ class _WeightBlocks:
         return self._kernel
 
 
-def _fc_weight_blocks(layer) -> _WeightBlocks:
-    return derived_from_weights(layer, "_fc_weight_blocks",
-                                lambda l: _WeightBlocks(l.weights))
-
-
-def _conv_weight_blocks(layer) -> _WeightBlocks:
+def _fc_weight_blocks(layer, bk: int, bn: int) -> _WeightBlocks:
     return derived_from_weights(
-        layer, "_conv_weight_blocks",
-        lambda l: _WeightBlocks(_patch_weights(l)[0]))
+        layer, f"_fc_weight_blocks_{bk}x{bn}",
+        lambda l: _WeightBlocks(l.weights, bk, bn))
+
+
+def _conv_weight_blocks(layer, bk: int, bn: int) -> _WeightBlocks:
+    return derived_from_weights(
+        layer, f"_conv_weight_blocks_{bk}x{bn}",
+        lambda l: _WeightBlocks(_patch_weights(l)[0], bk, bn))
 
 
 def _im2col(x4: torch.Tensor, kh: int, kw: int, stride: int,
@@ -249,31 +249,62 @@ def _im2col(x4: torch.Tensor, kh: int, kw: int, stride: int,
 class EventCompute(LayerCompute):
     """Event-driven synaptic forward: skip all work for event-free inputs.
 
-    An event is a nonzero activation, so every mode equals the dense
-    contraction exactly.  Kernel mode runs :data:`KERNEL_TILE`-square
-    tiles (the CUDA kernel's); ``mode`` picks the kernel path (module
-    docstring).
+    ``threshold`` defines an event (``|x| > threshold``).  At 0.0, the
+    simulator's wire semantics where any nonzero message is an event,
+    every mode equals the dense contraction exactly, since skipped inputs
+    contribute exact zeros; above it, gather mode drops sub-threshold
+    columns per row tile and kernel mode skips (bm, bk) tiles with no
+    entry above it, two different approximations.  ``bm``/``bk``/``bn``
+    are kernel mode's tiles: at 128 each (the CUDA kernel's) and threshold
+    0 the layer's weights are laid out for the kernel once
+    (:func:`event_matmul_packed`); other tiles or a threshold go through
+    :func:`event_matmul2`, which zeroes dead tiles and keeps the kernel's
+    128 tile.  ``gather_bm`` is gather mode's row tile.  ``delta_mode``
+    ``"window"`` reconstructs sigma-delta inputs by temporal tiles of
+    ``delta_window`` steps (by default ``bm`` in kernel mode, so quiet
+    windows line up with skippable activation tiles, ``max(8,
+    gather_bm)`` otherwise); ``"cumsum"`` takes the dense time cumsum.
+    ``mode`` picks the kernel path (module docstring).
     """
 
     name = "event"
 
-    def __init__(self, mode: str = "auto"):
+    def __init__(self, mode: str = "auto", threshold: float = 0.0,
+                 bm: int = 128, bk: int = 128, bn: int = 128,
+                 gather_bm: int = 32, delta_mode: str = "window",
+                 delta_window: int | None = None):
         if mode not in ("auto", "kernel", "gather"):
             raise ValueError(f"unknown event kernel mode {mode!r}")
+        if delta_mode not in ("window", "cumsum"):
+            raise ValueError(f"unknown delta mode {delta_mode!r}")
         self.mode = mode
+        self.threshold = float(threshold)
+        self.bm, self.bk, self.bn = bm, bk, bn
+        self.gather_bm = int(gather_bm)
+        self.delta_mode = delta_mode
+        self.delta_window = delta_window
 
     def _kernel_mode(self, device: torch.device) -> str:
         if self.mode != "auto":
             return self.mode
         return "kernel" if device.type == "cuda" else "gather"
 
+    def _packed(self) -> bool:
+        """Kernel mode on weights laid out once per layer: the kernel's
+        own tiles and no threshold."""
+        return (self.bm, self.bk, self.bn) == (KERNEL_TILE,) * 3 \
+            and self.threshold == 0.0
+
     def _delta_window_size(self, device: torch.device) -> int:
-        """Temporal tile length for windowed delta reconstruction: the
-        kernel's time tile in kernel mode, so quiet windows line up with
-        skippable activation tiles; the gather row tile otherwise."""
+        """Temporal tile length for windowed delta reconstruction:
+        ``delta_window`` when given, else the kernel's time tile ``bm`` in
+        kernel mode, else a sublane-aligned multiple of the gather row
+        tile."""
+        if self.delta_window is not None:
+            return int(self.delta_window)
         if self._kernel_mode(device) == "kernel":
-            return KERNEL_TILE
-        return GATHER_BM
+            return self.bm
+        return max(8, self.gather_bm)
 
     # ---------------------------------------------------- event contractions
     def _gather_matmul(self, x: torch.Tensor, w: torch.Tensor,
@@ -286,8 +317,8 @@ class EventCompute(LayerCompute):
         their slice.  Dropped operands are exact zeros."""
         M, K = x.shape
         N = w.shape[1]
-        bm = bm or GATHER_BM
-        mask = x.abs() > 0
+        bm = max(1, bm or self.gather_bm)
+        mask = x.abs() > self.threshold
         live = mask.any(dim=0)
         if wb is not None:
             live &= wb.live                  # CSR row skipping
@@ -298,11 +329,10 @@ class EventCompute(LayerCompute):
             if cols.numel() == 0:
                 continue                     # event-free tile: no fetch
             if wb is not None and wb.occ.shape[1] > 1:
-                nb_live = wb.occ[torch.unique(cols // KERNEL_TILE)].any(
-                    dim=0)
+                nb_live = wb.occ[torch.unique(cols // wb.bk)].any(dim=0)
                 if not bool(nb_live.all()):  # block-CSR n-tile skipping
                     ncols = torch.nonzero(
-                        nb_live.repeat_interleave(KERNEL_TILE)[:N]).flatten()
+                        nb_live.repeat_interleave(wb.bn)[:N]).flatten()
                     out[i0:i1, ncols] = (x[i0:i1, cols]
                                          @ w[cols][:, ncols])
                     continue
@@ -317,25 +347,33 @@ class EventCompute(LayerCompute):
         ``w``'s structures)."""
         if self._kernel_mode(x.device) == "gather":
             return self._gather_matmul(x, w, wb=wb)
-        return event_matmul_packed(x.to(torch.float32),
-                                   wb.kernel_weights()[0])
+        x = x.to(torch.float32)
+        if self._packed():
+            return event_matmul_packed(x, wb.kernel_weights()[0])
+        return event_matmul2(x, w.to(torch.float32), wb.occ,
+                             threshold=self.threshold, bm=self.bm,
+                             bk=self.bk, bn=self.bn)
 
     def _pair(self, x, m, w, wm, wb: _WeightBlocks):
         """(pre, macs) through the selected kernel mode; ``wm`` is the nnz
         mask of ``w``, so both contractions share one occupancy map and
         skip exactly the same tiles.  Kernel mode counts with the int8
-        instance: the 0/1 event mask ``m != 0`` against the cached int8
-        nnz mask, exact."""
+        instance at threshold 0: the 0/1 event mask ``m != 0`` against the
+        int8 nnz mask, exact."""
         if self._kernel_mode(x.device) == "gather":
             return (self._gather_matmul(x, w, wb=wb),
                     self._gather_matmul(m, wm, wb=wb))
-        return (self._values(x, w, wb),
-                event_matmul_packed((m != 0).to(torch.int8),
-                                    wb.kernel_weights()[1]))
+        m8 = (m != 0).to(torch.int8)
+        if self._packed():
+            macs = event_matmul_packed(m8, wb.kernel_weights()[1])
+        else:
+            macs = event_matmul2(m8, (wm != 0).to(torch.int8), wb.occ,
+                                 bm=self.bm, bk=self.bk, bn=self.bn)
+        return self._values(x, w, wb), macs
 
     # ------------------------------------------------------------ layer kinds
     def fc_forward(self, layer, x_eff, act_mask, msgs_in):
-        wb = _fc_weight_blocks(layer)
+        wb = _fc_weight_blocks(layer, self.bk, self.bn)
         pre, macs = self._pair(x_eff, act_mask, layer.weights, layer.w_mask,
                                wb)
         return pre, macs, _fetches(msgs_in, macs.shape)
@@ -349,7 +387,7 @@ class EventCompute(LayerCompute):
         kh, kw = layer.weights.shape[:2]
         cin = a4.shape[1]
         oh, ow = layer.out_hw
-        active_c = a4.abs().amax(dim=(0, 2, 3)) > 0
+        active_c = a4.abs().amax(dim=(0, 2, 3)) > self.threshold
         k_c = int(active_c.sum())
         if k_c == 0:
             T = a4.shape[0]
@@ -368,7 +406,9 @@ class EventCompute(LayerCompute):
         wb = None
         if wlive is not None and not bool(wlive.all()):
             wb = _WeightBlocks.rows_only(wlive)
-        return self._gather_matmul(pat, wf, bm=max(GATHER_BM, oh * ow),
+        # conv rows are window positions (oh * ow per step): a tile holds
+        # at least a whole step's windows
+        return self._gather_matmul(pat, wf, bm=max(self.gather_bm, oh * ow),
                                    wb=wb), rows
 
     def conv_forward(self, layer, x_eff, act_mask, msgs_in):
@@ -389,7 +429,8 @@ class EventCompute(LayerCompute):
             xpat = _im2col(x4, kh, kw, layer.stride, oh, ow)
             mpat = _im2col(m4, kh, kw, layer.stride, oh, ow)
             pre, macs = self._pair(xpat, mpat, wf, wfm,
-                                   _conv_weight_blocks(layer))
+                                   _conv_weight_blocks(layer, self.bk,
+                                                       self.bn))
             fetch_rows = mpat.sum(dim=1)
         fetches = fetch_rows[:, None].expand(T * oh * ow, cout)
         return (_conv_flat(layer, pre, T), _conv_flat(layer, macs, T),
@@ -401,7 +442,7 @@ class EventCompute(LayerCompute):
         rows, whose counters nobody reads)."""
         if layer.kind == "fc":
             return self._values(x_eff, layer.weights,
-                                _fc_weight_blocks(layer))
+                                _fc_weight_blocks(layer, self.bk, self.bn))
         kh, kw = layer.weights.shape[:2]
         oh, ow = layer.out_hw
         wf, _, wlive = _patch_weights(layer)
@@ -410,7 +451,8 @@ class EventCompute(LayerCompute):
             pre, _ = self._conv_gather(x4, wf, layer, wlive)
         else:
             pre = self._values(_im2col(x4, kh, kw, layer.stride, oh, ow),
-                               wf, _conv_weight_blocks(layer))
+                               wf, _conv_weight_blocks(layer, self.bk,
+                                                       self.bn))
         return _conv_flat(layer, pre, x_eff.shape[0])
 
     # --------------------------------------------- temporal-tile delta path
@@ -425,10 +467,11 @@ class EventCompute(LayerCompute):
         matmul skips them; the ``T / window`` base rows pay one small
         value-only contraction (:meth:`value_forward`, no counter
         product).  Counters come from the unchanged ``act_mask`` /
-        ``msgs_in`` and stay bit-identical."""
+        ``msgs_in`` and stay bit-identical.  ``delta_mode="cumsum"``, and a
+        batch no longer than one window, take the dense time cumsum."""
         T = x_in.shape[0]
         window = self._delta_window_size(x_in.device)
-        if T <= window:
+        if self.delta_mode != "window" or T <= window:
             return super().delta_forward(layer, x_in, in_acc, act_mask,
                                          msgs_in)
         if self._kernel_mode(x_in.device) == "kernel":

@@ -16,12 +16,17 @@ message counts they are applied to are float64 tensors on the device.
 The population functions build every candidate's routing structures at
 once, as batched float64 tensors on the device; every entry is an exact
 small-integer count, so they equal the per-candidate tables bit for bit.
+A bytes-keyed LRU (:func:`flow_cache_clear`) keeps each candidate's rows:
+the evolutionary search carries survivors between generations, so most of
+a generation's genomes were routed already and skip the build.
 """
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 import functools
+import threading
 
 import numpy as np
 import torch
@@ -224,8 +229,75 @@ def _genome_slots(cores_rows, phys_rows, grid: tuple[int, int],
     return on(lid), on(router), on(alive), on(np.asarray(last)), L
 
 
+#: Bytes-keyed LRU of per-candidate routing rows, keyed by the table's
+#: kind, the chip, the device and the genome's bytes (core counts and
+#: expressed physical slots), guarded by a lock so population pricing can
+#: be driven from worker threads.
+_FLOW_CACHE: collections.OrderedDict = collections.OrderedDict()
+_FLOW_CACHE_MAX = 4096
+_FLOW_CACHE_LOCK = threading.Lock()
+
+
+def flow_cache_clear() -> None:
+    """Drop the population routing cache (tests / memory pressure)."""
+    with _FLOW_CACHE_LOCK:
+        _FLOW_CACHE.clear()
+
+
+def _cached_rows(kind: str, build, cores_rows, phys_rows,
+                 grid: tuple[int, int], n_cores_phys: int, n_pad: int,
+                 dev: torch.device):
+    """``build(cores_rows, phys_rows)``'s tensors (each with a leading K
+    axis and n_pad rows per candidate) for every candidate, through the
+    LRU: hits are pasted from their cached live rows, the misses built in
+    one batch and stored."""
+    cores_rows = [np.asarray(c, np.int32) for c in cores_rows]
+    phys_rows = [np.asarray(p, np.int32) for p in phys_rows]
+    if len(cores_rows) != len(phys_rows):
+        raise ValueError("cores_rows and phys_rows disagree on K")
+    keys = [(kind, grid, n_cores_phys, str(dev), c.tobytes(), p.tobytes())
+            for c, p in zip(cores_rows, phys_rows)]
+    hits, misses = {}, []
+    with _FLOW_CACHE_LOCK:
+        for k, key in enumerate(keys):
+            hit = _FLOW_CACHE.get(key)
+            if hit is None:
+                misses.append(k)
+            else:
+                _FLOW_CACHE.move_to_end(key)
+                hits[k] = hit
+    built = build([cores_rows[k] for k in misses],
+                  [phys_rows[k] for k in misses]) if misses else None
+    if misses:
+        with _FLOW_CACHE_LOCK:
+            for j, k in enumerate(misses):
+                _FLOW_CACHE[keys[k]] = tuple(t[j] for t in built)
+                _FLOW_CACHE.move_to_end(keys[k])
+            while len(_FLOW_CACHE) > _FLOW_CACHE_MAX:
+                _FLOW_CACHE.popitem(last=False)
+    if not hits:
+        return built
+    K = len(keys)
+    lens = [int(cores_rows[k].sum()) for k in hits]
+    at = torch.as_tensor(np.concatenate(
+        [k * n_pad + np.arange(n) for k, n in zip(hits, lens)]),
+        device=dev)
+    outs = []
+    for i, like in enumerate(next(iter(hits.values()))):
+        out = torch.zeros((K * n_pad,) + tuple(like.shape[1:]),
+                          dtype=like.dtype, device=dev)
+        out.index_copy_(0, at, torch.cat([h[i][:n] for h, n in
+                                          zip(hits.values(), lens)]))
+        out = out.reshape((K, n_pad) + tuple(like.shape[1:]))
+        if misses:
+            out.index_copy_(0, torch.as_tensor(misses, device=dev), built[i])
+        outs.append(out)
+    return tuple(outs)
+
+
 def flow_matrix_population(cores_rows, phys_rows, grid: tuple[int, int],
                            n_cores_phys: int, n_pad: int, *,
+                           cache: bool = True,
                            device: "str | torch.device" = "cuda"
                            ) -> tuple[torch.Tensor, torch.Tensor]:
     """Batched :func:`_flow_matrix`: every candidate's routing structure
@@ -236,20 +308,27 @@ def flow_matrix_population(cores_rows, phys_rows, grid: tuple[int, int],
     and (K, n_pad) float64, row k equal to candidate k's ``_flow_matrix``
     and zero beyond its logical cores.  A core's flow row is the one-hot
     of its router times its layer's destination counts, so the whole
-    population is one scatter."""
+    population's misses are one scatter; ``cache=False`` builds them all
+    and stores nothing."""
     dev = resolve_device(device)
     R = grid[0] * grid[1]
-    lid, router, alive, last, L = _genome_slots(
-        cores_rows, phys_rows, grid, n_cores_phys, n_pad, dev)
-    dest = _layer_dest(lid, router, alive, last, L, R)           # (K, L, R)
-    K = lid.shape[0]
-    rowd = dest.gather(1, lid[..., None].expand(K, n_pad, R)) \
-        * alive[..., None]                                       # (K, n, R)
-    P = torch.zeros((K, n_pad, R, R), dtype=torch.float64, device=dev)
-    P.scatter_(2, router[..., None, None].expand(K, n_pad, 1, R),
-               rowd[:, :, None, :])
-    dup = dest.sum(dim=2).gather(1, lid) * alive
-    return P.reshape(K, n_pad, R * R), dup
+
+    def build(cores_rows, phys_rows):
+        lid, router, alive, last, L = _genome_slots(
+            cores_rows, phys_rows, grid, n_cores_phys, n_pad, dev)
+        dest = _layer_dest(lid, router, alive, last, L, R)       # (K, L, R)
+        K = lid.shape[0]
+        rowd = dest.gather(1, lid[..., None].expand(K, n_pad, R)) \
+            * alive[..., None]                                   # (K, n, R)
+        P = torch.zeros((K, n_pad, R, R), dtype=torch.float64, device=dev)
+        P.scatter_(2, router[..., None, None].expand(K, n_pad, 1, R),
+                   rowd[:, :, None, :])
+        dup = dest.sum(dim=2).gather(1, lid) * alive
+        return P.reshape(K, n_pad, R * R), dup
+    if not cache:
+        return build(cores_rows, phys_rows)
+    return _cached_rows("flow", build, cores_rows, phys_rows, grid,
+                        n_cores_phys, n_pad, dev)
 
 
 def router_incidence_population(cores_rows, phys_rows,
@@ -262,13 +341,18 @@ def router_incidence_population(cores_rows, phys_rows,
     dup)`` with ``PL = P @ path_incidence`` (K, n_pad, R) (router loads
     are ``msgs @ PL``; the (T, R*R) flow tensor never materializes),
     ``ph = P @ pair_hops`` (K, n_pad) and the duplication factors, float64
-    on ``device``.  Integer counts make the fold exact."""
+    on ``device``.  Integer counts make the fold exact.  Each candidate's
+    folded rows are kept in the LRU."""
     dev = resolve_device(device)
-    lid, router, alive, last, L = _genome_slots(
-        cores_rows, phys_rows, grid, n_cores_phys, n_pad, dev)
-    inc3, hops2 = (torch.as_tensor(t, device=dev)
-                   for t in incidence_tables(grid))
-    return _fold(lid, router, alive, last, L, inc3, hops2)
+
+    def build(cores_rows, phys_rows):
+        lid, router, alive, last, L = _genome_slots(
+            cores_rows, phys_rows, grid, n_cores_phys, n_pad, dev)
+        inc3, hops2 = (torch.as_tensor(t, device=dev)
+                       for t in incidence_tables(grid))
+        return _fold(lid, router, alive, last, L, inc3, hops2)
+    return _cached_rows("fold", build, cores_rows, phys_rows, grid,
+                        n_cores_phys, n_pad, dev)
 
 
 def _on(a: np.ndarray, like: torch.Tensor) -> torch.Tensor:

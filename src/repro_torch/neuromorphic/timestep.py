@@ -22,7 +22,9 @@ report matches the JAX package's NumPy pricing to float64 roundoff.
 
 :func:`simulate_population` prices many (partition, mapping) candidates
 from one functional run: per candidate through :func:`price_candidate`
-(``backend="numpy"``), or all at once in one batched float64 program on
+(``backend="numpy"``); as one ``torch.func.vmap`` of a per-candidate
+pricer over padded structures assembled on the host
+(``backend="vmap"``); or all at once in one batched float64 program on
 the device whose input is the stacked genome rows (``backend="device"``;
 ``backend="sharded"`` splits the rows into islands' blocks first).
 """
@@ -39,7 +41,8 @@ from repro_torch.neuromorphic.network import CounterMaps, SimNetwork
 from repro_torch.neuromorphic.noc import (Mapping, cores_per_router,
                                           flow_structures_rows,
                                           incidence_tables, ordered_mapping,
-                                          route_batch, route_step)
+                                          route_batch, route_step,
+                                          router_incidence_population)
 from repro_torch.neuromorphic.partition import (Partition,
                                                 max_cores_for_layer,
                                                 minimal_partition)
@@ -273,14 +276,20 @@ class LayerPricing:
 class PricingCache:
     """Everything :func:`price_candidate` needs that does not depend on
     the candidate: the functional outputs plus per-layer pricing state.
-    ``device_pricer`` lazily holds the population pricer of the
-    ``backend="device"`` path (a cache is bound to one workload)."""
+    ``vmap_pricer`` and ``device_pricer`` lazily hold the population
+    pricers of the ``backend="vmap"`` and ``"device"`` paths (a cache is
+    bound to one workload); ``row_cache`` keeps each partition's padded
+    index rows for the vmap path."""
 
     outputs: torch.Tensor
     T: int
     layers: list[LayerPricing]
+    vmap_pricer: object = dataclasses.field(default=None, repr=False,
+                                            compare=False)
     device_pricer: object = dataclasses.field(default=None, repr=False,
                                               compare=False)
+    row_cache: dict = dataclasses.field(default_factory=dict, repr=False,
+                                        compare=False)
 
 
 def _neuron_csum(per_neuron: torch.Tensor) -> torch.Tensor:
@@ -439,11 +448,10 @@ def price_candidate(net: SimNetwork, profile: ChipProfile,
 
 # ---------------------------------------------------------------- population
 
-#: The population backends :func:`simulate_population` takes.  The JAX
-#: package's ``"vmap"`` pricer is not ported: the batched ``"device"``
-#: program takes its place.  ``"sharded"`` prices on one card, the rows
-#: split into the islands' blocks (:func:`price_population_sharded`).
-POPULATION_BACKENDS = ("numpy", "device", "sharded")
+#: The population backends :func:`simulate_population` takes, the JAX
+#: package's four.  ``"sharded"`` prices on one card, the rows split into
+#: the islands' blocks (:func:`price_population_sharded`).
+POPULATION_BACKENDS = ("numpy", "vmap", "device", "sharded")
 
 
 def population_pad_width(net: SimNetwork, profile: ChipProfile) -> int:
@@ -471,6 +479,11 @@ def simulate_population(net: SimNetwork, xs, profile: ChipProfile,
       mapping)``.  (The JAX package first gathers the whole population's
       segment sums in one stacked indexing operation; the port keeps the
       one pricing path.)
+    * ``backend="vmap"`` — the candidates' padded structures are assembled
+      on the host (:func:`build_population_batch`) and one
+      ``torch.func.vmap`` of a per-candidate pricer over the population
+      axis prices them all (:func:`price_population_vmap`).  Agrees with
+      ``"numpy"`` to float64 roundoff (rtol 1e-9).
     * ``backend="device"`` — the candidates become stacked genome rows,
       (K, n_layers) core counts and (K, n_slots) slot permutations, and
       one batched float64 program derives every candidate's segment
@@ -481,18 +494,12 @@ def simulate_population(net: SimNetwork, xs, profile: ChipProfile,
       islands' blocks (:func:`price_population_sharded`, one island on
       one card).
 
-    ``"vmap"`` raises ``NotImplementedError``.
     ``sparsity_profile`` programs a trained profile onto ``net`` before the
     functional run (mutually exclusive with ``cache`` / ``precomputed``,
     which are bound to the un-profiled network).
     """
     net = apply_profile(net, sparsity_profile, cache=cache,
                         precomputed=precomputed)
-    if backend == "vmap":
-        raise NotImplementedError(
-            "population backend 'vmap' is not ported (the batched 'device' "
-            "program takes its place, ROADMAP queue 1): use 'numpy', "
-            "'device' or 'sharded'")
     if backend not in POPULATION_BACKENDS:
         raise ValueError(f"unknown population backend {backend!r}")
     cands = list(candidates)
@@ -508,6 +515,8 @@ def simulate_population(net: SimNetwork, xs, profile: ChipProfile,
     cache = cache or precompute_pricing(net, xs, profile,
                                         precomputed=precomputed,
                                         compute=compute)
+    if backend == "vmap":
+        return price_population_vmap(net, profile, cache, cands)
     if backend in ("device", "sharded"):
         cores, perm = _pairs_to_rows(cands, len(cache.layers),
                                      profile.n_cores)
@@ -533,38 +542,28 @@ def _pairs_to_rows(pairs, n_layers: int,
     return cores, perm
 
 
-#: Largest (candidates x T x padded cores) block the device pricer works
+#: Largest (candidates x T x padded cores) block a population pricer works
 #: on at once; a larger population is priced in row blocks of this size
 #: (pricing is row-independent, so the blocks' results are the same).
 _BLOCK_ELEMS = 1 << 24
 
 
-class PopulationPricer:
-    """Batched population pricer bound to one :class:`PricingCache`.
-
-    Holds the workload's constants on the cache's device — the counter
-    cumsums of every layer concatenated, per-layer cost coefficients, the
-    routing geometry — and prices stacked genome rows: ``cores`` (K,
-    n_layers) and ``perm`` (K, n_slots).  A candidate's segment bounds,
-    layer ids, routers and NoC structures are all derived from its rows
-    on the device; the K axis is written out (it is the JAX package's
-    ``vmap`` axis).  Boundaries reproduce ``np.linspace(0, n, c + 1)
-    .astype(int)`` exactly: ``int(i * (n / c))`` in float64, the last one
-    pinned to ``n``."""
+class _WorkloadConstants:
+    """A population pricer's workload constants on the cache's device: the
+    counter cumsums of every layer concatenated along the neuron axis, the
+    (T, L) input messages and the per-layer cost coefficients, folded with
+    the same Python-float arithmetic as :func:`core_times` and
+    :func:`price_candidate`."""
 
     def __init__(self, net: SimNetwork, profile: ChipProfile,
                  cache: PricingCache):
         p = self.profile = profile
         self.T = cache.T
         self.n_layers = len(cache.layers)
-        self.n_pad = population_pad_width(net, profile)
-        self.cpr = cores_per_router(profile)
         self.weight_density = (sum(l.w_nnz for l in net.layers)
                                / max(sum(l.n_weights for l in net.layers),
                                      1))
         dev = self.device = cache.layers[0].csum_macs.device
-        # per-layer coefficients, folded with the same Python-float
-        # arithmetic as core_times() and price_candidate()
         mem_msg, mem_syn, ncost, sparse_f, e_act_c = [], [], [], [], []
         for l, lp in enumerate(cache.layers):
             model = net.layers[l].neuron_model
@@ -577,22 +576,254 @@ class PopulationPricer:
             ncost.append(p.neuron_cost(model))
             sparse_f.append(1.0 if lp.sparse else 0.0)
             e_act_c.append(p.e_act * (p.neuron_cost(model) / p.c_act))
-        on = lambda v: torch.as_tensor(v, dtype=_F64, device=dev)
-        self.coefs = tuple(on(v) for v in (mem_msg, mem_syn, ncost,
-                                           sparse_f, e_act_c))
+        self.coefs = tuple(torch.as_tensor(v, dtype=_F64, device=dev)
+                           for v in (mem_msg, mem_syn, ncost, sparse_f,
+                                     e_act_c))
         self.csums = tuple(torch.cat([getattr(lp, f) for lp in cache.layers],
                                      dim=1)
                            for f in ("csum_macs", "csum_fetches",
                                      "csum_acts", "csum_msgs"))
         self.msgs_in = torch.stack([lp.msgs_in for lp in cache.layers],
                                    dim=1)                     # (T, L)
+
+
+# ------------------------------------------------------------ vmap backend
+#
+# One pricing function of one candidate's padded structures, batched over
+# the population axis by ``torch.func.vmap``.  The padding contract is the
+# JAX package's: logical cores are padded to ``Ncap``
+# (:func:`population_pad_width`); a padded core has ``seg_lo == seg_hi ==
+# 0`` (an empty segment: exact zero counters), ``mask == 0`` (its
+# broadcast ``msgs_in`` and fixed overhead are zeroed before any max or
+# sum) and all-zero routing rows.  The per-candidate function has no
+# data-dependent control flow: segment gathers on the cumsums, masks and
+# max/sum reductions, in float64.
+
+
+@dataclasses.dataclass
+class PopulationBatch:
+    """Padded, stacked pricing inputs of one candidate population, on the
+    cache's device.  ``PL``/``ph``/``dup`` are the folded routing rows of
+    :func:`~repro_torch.neuromorphic.noc.router_incidence_population`."""
+
+    mask: torch.Tensor       # (K, Ncap) float64; 1.0 on live cores
+    lid: torch.Tensor        # (K, Ncap) int64 layer id per core (0 on padding)
+    seg_lo: torch.Tensor     # (K, Ncap) int64 into the concatenated cumsums
+    seg_hi: torch.Tensor     # (K, Ncap) int64
+    neurons: torch.Tensor    # (K, Ncap) float64 neurons per core
+    PL: torch.Tensor         # (K, Ncap, R) float64 router-load incidence
+    ph: torch.Tensor         # (K, Ncap) float64 per-core hop factors
+    dup: torch.Tensor        # (K, Ncap) float64 unicast duplication factors
+    n_logical: np.ndarray    # (K,) int
+
+    FIELDS = ("mask", "lid", "seg_lo", "seg_hi", "neurons", "PL", "ph",
+              "dup")
+
+
+#: Per-partition index rows (seg_lo/seg_hi/lid/neurons) depend on neither
+#: the mapping nor the population; survivors carried between generations
+#: reuse them (``PricingCache.row_cache``, at most this many).
+_ROW_CACHE_MAX = 8192
+
+
+def build_population_batch(cache: PricingCache, net: SimNetwork,
+                           profile: ChipProfile, pairs,
+                           n_pad: int | None = None) -> PopulationBatch:
+    """(Partition, Mapping) pairs -> padded stacked tensors, assembled on
+    the host.  Boundaries come from the same ``Partition.boundaries`` the
+    single-candidate path uses, so the gathered segments index the same
+    cumsum entries."""
+    pairs = list(pairs)
+    K = len(pairs)
+    n_pad = n_pad or population_pad_width(net, profile)
+    lo = np.zeros((K, n_pad), np.int64)
+    hi = np.zeros((K, n_pad), np.int64)
+    lid = np.zeros((K, n_pad), np.int64)
+    mask = np.zeros((K, n_pad), np.float64)
+    neurons = np.zeros((K, n_pad), np.float64)
+    n_logical = np.zeros(K, int)
+    # offsets of each layer's (n_neurons + 1)-wide block in the
+    # concatenated cumsums
+    widths = [lp.n_neurons + 1 for lp in cache.layers]
+    block_off = np.concatenate([[0], np.cumsum(widths)]).astype(np.int64)
+    rows = cache.row_cache
+    for k, (part, _) in enumerate(pairs):
+        if part.total_cores > n_pad:
+            raise ValueError(
+                f"candidate uses {part.total_cores} cores > pad width {n_pad}")
+        hit = rows.get(part.cores)
+        if hit is None:
+            lo_k, hi_k, lid_k, neu_k = [], [], [], []
+            for l, lp in enumerate(cache.layers):
+                b = part.boundaries(l, lp.n_neurons).astype(np.int64)
+                lo_k.append(block_off[l] + b[:-1])
+                hi_k.append(block_off[l] + b[1:])
+                lid_k.append(np.full(len(b) - 1, l, np.int64))
+                neu_k.append(np.diff(b).astype(np.float64))
+            hit = (np.concatenate(lo_k), np.concatenate(hi_k),
+                   np.concatenate(lid_k), np.concatenate(neu_k))
+            if len(rows) >= _ROW_CACHE_MAX:
+                rows.clear()
+            rows[part.cores] = hit
+        n = hit[0].shape[0]
+        lo[k, :n], hi[k, :n], lid[k, :n], neurons[k, :n] = hit
+        mask[k, :n] = 1.0
+        n_logical[k] = n
+    dev = cache.layers[0].csum_macs.device
+    PL, ph, dup = router_incidence_population(
+        [p.cores for p, _ in pairs],
+        [m.phys[:p.total_cores] for p, m in pairs],
+        profile.grid, profile.n_cores, n_pad, device=dev)
+    on = lambda a: torch.as_tensor(a, device=dev)
+    return PopulationBatch(mask=on(mask), lid=on(lid), seg_lo=on(lo),
+                           seg_hi=on(hi), neurons=on(neurons), PL=PL, ph=ph,
+                           dup=dup, n_logical=n_logical)
+
+
+class _VmapPricer(_WorkloadConstants):
+    """Population pricer bound to one :class:`PricingCache`: the workload
+    constants on the cache's device and :meth:`_price_one`, batched over
+    the population axis by ``torch.func.vmap``.  Built once per cache
+    (``cache.vmap_pricer``)."""
+
+    def __init__(self, net: SimNetwork, profile: ChipProfile,
+                 cache: PricingCache):
+        super().__init__(net, profile, cache)
+        self.layer_ids = torch.arange(self.n_layers, device=self.device)
+        self._fn = torch.func.vmap(self._price_one)
+
+    def _price_one(self, mask, lid, seg_lo, seg_hi, neurons, PL, ph, dup):
+        """One candidate's pricing from its (Ncap,) structures."""
+        p = self.profile
+        T = self.T
+        csum_macs, csum_fetches, csum_acts, csum_msgs = self.csums
+        mem_msg, mem_syn, ncost, sparse_f, e_act_c = self.coefs
+
+        macs = csum_macs[:, seg_hi] - csum_macs[:, seg_lo]        # (T, Ncap)
+        fetches = csum_fetches[:, seg_hi] - csum_fetches[:, seg_lo]
+        acts = csum_acts[:, seg_hi] - csum_acts[:, seg_lo]
+        msgs = csum_msgs[:, seg_hi] - csum_msgs[:, seg_lo]
+
+        sp_c = sparse_f[lid]                                      # (Ncap,)
+        synops = torch.where(sp_c > 0, macs, fetches)
+        msgs_in_c = self.msgs_in[:, lid] * mask                   # (T, Ncap)
+        mem = msgs_in_c * mem_msg[lid] + synops * mem_syn[lid]
+        act = acts * ncost[lid]
+        core_time = (torch.maximum(mem, act) + p.t_core_fixed) * mask
+
+        e_events = (p.e_fetch * synops.sum(dim=1)
+                    + p.e_mac * macs.sum(dim=1)
+                    + p.e_decode * (synops * sp_c).sum(dim=1)
+                    + (acts * e_act_c[lid]).sum(dim=1))
+
+        loads = msgs @ PL                                         # (T, R)
+        hops = msgs @ ph                                          # (T,)
+        inject = msgs * dup
+        max_link = loads.amax(dim=1)
+        traffic_time = (p.c_route * max_link
+                        + p.c_inject * inject.amax(dim=1))
+
+        n_logical = mask.sum()
+        zero = torch.zeros((), dtype=torch.int64, device=mask.device)
+        if p.synchronous:
+            t_compute = core_time.amax(dim=1)
+            times = torch.maximum(t_compute, traffic_time) + p.t_barrier
+            tb = traffic_time > t_compute
+            mb = mem.amax(dim=1) >= act.amax(dim=1)
+            votes = torch.stack([(~tb & mb).sum(), (~tb & ~mb).sum(),
+                                 tb.sum(), zero])
+        else:
+            # per-layer maximum over the layer's cores (an empty layer's
+            # -inf clamps to 0, as the JAX package's segment_max does)
+            val = torch.maximum(mem, act) * mask                  # (T, Ncap)
+            in_layer = lid[None, :] == self.layer_ids[:, None]    # (L, Ncap)
+            per_layer = torch.where(in_layer[:, None, :], val[None],
+                                    -torch.inf).amax(dim=2)       # (L, T)
+            times = (per_layer.clamp_min(0.0).sum(dim=0)
+                     + p.c_msg_hop * hops / n_logical.clamp_min(1.0))
+            votes = torch.stack([zero + T, zero, zero, zero])
+
+        n_active = (((synops + msgs) > 0) & (mask > 0)).sum(dim=1)
+        n_active = torch.where(n_active == 0, n_logical, n_active)
+        energies = (times * (p.p_idle + p.p_core * n_active)
+                    + e_events + p.e_msg_hop * hops)
+
+        mean_synops = synops.sum(dim=0) / T
+        mean_acts = acts.sum(dim=0) / T
+        mean_msgs = msgs.sum(dim=0) / T
+        return dict(
+            times=times, energies=energies,
+            time_per_step=times.mean(), energy_per_step=energies.mean(),
+            max_synops=synops.amax(dim=1).mean(),
+            max_acts=acts.amax(dim=1).mean(),
+            max_link_load=max_link.mean(),
+            mean_synops=mean_synops, mean_acts=mean_acts,
+            mean_msgs=mean_msgs,
+            # LoadStats ingredients (pads are exact zeros: they don't count)
+            syn_total=mean_synops.sum(), syn_max=mean_synops.amax(),
+            syn_nact=(mean_synops > 0).sum(),
+            act_total=mean_acts.sum(), act_max=mean_acts.amax(),
+            act_nact=(mean_acts > 0).sum(),
+            votes=votes, total_msgs=msgs.sum(),
+            total_neuron_steps=T * neurons.sum())
+
+    def price(self, batch: PopulationBatch) -> dict:
+        """The vmapped pricer over ``batch`` in row blocks of at most
+        :data:`_BLOCK_ELEMS` (candidates x T x Ncap) elements; a dict of
+        tensors on the device with a leading population axis."""
+        args = [getattr(batch, f) for f in PopulationBatch.FIELDS]
+        K, ncap = batch.mask.shape
+        rows = max(1, _BLOCK_ELEMS // (self.T * ncap))
+        parts = [self._fn(*(a[i:i + rows] for a in args))
+                 for i in range(0, K, rows)]
+        return {k: torch.cat([o[k] for o in parts]) for k in parts[0]}
+
+
+def price_population_vmap(net: SimNetwork, profile: ChipProfile,
+                          cache: PricingCache, pairs) -> list[SimReport]:
+    """Price (partition, mapping) pairs with the cache's vmapped pricer
+    (built on first use): the same cumsums, boundaries and cost formulas
+    as ``backend="numpy"``, so the reports agree to float64 roundoff."""
+    pairs = list(pairs)
+    if not pairs:
+        return []
+    if cache.vmap_pricer is None:
+        cache.vmap_pricer = _VmapPricer(net, profile, cache)
+    pricer: _VmapPricer = cache.vmap_pricer
+    batch = build_population_batch(cache, net, profile, pairs)
+    return _assemble_reports(pricer.price(batch), batch.n_logical, cache,
+                             pricer.weight_density)
+
+
+# ----------------------------------------------------------- device backend
+
+
+class DevicePopulationPricer(_WorkloadConstants):
+    """Batched population pricer bound to one :class:`PricingCache`.
+
+    Holds the workload's constants on the cache's device — the counter
+    cumsums of every layer concatenated, per-layer cost coefficients, the
+    routing geometry — and prices stacked genome rows: ``cores`` (K,
+    n_layers) and ``perm`` (K, n_slots).  A candidate's segment bounds,
+    layer ids, routers and NoC structures are all derived from its rows
+    on the device; the K axis is written out (the ``"vmap"`` backend's
+    :class:`_VmapPricer` leaves it to ``torch.func.vmap`` instead).
+    Boundaries reproduce ``np.linspace(0, n, c + 1).astype(int)`` exactly:
+    ``int(i * (n / c))`` in float64, the last one pinned to ``n``."""
+
+    def __init__(self, net: SimNetwork, profile: ChipProfile,
+                 cache: PricingCache):
+        super().__init__(net, profile, cache)
+        dev = self.device
+        self.n_pad = population_pad_width(net, profile)
+        self.cpr = cores_per_router(profile)
         widths = [lp.n_neurons + 1 for lp in cache.layers]
         self.block_off = torch.as_tensor(
             np.concatenate([[0], np.cumsum(widths)])[:-1], device=dev)
         self.n_neurons = torch.as_tensor(
             [lp.n_neurons for lp in cache.layers], device=dev)
-        self.inc3, self.hops2 = (on(t) for t in incidence_tables(
-            profile.grid))
+        self.inc3, self.hops2 = (torch.as_tensor(t, device=dev)
+                                 for t in incidence_tables(profile.grid))
 
     def structures(self, cores: torch.Tensor, perm: torch.Tensor):
         """(K, n_layers) cores + (K, n_slots) perm -> the padded (K, Ncap)
@@ -722,13 +953,13 @@ def _rows(a, device: torch.device) -> torch.Tensor:
 
 
 def device_pricer(net: SimNetwork, profile: ChipProfile,
-                  cache: PricingCache) -> PopulationPricer:
-    """The cache's :class:`PopulationPricer`, built on first use: a cache
+                  cache: PricingCache) -> DevicePopulationPricer:
+    """The cache's :class:`DevicePopulationPricer`, built on first use: a cache
     is bound to one (net, xs, profile) workload, so one pricer serves
     every population it prices (and the device search engines cached on
     it)."""
     if cache.device_pricer is None:
-        cache.device_pricer = PopulationPricer(net, profile, cache)
+        cache.device_pricer = DevicePopulationPricer(net, profile, cache)
     return cache.device_pricer
 
 
@@ -750,7 +981,7 @@ def price_population_device(net: SimNetwork, profile: ChipProfile,
                             perm) -> list[SimReport]:
     """Price stacked genome rows — ``cores`` (K, n_layers), ``perm`` (K,
     n_slots), host or device arrays — with the cache's
-    :class:`PopulationPricer` (built on first use) and assemble the
+    :class:`DevicePopulationPricer` (built on first use) and assemble the
     reports."""
     _check_rows(cache, profile, cores, perm)
     pricer = device_pricer(net, profile, cache)
@@ -766,7 +997,7 @@ def price_population_sharded(net: SimNetwork, profile: ChipProfile,
     """Island-blocked population pricing on one card: K is padded to a
     multiple of ``n_islands`` with copies of row 0 (as the JAX package
     pads its mesh), each island's block of rows is priced by the cache's
-    :class:`PopulationPricer` on its own, and the padding is dropped.
+    :class:`DevicePopulationPricer` on its own, and the padding is dropped.
     Pricing is row-independent, so every row agrees with
     ``backend="device"`` to float64 roundoff (a block's sums may run in
     another order than the whole batch's)."""

@@ -21,17 +21,22 @@ learning rate and bias corrections are 0-d float32 tensors on its
 device, as XLA computes them.  ``update`` writes the new values into the
 tensors of ``params`` and ``state`` and returns them: the reference's
 jitted step donates its state, and a second copy of AdamW's state would
-not fit beside the first at full width.  The reference's ZeRO-1
-``state_specs`` has no counterpart: one card has no mesh.
+not fit beside the first at full width.
+
+``state_specs(params, specs, ctx)`` gives the state's sharding specs
+(``distributed.sharding``, data only on one card): AdamW's three trees
+each take the parameters' specs plus ZeRO-1's `data` axis; Adafactor's
+factored rows and columns take the parameter spec less the reduced dim.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable
+from typing import Any, Callable, Optional
 
 import torch
 
+from repro_torch.distributed.sharding import zip_specs, zero1_specs
 from repro_torch.tree import tree_leaves, tree_map
 
 
@@ -40,6 +45,7 @@ class Optimizer:
     name: str
     init: Callable[[Any], Any]
     update: Callable[[Any, Any, Any, torch.Tensor], tuple[Any, Any]]
+    state_specs: Optional[Callable[[Any, Any, Any], Any]] = None
 
 
 def _global_norm(tree) -> torch.Tensor:
@@ -89,7 +95,11 @@ def adamw(lr_fn: Callable[[torch.Tensor], torch.Tensor], *, b1: float = 0.9,
         tree_map(upd, grads, state["m"], state["v"], state["master"], params)
         return params, state
 
-    return Optimizer("adamw", init, update)
+    def state_specs(params, specs, ctx):
+        z = zero1_specs(params, specs, ctx)
+        return {"m": z, "v": z, "master": z}
+
+    return Optimizer("adamw", init, update, state_specs)
 
 
 # --------------------------------------------------------------- Adafactor
@@ -144,7 +154,15 @@ def adafactor(lr_fn: Callable[[torch.Tensor], torch.Tensor], *,
         walk(grads, params, state["fac"])
         return params, state
 
-    return Optimizer("adafactor", init, update)
+    def state_specs(params, specs, ctx):
+        def one(p, s):
+            dims = tuple(s) + (None,) * (p.dim() - len(tuple(s)))
+            if factored(p):
+                return {"vr": dims[:-1], "vc": dims[:-2] + dims[-1:]}
+            return {"v": dims}
+        return {"fac": zip_specs(one, params, specs)}
+
+    return Optimizer("adafactor", init, update, state_specs)
 
 
 def for_arch(arch_param_count: int, lr_fn) -> Optimizer:

@@ -10,9 +10,9 @@ storage, so an update of the tree is an update of the model.
 microbatch the gradients are those of the parameters, in their dtype, so
 gradient clipping rounds them to bfloat16 for a bfloat16 model.  With
 ``M > 1`` microbatches, gradients accumulate in ``grad_accum_dtype``
-(float32 by default) and are divided by ``M``.  The reference's
-``state_spec_tree`` (sharding specs) has no counterpart: one card has no
-mesh.
+(float32 by default) and are divided by ``M``.
+:func:`state_spec_tree` gives the training state's sharding specs as data
+(``distributed.sharding``).
 """
 
 from __future__ import annotations
@@ -21,6 +21,7 @@ from typing import Callable
 
 import torch
 
+from repro_torch.distributed import sharding
 from repro_torch.models import encdec, lm
 from repro_torch.models.encdec import EncDec, EncDecCfg
 from repro_torch.models.layers import dt, map_layout
@@ -206,3 +207,14 @@ def init_state(model, optimizer: Optimizer) -> dict:
     device = next(model.parameters()).device
     return {"params": params, "opt": optimizer.init(params),
             "step": torch.zeros((), dtype=torch.int32, device=device)}
+
+
+def state_spec_tree(cfg, ctx: sharding.ShardCtx, optimizer: Optimizer,
+                    abstract_params) -> dict:
+    """Sharding specs of :func:`init_state`'s tree: the parameters', the
+    optimizer state's (``optimizer.state_specs`` over ``abstract_params``,
+    a :func:`param_tree`, e.g. of ``lm.abstract_params(cfg)``) and a
+    replicated step."""
+    pspecs = sharding.param_specs(cfg, ctx)
+    ospecs = optimizer.state_specs(abstract_params, pspecs, ctx)
+    return {"params": pspecs, "opt": ospecs, "step": ()}

@@ -6,13 +6,16 @@ aliases ``jax.experimental.enable_x64`` to ``jax.enable_x64`` only while
 the port's tests hold the reference, and on exit takes back the alias and
 every ``repro`` module it imported.  Other test files in the same worker
 process then see exactly the import state they would have seen without
-it.
+it.  ``repro.launch.dryrun`` sets ``XLA_FLAGS`` when it is imported (512
+placeholder devices); :func:`reference` puts the variable back as it was
+right after the import, before anything can start JAX's backend with it.
 """
 
 from __future__ import annotations
 
 import contextlib
 import importlib
+import os
 import sys
 import types
 
@@ -63,6 +66,7 @@ MODULES = {
     "hlo_cost": "repro.core.hlo_cost",
     "tpu_floorline": "repro.core.tpu_floorline",
     "autoshard": "repro.distributed.autoshard",
+    "dryrun": "repro.launch.dryrun",
 }
 
 
@@ -83,6 +87,18 @@ def _is_repro(name: str) -> bool:
     return name == "repro" or name.startswith("repro.")
 
 
+def _import(name: str):
+    """``name`` imported with ``XLA_FLAGS`` kept as it was."""
+    flags = os.environ.get("XLA_FLAGS")
+    try:
+        return importlib.import_module(name)
+    finally:
+        if flags is None:
+            os.environ.pop("XLA_FLAGS", None)
+        else:
+            os.environ["XLA_FLAGS"] = flags
+
+
 @contextlib.contextmanager
 def reference():
     """Yield a namespace of the reference's modules (see :data:`MODULES`)."""
@@ -95,8 +111,7 @@ def reference():
         jax.experimental.enable_x64 = jax.enable_x64
     try:
         yield types.SimpleNamespace(**{
-            key: importlib.import_module(name)
-            for key, name in MODULES.items()})
+            key: _import(name) for key, name in MODULES.items()})
     finally:
         if aliased:
             del jax.experimental.enable_x64

@@ -25,10 +25,13 @@ import importlib.util
 import json
 import pathlib
 
-import torch
+import numpy as np
 
 from repro_torch.neuromorphic import (SimLayer, SimNetwork, fc_network,
-                                      loihi2_like, make_inputs)
+                                      loihi2_like, make_inputs,
+                                      minimal_partition, ordered_mapping,
+                                      random_mapping, strided_mapping)
+from repro_torch.neuromorphic.timestep import precompute_pricing
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 
@@ -41,27 +44,20 @@ def _chip_smoke():
     return module
 
 
-def _eighths(t: torch.Tensor) -> torch.Tensor:
-    """``t`` with each nonzero entry rounded to a nonzero multiple of 1/8
-    (zeros, and so densities, kept)."""
-    q = torch.clamp(torch.round(t.abs() * 8), min=1) / 8
-    return torch.where(t != 0, torch.sign(t) * q, t)
-
-
 def test_search_phases_pass_on_a_narrow_cell(tmp_path, capsys):
     smoke = _chip_smoke()
     sizes = [32, 64, 32, 32, 16]
     base = fc_network(sizes, weight_density=0.5, neuron_model="sd_relu",
                       seed=0, device="cpu")
     net = SimNetwork(layers=[SimLayer(name=l.name, kind="fc",
-                                      weights=_eighths(l.weights),
+                                      weights=smoke.eighths(l.weights),
                                       neuron_model="sd_relu")
                              for l in base.layers], in_size=sizes[0])
     for layer in net.layers:
         layer.threshold = 0.125
     # T past the 128-step delta window, as in the smoke's cell
-    xs = _eighths(make_inputs(sizes[0], density=0.1, steps=160, seed=1,
-                              device="cpu"))
+    xs = smoke.eighths(make_inputs(sizes[0], density=0.1, steps=160,
+                                   seed=1, device="cpu"))
     smoke.search_phases(net, xs, loihi2_like(), ckpt_root=tmp_path / "ckpt",
                         expect_launches={"event_matmul2": 0,
                                          "window_cumsum": 0},
@@ -81,7 +77,7 @@ def test_search_phases_pass_on_a_narrow_cell(tmp_path, capsys):
     assert {b: r["bit_identical"] for b, r in resume["resume"].items()} \
         == {"numpy": True, "device": True}
     assert [(d["frm"], d["to"]) for d in
-            resume["scripted_demotion"]["demotions"]] == [("device", "numpy")]
+            resume["scripted_demotion"]["demotions"]] == [("device", "vmap")]
     dev, sharded, resil = lines[3:]
     assert dev["backend"] == "device" and dev["threefry_values_checked_vs_cpu"]
     assert dev["max_rel_diff"] <= smoke.SEARCH_RTOL
@@ -251,3 +247,51 @@ def test_bound_and_dryrun_phases_pass_on_smoke_configs(capsys):
     assert all(r["fits"] and r["bound_s"] > 0 for r in f["cells"].values())
     assert f["hillclimb"]["steps"] >= 1
     assert any(l.startswith("| # | move |") for l in out)
+
+
+def test_option_and_vmap_phases_pass_at_small_widths(capsys):
+    """Phases (G) and (H) on the CPU: each of ``EventCompute``'s option
+    sets in kernel mode (the plain versions here, so no launch) against
+    gather mode on a narrow copy of the slice-1 cell on the 1/8 grid, past
+    the 128-step window; then a population priced with the vmap, device
+    and numpy backends and one scripted demotion, device to vmap."""
+    smoke = _chip_smoke()
+    g = smoke.event_options_phase(device="cpu", card="cpu",
+                                  sizes=(32, 64, 32, 32, 16), T=320, reps=1)
+    assert list(g["options"]) == [n for n, _ in smoke.EVENT_OPTIONS]
+    windows = {n: r["window"] for n, r in g["options"].items()}
+    assert windows == {"delta_window=16": 16, "delta_window=32": 32,
+                       "delta_mode=cumsum": None, "threshold=0.05": 128,
+                       "bm=bk=64": 64}
+    for row in g["options"].values():
+        assert row["launches"] == {"event_matmul2": 0, "window_cumsum": 0}
+        assert row["outputs_max_abs_err"] == 0.0
+    assert sum(g["options"]["delta_window=16"]["msgs_out_per_layer"]) > 0
+    net = SimNetwork(layers=[SimLayer(name=l.name, kind="fc",
+                                      weights=smoke.eighths(l.weights),
+                                      neuron_model="sd_relu")
+                             for l in fc_network([32, 64, 32, 32, 16],
+                                                 weight_density=0.5,
+                                                 neuron_model="sd_relu",
+                                                 seed=0,
+                                                 device="cpu").layers],
+                     in_size=32)
+    xs = smoke.eighths(make_inputs(32, density=0.1, steps=40, seed=1,
+                                   device="cpu"))
+    chip = loihi2_like()
+    p0 = minimal_partition(net, chip)
+    rng = np.random.default_rng(3)
+    parts = [p0, p0.split(0), p0.split(1).split(2)]
+    cands = [(p, mk(p, chip)) for p in parts
+             for mk in (ordered_mapping, strided_mapping)]
+    cands += [(p, random_mapping(p, chip, rng)) for p in parts]
+    h = smoke.vmap_pricing_phase(net, xs, chip,
+                                 cache=precompute_pricing(net, xs, chip),
+                                 cands=cands, card="cpu")
+    assert h["candidates"] == 9
+    assert max(h["max_rel_diff_vs_numpy"].values()) <= smoke.POP_RTOL
+    assert [(d["frm"], d["to"]) for d in
+            h["scripted_demotion"]["demotions"]] == [("device", "vmap")]
+    lines = [json.loads(l) for l in capsys.readouterr().out.splitlines()]
+    assert [l["phase"] for l in lines] == ["event_options", "vmap_pricing"]
+

@@ -356,14 +356,10 @@ def test_neuromorphic_exports_cover_reference(ref):
     import repro_torch.neuromorphic
     from repro_torch.neuromorphic.timestep import LayerStageTimes
     assert repro_torch.neuromorphic.LayerStageTimes is LayerStageTimes
-    # the JAX package's vmap pricer is not ported (the port's
-    # PopulationPricer, returned by device_pricer, takes the place of its
-    # DevicePopulationPricer)
     assert repro_torch.neuromorphic.device_pricer.__module__ \
         == "repro_torch.neuromorphic.timestep"
-    missing = {"DevicePopulationPricer", "PopulationBatch",
-               "build_population_batch", "price_population_vmap"}
-    assert set(repro.neuromorphic.__all__) - missing \
+    # every name, the vmap pricer's and DevicePopulationPricer included
+    assert set(repro.neuromorphic.__all__) \
         <= set(repro_torch.neuromorphic.__all__)
     for name in repro_torch.neuromorphic.__all__:
         getattr(repro_torch.neuromorphic, name)

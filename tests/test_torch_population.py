@@ -3,10 +3,12 @@ package's, on the CPU.
 
 Same networks (same seeds), same candidates.  The port's ``"numpy"``
 backend prices each candidate through ``price_candidate`` and is
-bit-identical to the port's own ``simulate``; its ``"device"`` backend is
-one batched float64 program and agrees with the reference's ``"numpy"``
-backend to rtol 1e-9 (sums run in another order).  The NoC population
-tables are exact small-integer counts and compare bit for bit.
+bit-identical to the port's own ``simulate``; its ``"vmap"`` backend
+(``torch.func.vmap`` of one candidate's pricer) and its ``"device"``
+backend (one batched float64 program) agree with the reference's
+``"numpy"`` and ``"vmap"`` backends to rtol 1e-9 (sums run in another
+order).  The NoC population tables and the vmap backend's padded batch
+are exact small-integer counts and compare bit for bit.
 """
 
 import dataclasses
@@ -28,13 +30,17 @@ from repro_torch.neuromorphic import (Partition, flow_matrix_population,
                                       random_mapping,
                                       router_incidence_population, simulate,
                                       simulate_population, strided_mapping)
+from repro_torch.neuromorphic import noc
 from repro_torch.neuromorphic.noc import Mapping, _flow_matrix
 from repro_torch.neuromorphic.partition import validate_partition
 from repro_torch.neuromorphic.platform import speck_like
 from repro_torch.neuromorphic.timestep import (POPULATION_BACKENDS,
                                                _pairs_to_rows,
+                                               build_population_batch,
+                                               population_pad_width,
                                                precompute_pricing,
-                                               price_population_device)
+                                               price_population_device,
+                                               price_population_vmap)
 from repro_torch.sparsity import SparsityProfile
 
 RTOL = 1e-9
@@ -151,19 +157,29 @@ def _random_population(net, prof, rng, size):
 
 
 def _check_population(ref, rn, pn, xs, prof_r, prof_p, pairs):
-    r_np = ref.timestep.simulate_population(rn, xs, prof_r,
-                                            _pairs(ref, pairs, prof_r))
+    """Every port backend against the reference's ``"numpy"`` and
+    ``"vmap"`` backends and the port's ``"numpy"`` (rtol 1e-9); the port's
+    ``"numpy"`` bit for bit against its own ``simulate``."""
+    r_pairs = _pairs(ref, pairs, prof_r)
+    r_np = ref.timestep.simulate_population(rn, xs, prof_r, r_pairs)
+    r_vm = ref.timestep.simulate_population(rn, xs, prof_r, r_pairs,
+                                            backend="vmap")
     xt = torch.from_numpy(xs)
     cache = precompute_pricing(pn, xt, prof_p)
     p_np = simulate_population(pn, xt, prof_p, pairs, cache=cache)
     p_dev = simulate_population(pn, xt, prof_p, pairs, cache=cache,
                                 backend="device")
-    assert len(p_np) == len(p_dev) == len(r_np) == len(pairs)
-    for (part, mapping), a, b, r in zip(pairs, p_np, p_dev, r_np):
+    p_vm = simulate_population(pn, xt, prof_p, pairs, cache=cache,
+                               backend="vmap")
+    assert len(p_np) == len(p_dev) == len(p_vm) == len(r_np) == len(pairs)
+    for (part, mapping), a, b, v, r, rv in zip(pairs, p_np, p_dev, p_vm,
+                                               r_np, r_vm):
         assert_reports_identical(a, simulate(pn, xt, prof_p, part, mapping))
         assert_reports_close(a, r)
         assert_reports_close(b, r)
         assert_reports_close(b, a)
+        assert_reports_close(v, a)
+        assert_reports_close(v, rv)
     return p_np, p_dev
 
 
@@ -344,9 +360,11 @@ def test_population_backends_and_validation(ref):
     xt = torch.from_numpy(xs)
     p0 = minimal_partition(pn, prof)
     pair = [(p0, ordered_mapping(p0, prof))]
-    assert POPULATION_BACKENDS == ("numpy", "device", "sharded")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        simulate_population(pn, xt, prof, pair, backend="vmap")
+    assert POPULATION_BACKENDS == ("numpy", "vmap", "device", "sharded")
+    for backend in POPULATION_BACKENDS:     # every backend prices
+        got = simulate_population(pn, xt, prof, pair, backend=backend)
+        assert_reports_close(got[0], simulate_population(pn, xt, prof,
+                                                         pair)[0])
     with pytest.raises(ValueError, match="backend"):
         simulate_population(pn, xt, prof, pair, backend="tpu")
     # a trained profile is programmed onto the network before the run, so
@@ -386,11 +404,17 @@ def test_evaluate_population_matches_reference(ref, backend):
     ev_p(*pairs[0])
     ev_r(*_pairs(ref, pairs[:1], None)[0])
     assert ev_p.n_evals == ev_r.n_evals == 4
-    # fail fast: a backend the port lacks raises, and no fallback prices
-    ev_bad = SimEvaluator(pn, torch.from_numpy(xs), prof, cache=ev_p.cache,
-                          population_backend="vmap")
-    with pytest.raises(NotImplementedError):
-        ev_bad.evaluate_population(pairs)
+    # the vmap backend prices as the reference's, with no demotion
+    ev_vm_r = ref.partitioner.SimEvaluator(rn, xs,
+                                           ref.platform.loihi2_like(),
+                                           population_backend="vmap",
+                                           fallback=False)
+    ev_vm = SimEvaluator(pn, torch.from_numpy(xs), prof, cache=ev_p.cache,
+                         population_backend="vmap")
+    for a, b in zip(ev_vm.evaluate_population(pairs),
+                    ev_vm_r.evaluate_population(_pairs(ref, pairs, None))):
+        assert_reports_close(a, b)
+    assert ev_vm.demotions == [] and ev_vm.active_backend == "vmap"
 
 
 def test_evaluate_population_reference_engine_counts(ref):
@@ -407,6 +431,112 @@ def test_evaluate_population_reference_engine_counts(ref):
     assert ev_p.cache is None and ev_p.n_evals == ev_r.n_evals == 2
     for a, b in zip(p, r):
         assert_reports_close(a, b)
+
+
+def test_vmap_batch_matches_reference_with_padding(ref):
+    """The vmap backend's padded batch equals the reference's
+    ``build_population_batch`` field for field (candidates with fewer
+    cores than ``Ncap`` padded), the per-partition row cache is reused,
+    and ``price_population_vmap`` agrees with the reference's at rtol
+    1e-9."""
+    rn, pn, xs = fc_workload(ref, steps=2)
+    prof = loihi2_like()
+    pairs = _random_population(pn, prof, np.random.default_rng(11), 12)
+    ncap = population_pad_width(pn, prof)
+    assert min(p.total_cores for p, _ in pairs) < ncap
+    assert ncap == ref.timestep.population_pad_width(rn, prof)
+    xt = torch.from_numpy(xs)
+    cache = precompute_pricing(pn, xt, prof)
+    rcache = ref.timestep.precompute_pricing(rn, xs,
+                                             ref.platform.loihi2_like())
+    batch = build_population_batch(cache, pn, prof, pairs)
+    rbatch = ref.timestep.build_population_batch(
+        rcache, rn, ref.platform.loihi2_like(), _pairs(ref, pairs, None))
+    for f in ("mask", "lid", "seg_lo", "seg_hi", "neurons", "PL", "ph",
+              "dup"):
+        a, b = getattr(batch, f), getattr(rbatch, f)
+        assert tuple(a.shape) == b.shape == (len(pairs), ncap) + b.shape[2:]
+        assert np.array_equal(a.numpy(), b), f
+    assert np.array_equal(batch.n_logical, rbatch.n_logical)
+    assert set(cache.row_cache) == {p.cores for p, _ in pairs}
+    with pytest.raises(ValueError, match="pad width"):
+        build_population_batch(cache, pn, prof, pairs, n_pad=2)
+    got = price_population_vmap(pn, prof, cache, pairs)
+    want = ref.timestep.price_population_vmap(
+        rn, ref.platform.loihi2_like(), rcache, _pairs(ref, pairs, None))
+    pricer = cache.vmap_pricer
+    assert pricer is not None
+    for a, b in zip(got, want):
+        assert_reports_close(a, b)
+    price_population_vmap(pn, prof, cache, pairs[:3])
+    assert cache.vmap_pricer is pricer       # built once per cache
+    assert price_population_vmap(pn, prof, cache, []) == []
+
+
+def test_vmap_prices_in_row_blocks(ref, monkeypatch):
+    """Blocks of 5 candidates give the same reports as one block."""
+    import repro_torch.neuromorphic.timestep as ts
+    rn, pn, xs = fc_workload(ref, steps=2)
+    prof = loihi2_like()
+    pairs = _random_population(pn, prof, np.random.default_rng(12), 13)
+    xt = torch.from_numpy(xs)
+    whole = simulate_population(pn, xt, prof, pairs, backend="vmap")
+    monkeypatch.setattr(ts, "_BLOCK_ELEMS",
+                        2 * 5 * ts.population_pad_width(pn, prof))
+    blocked = simulate_population(pn, xt, prof, pairs, backend="vmap")
+    for a, b in zip(blocked, whole):
+        assert_reports_close(a, b, rtol=1e-12)
+
+
+def test_flow_cache_hits_equal_misses_and_clear():
+    """The routing LRU: a repeated population (all hits) and a mixed one
+    give the tables of a fresh build; ``flow_cache_clear`` empties it."""
+    prof = loihi2_like()
+    rows = _genomes(np.random.default_rng(5), prof.n_cores, n=9)
+    cores, phys = [c for c, _ in rows], [p for _, p in rows]
+    n_pad = max(sum(c) for c in cores) + 3
+    noc.flow_cache_clear()
+    assert len(noc._FLOW_CACHE) == 0
+    fresh = router_incidence_population(cores, phys, prof.grid,
+                                        prof.n_cores, n_pad, **CPU)
+    assert len(noc._FLOW_CACHE) == 9
+    again = router_incidence_population(cores, phys, prof.grid,
+                                        prof.n_cores, n_pad, **CPU)
+    order = [4, 0, 8, 2]                        # hits among new misses
+    more = _genomes(np.random.default_rng(6), prof.n_cores, n=3)
+    mixed = router_incidence_population(
+        [cores[k] for k in order] + [c for c, _ in more],
+        [phys[k] for k in order] + [p for _, p in more],
+        prof.grid, prof.n_cores, n_pad, **CPU)
+    fresh_more = router_incidence_population(
+        [c for c, _ in more], [p for _, p in more], prof.grid,
+        prof.n_cores, n_pad, **CPU)
+    for a, b, m, fm in zip(fresh, again, mixed, fresh_more):
+        assert torch.equal(a, b)
+        assert torch.equal(m[:4], a[order]) and torch.equal(m[4:], fm)
+    P1, d1 = flow_matrix_population(cores, phys, prof.grid, prof.n_cores,
+                                    n_pad, **CPU)
+    P2, d2 = flow_matrix_population(cores, phys, prof.grid, prof.n_cores,
+                                    n_pad, **CPU)
+    P3, d3 = flow_matrix_population(cores, phys, prof.grid, prof.n_cores,
+                                    n_pad, cache=False, **CPU)
+    assert torch.equal(P1, P2) and torch.equal(P1, P3)
+    assert torch.equal(d1, d2) and torch.equal(d1, d3)
+    assert len(noc._FLOW_CACHE) == 2 * 12 - 3
+    noc.flow_cache_clear()
+    assert len(noc._FLOW_CACHE) == 0
+
+
+def test_neuromorphic_all_holds_every_reference_name(ref):
+    import repro.neuromorphic
+    import repro_torch.neuromorphic
+    assert set(repro.neuromorphic.__all__) \
+        <= set(repro_torch.neuromorphic.__all__)
+    for name in ("DevicePopulationPricer", "PopulationBatch",
+                 "build_population_batch", "price_population_vmap"):
+        assert getattr(repro_torch.neuromorphic, name).__module__ \
+            == "repro_torch.neuromorphic.timestep"
+    assert not hasattr(repro_torch.neuromorphic, "PopulationPricer")
 
 
 # ------------------------------------------------------------ guidance

@@ -3,8 +3,8 @@ package's, on the CPU.
 
 Fault plans, the byte-set and RNG codecs and the checkpoint files are
 host numpy and JSON in both packages and compare exactly.  The port's
-fallback chain has two links, ``device -> numpy`` (it has no ``vmap``
-backend), and records demotions with the reference's fields.  Quarantine
+fallback chain is the reference's, ``device -> vmap -> numpy``, step by
+step, and records demotions with the reference's fields.  Quarantine
 and the finite mean are bit-equal to the reference's with numpy and to
 torch's own ``mean()`` with torch.
 """
@@ -87,37 +87,37 @@ def test_demotion_record_fields_match_reference(ref):
         == [f.name for f in dataclasses.fields(ref.resilience.Demotion)]
     assert [f.name for f in dataclasses.fields(R.RetryPolicy)] \
         == [f.name for f in dataclasses.fields(ref.resilience.RetryPolicy)]
-    assert R.FallbackChain.CHAIN == ("device", "numpy")
-    assert ref.resilience.FallbackChain.CHAIN == ("device", "vmap", "numpy")
+    assert R.FallbackChain.CHAIN == ref.resilience.FallbackChain.CHAIN \
+        == ("device", "vmap", "numpy")
 
 
 @pytest.mark.parametrize("failures,retries,demoted", [
     (0, 1, False), (1, 1, False), (2, 1, True), (3, 2, True), (2, 0, True)])
 def test_fallback_chain_retries_then_demotes(ref, failures, retries,
                                              demoted):
-    """The port's device link behaves as the reference's vmap link: the
-    last link before numpy."""
-    def run(mod, start):
+    """The three-link chain step by step against the reference's: each of
+    the device and vmap links fails ``failures`` times, so a demotion
+    takes the run from device through vmap to numpy."""
+    def run(mod):
         calls = []
 
         def attempt(backend):
             calls.append(backend)
-            if backend == start and calls.count(start) <= failures:
+            if backend != "numpy" and calls.count(backend) <= failures:
                 raise mod.InjectedFault(f"boom {len(calls)}")
             return backend
-        chain = mod.FallbackChain(start, retry=mod.RetryPolicy(
+        chain = mod.FallbackChain("device", retry=mod.RetryPolicy(
             max_retries=retries))
         return chain.run(attempt), calls, chain.demotions, chain.backend
-    got, calls, dem, backend = run(R, "device")
-    want, calls_r, dem_r, backend_r = run(ref.resilience, "vmap")
-    assert got == ("numpy" if demoted else "device")
-    assert want == ("numpy" if demoted else "vmap")
-    assert [c.replace("device", "vmap") for c in calls] == calls_r
-    assert len(dem) == len(dem_r) == int(demoted)
-    for d, e in zip(dem, dem_r):
-        assert (d.site, d.frm, d.to, d.error, d.retries) \
-            == (e.site, "device", "numpy", e.error, e.retries)
-    assert backend == ("numpy" if demoted else "device")
+    got, calls, dem, backend = run(R)
+    want, calls_r, dem_r, backend_r = run(ref.resilience)
+    assert got == want == backend == backend_r \
+        == ("numpy" if demoted else "device")
+    assert calls == calls_r
+    assert [(d.frm, d.to) for d in dem] \
+        == ([("device", "vmap"), ("vmap", "numpy")] if demoted else [])
+    assert [(d.site, d.frm, d.to, d.error, d.retries) for d in dem] \
+        == [(e.site, e.frm, e.to, e.error, e.retries) for e in dem_r]
 
 
 def test_fallback_chain_last_link_and_crash_propagate(monkeypatch):
@@ -130,8 +130,9 @@ def test_fallback_chain_last_link_and_crash_propagate(monkeypatch):
         raise ValueError(backend)
     with pytest.raises(ValueError, match="numpy"):
         chain.run(fail)
-    assert sleeps == [0.5, 1.5, 0.5, 1.5]
-    assert [(d.frm, d.to) for d in chain.demotions] == [("device", "numpy")]
+    assert sleeps == [0.5, 1.5] * 3
+    assert [(d.frm, d.to) for d in chain.demotions] \
+        == [("device", "vmap"), ("vmap", "numpy")]
 
     def crash(backend):
         raise R.SimulatedCrash("kill")
@@ -140,7 +141,7 @@ def test_fallback_chain_last_link_and_crash_propagate(monkeypatch):
 
 
 def test_evaluator_demotes_device_to_numpy(ref):
-    _, net, xs = fc_pair(ref)
+    rn, net, xs = fc_pair(ref)
     chip = loihi2_like()
     p0 = minimal_partition(net, chip)
     cands = [(p0, ordered_mapping(p0, chip)), (p0, strided_mapping(p0, chip)),
@@ -148,22 +149,49 @@ def test_evaluator_demotes_device_to_numpy(ref):
                                           np.random.default_rng(1)))]
     numpy_ev = SimEvaluator(net, xs, chip)
     want = numpy_ev.evaluate_population(cands)
+    vmap_want = SimEvaluator(net, xs, chip, cache=numpy_ev.cache,
+                             population_backend="vmap",
+                             fallback=False).evaluate_population(cands)
+    # one failing link: device demotes to the chain's next link, vmap
     ev = SimEvaluator(net, xs, chip, cache=numpy_ev.cache,
                       population_backend="device",
                       fault_plan=R.FaultPlan(fail={"device": 2},
                                              nan_rows={1: (2,)}))
     assert ev.active_backend == "device" and ev.demotions == []
     got = ev.evaluate_population(cands)
-    assert ev.active_backend == "numpy"
+    assert ev.active_backend == "vmap"
     assert [(d.site, d.frm, d.to, d.retries) for d in ev.demotions] \
-        == [("population pricing", "device", "numpy", 1)]
+        == [("population pricing", "device", "vmap", 1)]
     assert "InjectedFault" in ev.demotions[0].error
-    for a, b in zip(got, want):               # numpy's own bits
+    for a, b, n in zip(got, vmap_want, want):  # vmap's own bits
         assert a.time_per_step == b.time_per_step
+        np.testing.assert_allclose(a.time_per_step, n.time_per_step,
+                                   rtol=RTOL)
     again = ev.evaluate_population(cands)      # sticky, call 1 corrupted
     assert len(ev.demotions) == 1 and ev.n_evals == 6
     assert np.isnan(again[2].time_per_step)
-    assert again[0].time_per_step == want[0].time_per_step
+    assert again[0].time_per_step == vmap_want[0].time_per_step
+    # two failing links: on to numpy, recorded as the reference records it
+    plan = {"device": 2, "vmap": 2}
+    ev2 = SimEvaluator(net, xs, chip, cache=numpy_ev.cache,
+                       population_backend="device",
+                       fault_plan=R.FaultPlan(fail=dict(plan)))
+    got2 = ev2.evaluate_population(cands)
+    assert ev2.active_backend == "numpy"
+    for a, b in zip(got2, want):              # numpy's own bits
+        assert a.time_per_step == b.time_per_step
+    rchip = ref.platform.loihi2_like()
+    rp0 = ref.partition.minimal_partition(rn, rchip)
+    ev_r = ref.partitioner.SimEvaluator(
+        rn, xs, rchip, population_backend="device",
+        fault_plan=ref.resilience.FaultPlan(fail=dict(plan)))
+    ev_r.evaluate_population([(rp0, ref.noc.ordered_mapping(rp0, rchip))])
+    assert [(d.site, d.frm, d.to, d.error, d.retries)
+            for d in ev2.demotions] \
+        == [(d.site, d.frm, d.to, d.error, d.retries)
+            for d in ev_r.demotions]
+    assert [(d.frm, d.to) for d in ev2.demotions] \
+        == [("device", "vmap"), ("vmap", "numpy")]
 
     fast = SimEvaluator(net, xs, chip, cache=numpy_ev.cache,
                         population_backend="device", fallback=False,
