@@ -317,6 +317,25 @@ Phases, each printing one JSON line:
                   exactly one demotion, device to vmap, as the JAX
                   package records it, priced within rtol 1e-9 of numpy.
 
+  (I) data_parallel — the data-parallel half over a one-rank process
+                  group (NCCL, ``file://`` store): (I.a) full-width
+                  gemma2-2b in bf16 with AdamW at batch 2 x 1024: the exact
+                  DP step's loss and parameters bit-identical to the step
+                  without a group, then s a step of both paths and of the
+                  compressed step (int8 with error feedback) beside phase
+                  (A)'s, the NCCL all-reduce of the gradient tree and the
+                  compressed mean alone, traced NCCL time, peaks; (I.b)
+                  olmoe-1b-7b (full width, 6 of 16 layers): ``loss_fn``
+                  and its gradients through the expert-parallel MoE over
+                  the group bit-identical to the path without one; (I.c)
+                  the island search with 4 islands over the group on phase
+                  (s)'s cell, genomes identical to the one-program run and
+                  to phase (s)'s snapshots in every generation; (I.d)
+                  granite's smoke ``Trainer`` on a (1, 1) mesh over the
+                  group, a ``save_async`` while it trains on (step times
+                  during the write), restored bit-identical to a
+                  synchronous save.  No ported kernel may launch.
+
 Then a ``{"kernels": [...]}`` line, the card's name and power limit as
 nvidia-smi reports them, and a last line ``{"ok": true, "device": ...}``.
 Any failed check raises: the script exits non-zero and prints no result.
@@ -404,6 +423,9 @@ EVENT_OPTIONS = (("delta_window=16", dict(delta_window=16)),
                  ("threshold=0.05", dict(threshold=0.05)),
                  ("bm=bk=64", dict(bm=64, bk=64)))
 VMAP_BACKENDS = ("vmap", "device", "numpy")   # (H)
+# phase (I): the data-parallel half over a one-rank process group
+DP_STEPS = 4                          # (I.a): timed steps of each path
+ASYNC_CKPT = dict(save_at=4, steps=8)  # (I.d): steps before and after
 
 # stated tolerances
 GRAD_CHECK_RTOL = 1e-2                # (B) <g, d> vs the central difference
@@ -579,11 +601,13 @@ FAMILIES = {"event_matmul": ("event_matmul_kernel", "reduce_splits"),
             "sigma_delta": ("sigma_delta",)}
 
 
-def traced(fn) -> dict:
+def traced(fn, match: dict | None = None) -> dict:
     """Wall time, device busy time, the device's idle share, the number of
     device operations (kernels, copies, fills), the device time of each
     kernel family and the top kernels of one call of ``fn`` under
-    torch.profiler (ending in a synchronise)."""
+    torch.profiler (ending in a synchronise); with ``match`` (name ->
+    substrings of kernel names) also the device seconds and calls of the
+    kernels each name matches."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
@@ -604,7 +628,13 @@ def traced(fn) -> dict:
     families = {f: sum(us for k, us, _ in by_kernel
                        if any(p in k for p in parts)) * 1e-6
                 for f, parts in FAMILIES.items()}
+    matched = {f: {"device_s": sum(us for k, us, _ in by_kernel
+                                   if any(p in k for p in parts)) * 1e-6,
+                   "calls": sum(n for k, _, n in by_kernel
+                                if any(p in k for p in parts))}
+               for f, parts in (match or {}).items()}
     return {"wall_s": wall, "device_ops": sum(n for _, _, n in by_kernel),
+            **({"matched": matched} if match else {}),
             "device_busy_s": busy_s if busy_s else "not measured",
             "device_idle_share": (1 - busy_s / wall) if busy_s
             else "not measured",
@@ -978,7 +1008,7 @@ def search_phases(net, xs, chip, *, ckpt_root, expect_launches: dict,
                          same_bits_twice=not diff_twice,
                          ckpt_root=ckpt_root, card=card, search=search,
                          throughput=throughput, islands=islands)
-    return pnet, ev_dev.cache
+    return pnet, ev_dev.cache, runs["numpy"]["greedy"]
 
 
 def snapshots(d) -> list[dict]:
@@ -2609,6 +2639,406 @@ def vmap_pricing_phase(pnet, xs, chip, *, cache, cands, card: str) -> dict:
     return line
 
 
+def one_rank_group(device, store_dir):
+    """A process group of one rank on ``device`` (NCCL on the card, gloo on
+    the host), meeting through a ``file://`` store in ``store_dir``.  A
+    group that fails to start raises."""
+    import torch
+    import torch.distributed as dist
+    dev = torch.device(device)
+    store_dir = pathlib.Path(store_dir)
+    shutil.rmtree(store_dir, ignore_errors=True)
+    store_dir.mkdir(parents=True)
+    kw = {}
+    if dev.type == "cuda":
+        kw["device_id"] = torch.device("cuda", torch.cuda.current_device())
+    dist.init_process_group("nccl" if dev.type == "cuda" else "gloo",
+                            init_method=f"file://{store_dir / 'store'}",
+                            rank=0, world_size=1, **kw)
+    require(dist.get_world_size() == 1, "one-rank group")
+    return dist.group.WORLD
+
+
+def data_parallel_phases(*, device, card: str, ckpt_root, lm_a: dict,
+                         islands_ctx: dict, full: bool = True,
+                         train: dict = LM_TRAIN, dp_steps: int = DP_STEPS,
+                         async_ckpt: dict = ASYNC_CKPT) -> None:
+    """Phase (I): the data-parallel half over a one-rank process group
+    (see the module docstring).  ``lm_a`` is phase (A)'s result;
+    ``islands_ctx`` holds phase (s)'s cell (``pnet``, ``xs``, ``chip``,
+    ``cache``, ``greedy``, ``search``, ``islands`` and, on the card,
+    ``phase_s_dir``, its snapshots).  ``full=False`` (the tests' rehearsal
+    on the CPU, over gloo) uses the smoke configs and traces nothing."""
+    import dataclasses
+    import gc
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs import registry
+    from repro_torch.core.hlo_cost import ported_kernels
+    from repro_torch.core.partitioner import SimEvaluator
+    from repro_torch.core.search import evolutionary_search
+    from repro_torch.device import resolve_device
+    from repro_torch.distributed import collectives as C
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import lm, moe
+    from repro_torch.models.layers import dt
+    from repro_torch.train import checkpoint as ckpt_lib
+    from repro_torch.train import data as data_lib
+    from repro_torch.train import optim, schedules
+    from repro_torch.train import step as step_lib
+    from repro_torch.train.loop import (Trainer, TrainerConfig,
+                                        make_dp_compressed_step)
+    from repro_torch.tree import tree_leaves, tree_map
+
+    dev = resolve_device(device)
+    on_card = dev.type == "cuda"
+    counted = ported_kernels()
+    for fn in counted.values():
+        fn.launches = 0
+    shutil.rmtree(ckpt_root, ignore_errors=True)
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize(dev)
+
+    def free():
+        gc.collect()
+        if on_card:
+            torch.cuda.empty_cache()
+
+    def peak_reset():
+        if on_card:
+            torch.cuda.reset_peak_memory_stats()
+
+    def peak():
+        return torch.cuda.max_memory_allocated() if on_card \
+            else "not measured"
+
+    def same(a, b) -> bool:
+        la, lb = tree_leaves(a), tree_leaves(b)
+        return len(la) == len(lb) and all(torch.equal(x, y)
+                                          for x, y in zip(la, lb))
+
+    def event_ms(fn, reps: int = 3) -> float:
+        """Median CUDA-event (host clock on the CPU) ms of ``fn``."""
+        out = []
+        for _ in range(reps):
+            sync()
+            if on_card:
+                a = torch.cuda.Event(enable_timing=True)
+                b = torch.cuda.Event(enable_timing=True)
+                a.record()
+                fn()
+                b.record()
+                b.synchronize()
+                out.append(a.elapsed_time(b))
+            else:
+                t0 = time.perf_counter()
+                fn()
+                out.append((time.perf_counter() - t0) * 1e3)
+        return statistics.median(out)
+
+    group = one_rank_group(dev, ckpt_root / "group")
+    backend = dist.get_backend()
+    try:
+        # ------------------------------------------- (I.a) data parallel
+        t_phase = time.perf_counter()
+        B, S, lr = train["batch"], train["seq"], train["lr"]
+        entry = registry.get(LM_ARCH)
+        cfg = entry.config if full else entry.smoke()
+        opt = optim.adamw(schedules.constant(lr))
+        model = lm.init_params(cfg, 0, device)
+        state = step_lib.init_state(model, opt)
+        params = state["params"]
+        data = data_lib.SyntheticLM(data_lib.LMTaskConfig(
+            vocab_size=cfg.vocab_size, seq_len=S, global_batch=B, seed=0))
+        batches = [{k: torch.from_numpy(v).to(dev)
+                    for k, v in data.batch(i).items()}
+                   for i in range(dp_steps + 1)]
+        with torch.no_grad():
+            init = tree_map(lambda p: p.detach().clone(), params)
+
+        def reset():
+            """init_state's state again: the first parameters, AdamW's
+            zero moments and float32 master copy, step 0."""
+            with torch.no_grad():
+                tree_map(lambda p, q: p.copy_(q), params, init)
+                for k in ("m", "v"):
+                    tree_map(lambda t: t.zero_(), state["opt"][k])
+                tree_map(lambda w, p: w.copy_(p.float()),
+                         state["opt"]["master"], params)
+                state["step"].zero_()
+
+        plain = step_lib.make_train_step(model, opt)
+        dp = step_lib.make_train_step(model, opt, group=group)
+        _, m_plain = plain(state, batches[0])
+        sync()
+        after = tree_map(lambda p: p.detach().clone(), params)
+        reset()
+        _, m_dp = dp(state, batches[0])
+        sync()
+        loss_bits = (m_plain["loss"].item(), m_dp["loss"].item())
+        require(torch.equal(m_plain["loss"], m_dp["loss"])
+                and same(after, params),
+                f"(I.a) the exact DP step over one rank is not the step "
+                f"without a group: losses {loss_bits}")
+        del after
+        free()
+
+        def timed(step_fn, st) -> tuple[list, object]:
+            times = []
+            for b in batches[1:]:
+                sync()
+                t0 = time.perf_counter()
+                st, _ = step_fn(st, b)
+                sync()
+                times.append(time.perf_counter() - t0)
+            return times, st
+
+        reset()
+        peak_reset()
+        plain_s, _ = timed(plain, state)
+        plain_peak = peak()
+        reset()
+        peak_reset()
+        dp_s, _ = timed(dp, state)
+        dp_peak = peak()
+        if on_card:
+            trace_dp = traced(lambda: dp(state, batches[0]),
+                              match={"nccl": ("nccl", "Nccl")})
+        else:
+            trace_dp = "not measured (CPU)"
+        # the gradient tree's all-reduce alone, at its dtype and shapes
+        grads = tree_map(lambda p: torch.randn(p.shape, device=dev)
+                         .to(p.dtype), params)
+        allreduce_ms = event_ms(lambda: tree_map(
+            lambda g: dist.all_reduce(g, group=group), grads))
+        grad_bytes = sum(g.numel() * g.element_size()
+                         for g in tree_leaves(grads))
+        del grads
+        free()
+
+        # compressed: the error tree beside the state
+        reset()
+        del init, reset
+        free()
+        state["err"] = C.init_error_feedback(params)
+        comp = make_dp_compressed_step(model, opt, group)
+        peak_reset()
+        comp_s, _ = timed(comp, state)
+        comp_peak = peak()
+        require(all(np.isfinite(comp_s)), "(I.a) compressed steps")
+        if on_card:
+            trace_comp = traced(lambda: comp(state, batches[0]),
+                                match={"nccl": ("nccl", "Nccl")})
+        else:
+            trace_comp = "not measured (CPU)"
+        err_bytes = sum(e.numel() * 4 for e in tree_leaves(state["err"]))
+        del state, comp, dp, plain, model, params
+        free()
+        # the quantise / all-reduce / dequantise passes alone
+        model = lm.abstract_params(cfg)
+        shapes = [p.shape for p in model.parameters()]
+        grads = [torch.randn(s, device=dev).to(dt(cfg.param_dtype))
+                 for s in shapes]
+        errs = [torch.zeros(s, device=dev) for s in shapes]
+
+        def compress(g_):
+            for g, e in zip(grads, errs):
+                mean, new = C.compressed_psum_mean(g, e, g_)
+                e.copy_(new)
+        comp_group_ms = event_ms(lambda: compress(group))
+        comp_local_ms = event_ms(lambda: compress(None))
+        del grads, errs, model
+        free()
+        a_s = lm_a["step_s"]
+        emit({"phase": "dp_train", "card": card, "backend": backend,
+              "world": 1, "arch": cfg.name, "dtype": cfg.param_dtype,
+              "optimizer": "adamw", "batch": B, "seq_len": S,
+              "exact_dp_bit_identical_to_no_group": True,
+              "first_loss": loss_bits[0],
+              "s_per_step": {"phase_A": a_s,
+                             "no_group": statistics.median(plain_s),
+                             "exact_dp": statistics.median(dp_s),
+                             "compressed_dp": statistics.median(comp_s)},
+              "step_s": {"no_group": plain_s, "exact_dp": dp_s,
+                         "compressed_dp": comp_s},
+              "peak_device_bytes": {"no_group": plain_peak,
+                                    "exact_dp": dp_peak,
+                                    "compressed_dp": comp_peak},
+              "error_feedback_bytes": err_bytes,
+              "gradient_bytes": grad_bytes,
+              "grad_all_reduce_ms": allreduce_ms,
+              "compressed_mean_ms": {"group": comp_group_ms,
+                                     "no_group": comp_local_ms},
+              "traced_exact_dp_step": trace_dp,
+              "traced_compressed_step": trace_comp,
+              "layers": cfg.n_repeats,
+              "phase_wall_s": time.perf_counter() - t_phase})
+
+        # ------------------------------------ (I.b) expert parallelism
+        t_phase = time.perf_counter()
+        ocfg = registry.get("olmoe-1b-7b")
+        ocfg = ocfg.config if full else ocfg.smoke()
+        if full:
+            ocfg = dataclasses.replace(ocfg, n_repeats=BOUND_MOE_REPEATS)
+        odata = data_lib.SyntheticLM(data_lib.LMTaskConfig(
+            vocab_size=ocfg.vocab_size, seq_len=S, global_batch=B, seed=0))
+        obatch = {k: torch.from_numpy(v).to(dev)
+                  for k, v in odata.batch(0).items()}
+        res, trace_ep = {}, "not measured (CPU)"
+        # the MoE's index_add (combine, and the dispatch's backward) sums
+        # with atomics on the card: bit identity needs the deterministic
+        # implementations (warn_only: the GEMMs have none to select)
+        was = torch.are_deterministic_algorithms_enabled()
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        for name in ("no_group", "no_group_again", "ep"):
+            omodel = lm.init_params(ocfg, 0, device)
+            g = None
+            if name == "ep":
+                require(moe.shard_experts(omodel, group) > 0,
+                        "(I.b) no MoE block")
+                g = group
+            with torch.no_grad():
+                fwd_ms = event_ms(lambda: lm.loss_fn(omodel, obatch,
+                                                     group=g))
+            total, metrics, ograds = step_lib.value_and_grad(omodel, obatch,
+                                                             g)
+            sync()
+            res[name] = (total, metrics, ograds, fwd_ms)
+            if on_card and name == "ep":
+                trace_ep = traced(lambda: lm.loss_fn(omodel, obatch, group=g),
+                                  match={"nccl": ("nccl", "Nccl")})
+            del omodel
+            free()
+        torch.use_deterministic_algorithms(was)
+
+        def identical(x, y) -> bool:
+            (ta, ma, ga, _), (tb, mb, gb, _) = x, y
+            return (torch.equal(ta, tb) and sorted(ma) == sorted(mb)
+                    and all(torch.equal(ma[k], mb[k]) for k in ma)
+                    and same(ga, gb))
+        require(identical(res["no_group"], res["no_group_again"]),
+                "(I.b) the path without a group is not deterministic")
+        require(identical(res["no_group"], res["ep"]),
+                "(I.b) the EP loss or gradients over one rank differ from "
+                "the path without a group")
+        fa, mb, fb = res["no_group"][3], res["ep"][1], res["ep"][3]
+        emit({"phase": "dp_expert_parallel", "card": card,
+              "backend": backend, "world": 1, "config": ocfg.name,
+              "n_repeats": ocfg.n_repeats, "dtype": ocfg.param_dtype,
+              "batch": B, "seq_len": S,
+              "loss_and_grads_bit_identical_to_no_group": True,
+              "deterministic_algorithms": True,
+              "metrics": {k: float(v) for k, v in mb.items()},
+              "loss_fn_ms": {"no_group": fa, "ep": fb},
+              "traced_ep_loss": trace_ep,
+              "phase_wall_s": time.perf_counter() - t_phase})
+        del res, mb
+        free()
+
+        # ----------------------------------- (I.c) islands over a group
+        t_phase = time.perf_counter()
+        ctx = islands_ctx
+        gens = ctx["search"]["generations"]
+
+        def search(d, **kw):
+            ev = SimEvaluator(ctx["pnet"], ctx["xs"], ctx["chip"],
+                              cache=ctx["cache"])
+            sync()
+            t0 = time.perf_counter()
+            r = evolutionary_search(
+                ctx["pnet"], ctx["chip"], ev, engine="sharded",
+                greedy=ctx["greedy"], checkpoint_dir=str(d),
+                checkpoint_every=1, checkpoint_keep=gens + 1,
+                **ctx["search"], **ctx["islands"], **kw)
+            sync()
+            return r, time.perf_counter() - t0
+        one, one_s = search(ckpt_root / "islands_one")
+        grp, grp_s = search(ckpt_root / "islands_group", group=group)
+        require(grp.demotions == [] and one.demotions == [],
+                "(I.c) demotions")
+        s_one = snapshots(ckpt_root / "islands_one")
+        s_grp = snapshots(ckpt_root / "islands_group")
+        diff = held_to_mirror(grp, one, s_grp, s_one,
+                              "(I.c) islands over the group vs one program",
+                              gens)
+        if ctx.get("phase_s_dir") is not None:
+            s_s = snapshots(ctx["phase_s_dir"])
+            require(len(s_s) == len(s_grp) and all(
+                np.array_equal(a[k], b[k]) for a, b in zip(s_grp, s_s)
+                for k in ("cores", "perm")),
+                "(I.c) genomes differ from phase (s)'s snapshots")
+        emit({"phase": "dp_islands", "card": card, "backend": backend,
+              "world": 1, **ctx["islands"],
+              "population_size": ctx["search"]["population_size"],
+              "generations": gens,
+              "genomes_identical_every_snapshot": gens + 1,
+              "held_to_phase_s_snapshots": ctx.get("phase_s_dir")
+              is not None, "max_rel_diff": diff,
+              "wall_s": {"one_program": one_s, "group": grp_s},
+              "phase_wall_s": time.perf_counter() - t_phase})
+
+        # --------------------------------------- (I.d) async checkpoints
+        t_phase = time.perf_counter()
+        gcfg = registry.get("granite-3-2b").smoke()
+        tr = Trainer(gcfg, make_mesh((1, 1), ("data", "model")),
+                     optim.adamw(schedules.constant(2e-3)),
+                     data_lib.SyntheticLM(data_lib.LMTaskConfig(
+                         vocab_size=gcfg.vocab_size, seq_len=32,
+                         global_batch=4, seed=1)),
+                     TrainerConfig(steps=async_ckpt["save_at"], log_every=1),
+                     device=device)
+        require(tr.group is group, "(I.d) the trainer's data group")
+        tr.run()
+        at = async_ckpt["save_at"]
+        ckpt_lib.save(str(ckpt_root / "sync"), at, tr.state,
+                      extra={"data_step": tr.data_step})
+        t0 = time.perf_counter()
+        th = ckpt_lib.save_async(str(ckpt_root / "async"), at, tr.state,
+                                 extra={"data_step": tr.data_step})
+        snapshot_s = time.perf_counter() - t0
+        during, after_, written_by = [], [], None
+        for i in range(async_ckpt["steps"]):
+            alive = th.is_alive()
+            if not alive and written_by is None:
+                written_by = time.perf_counter() - t0
+            b = tr._put_batch(tr.data.batch(tr.data_step + i))
+            sync()
+            t1 = time.perf_counter()
+            tr.state, _ = tr.step_fn(tr.state, b)
+            sync()
+            (during if alive else after_).append(time.perf_counter() - t1)
+        th.join()
+        if written_by is None:
+            written_by = time.perf_counter() - t0
+        like = tree_map(lambda t: torch.empty((), dtype=t.dtype,
+                                              device=dev), tr.state)
+        ra, sa, ea = ckpt_lib.restore(str(ckpt_root / "async"), like)
+        rb, sb, eb = ckpt_lib.restore(str(ckpt_root / "sync"), like,
+                                      shardings=tree_map(lambda _: dev,
+                                                         like))
+        require(sa == sb == at and ea == eb and same(ra, rb),
+                "(I.d) the async checkpoint differs from the synchronous one")
+        emit({"phase": "dp_async_checkpoint", "card": card,
+              "arch": gcfg.name, "saved_at_step": at,
+              "restore_bit_identical_to_sync_save": True,
+              "host_snapshot_s": snapshot_s,
+              "write_done_within_s": written_by,
+              "step_s_during_write": during, "step_s_after_write": after_,
+              "phase_wall_s": time.perf_counter() - t_phase})
+        del tr, ra, rb, like
+        free()
+    finally:
+        dist.destroy_process_group()
+    launches = {k: fn.launches for k, fn in counted.items()}
+    require(not any(launches.values()),
+            f"(I) the data-parallel paths launched a ported kernel: "
+            f"{launches}")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3712,7 +4142,7 @@ def main() -> int:
     # ------------- (o)-(q) trained profile, search, resume at the cell
     del cache, run_p, ev_np, ev_dev, r_np, r_dev
     torch.cuda.empty_cache()
-    pnet, pcache = search_phases(net, xs, prof,
+    pnet, pcache, pgreedy = search_phases(net, xs, prof,
                                  ckpt_root=build.BUILD_DIR / "ckpt",
                                  expect_launches=expect, card=card)
 
@@ -3739,6 +4169,15 @@ def main() -> int:
     torch.cuda.empty_cache()
     event_options_phase(device=DEVICE, card=card)
     vmap_pricing_phase(pnet, xs, prof, cache=pcache, cands=cands, card=card)
+
+    # ---------------- (I) the data-parallel half over a one-rank group
+    torch.cuda.empty_cache()
+    data_parallel_phases(
+        device=DEVICE, card=card, ckpt_root=build.BUILD_DIR / "ckpt" / "dp",
+        lm_a=lm_a, islands_ctx=dict(
+            pnet=pnet, xs=xs, chip=prof, cache=pcache, greedy=pgreedy,
+            search=SEARCH, islands=ISLANDS,
+            phase_s_dir=build.BUILD_DIR / "ckpt" / "r" / "islands"))
 
     emit({"kernels": [mm, wc, fa, em1, sdk]})
     print(card, flush=True)

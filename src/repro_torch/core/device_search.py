@@ -37,7 +37,7 @@ package's genomes in every generation.  The host mirror
 (``reference=True``, :class:`_NumpyMirror`) runs the same program on CPU
 tensors with the bit-exact ``"numpy"`` population backend.
 
-**Islands on one card.**  The sharded engine keeps the population in
+**Islands.**  The sharded engine keeps the population in
 island-block order (global row ``i * local_pop + r`` is island ``i``'s row
 ``r``) and runs every island's generation as one program with a leading
 island axis: mutation and pricing are row-wise, ranking and survival work
@@ -46,7 +46,15 @@ island's top ``n_migrants`` rows replace the next island's (island ``i``
 takes island ``i - 1``'s), a rotation of the block axis in place of the
 JAX package's ``ppermute`` ring.  With one island it is exactly the
 device engine.  :class:`_ShardedHostMirror` replays it island by island
-on the host.
+on the host.  With a process ``group`` of R ranks (the JAX package's
+``shard_map`` over its island mesh) each rank holds ``n_islands / R``
+consecutive islands in the same program: migration is the rotation
+within the rank plus a :func:`~repro_torch.distributed.collectives.
+ring_shift` of the edge island's elites between ranks, the generation's
+stats gather the leaders and sum the finite means' sums and counts, each
+generation's offspring are gathered for the archive, and snapshots are
+gathered to rank 0 in the one-program layout, so a run resumes at another
+rank count.  Draws stay :func:`island_keys` of the global island index.
 
 Two deliberate deviations from the numpy engine, as in the JAX package: no
 ``tried``-set resampling of duplicate offspring (duplicates are removed at
@@ -64,6 +72,7 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.core import prng
 from repro_torch.core.resilience import (Demotion, FaultPlan, RetryPolicy,
@@ -74,6 +83,9 @@ from repro_torch.core.search import (Candidate, EpsParetoArchive, GenStats,
                                      MoveTables, Population, SearchResult,
                                      _validate_search_args, decode,
                                      move_tables, seeded_population)
+from repro_torch.distributed.collectives import (all_reduce_, gather_islands,
+                                                 group_rank, group_size,
+                                                 ring_shift)
 from repro_torch.neuromorphic.timestep import (_host, device_pricer,
                                                precompute_pricing,
                                                price_candidate,
@@ -456,16 +468,24 @@ def _sorted_state(cores, perm, out: dict, n_keep: int, *,
                 hot_mem=out["hot_mem"][idx], hot_act=out["hot_act"][idx])
 
 
-def _migrate(state: dict, n_migrants: int, n_islands: int, **kw) -> dict:
+def _migrate(state: dict, n_migrants: int, n_islands: int, group=None,
+             **kw) -> dict:
     """Elite-block rotation: island ``i``'s rows ``[0, n_migrants)`` are
     replaced by island ``i - 1``'s, then every island re-sorts.  Rows move,
-    none is copied or dropped."""
+    none is copied or dropped.  With a ``group`` the ``n_islands`` are this
+    rank's block of the ring: its first island receives the last island
+    of the rank before it (:func:`~repro_torch.distributed.collectives.
+    ring_shift`)."""
     P = state["cores"].shape[0] // n_islands
     m = int(n_migrants)
 
     def rotate(a):
         b = a.reshape(n_islands, P, *a.shape[1:])
         inc = torch.roll(b[:, :m], shifts=1, dims=0)
+        if group is not None:
+            edge = ring_shift(b[-1:, :m], size=group_size(group),
+                              group=group)
+            inc = torch.cat([edge, inc[1:]])
         return torch.cat([inc, b[:, m:]], dim=1).flatten(0, 1)
 
     merged = {k: rotate(v) for k, v in state.items()}
@@ -473,29 +493,44 @@ def _migrate(state: dict, n_migrants: int, n_islands: int, **kw) -> dict:
                          n_islands=n_islands, **kw)
 
 
-def _island_stats(new: dict, n_islands: int, n_quar) -> dict:
+def _island_stats(new: dict, n_islands: int, n_quar, group=None) -> dict:
     """The generation's stats over every island: the best island leader
     (least time, then least energy), the finite mean time over all
     survivors and the quarantined offspring; for one island the device
-    engine's ``times[0]``, ``energies[0]`` and :func:`finite_mean`."""
+    engine's ``times[0]``, ``energies[0]`` and :func:`finite_mean`.  With
+    a ``group`` the leaders of every rank's islands are gathered and the
+    finite sums and counts summed over it (the JAX package's
+    ``_global_stats``)."""
     t = new["times"].reshape(n_islands, -1)[:, 0]
     e = new["energies"].reshape(n_islands, -1)[:, 0]
+    if group is not None:
+        lead = gather_islands(dict(t=t, e=e), group=group, tiled=True)
+        t, e = lead["t"], lead["e"]
     tmin = t.min()
     inf = torch.tensor(float("inf"), dtype=e.dtype, device=e.device)
+    if group is None:
+        mean = finite_mean(torch, new["times"])
+    else:
+        times = new["times"]
+        ok = torch.isfinite(times)
+        n_ok = all_reduce_(ok.sum(), group)
+        total = all_reduce_(torch.where(ok, times, 0.0).sum(), group)
+        mean = torch.where(n_ok > 0, total / n_ok.clamp(min=1), inf)
+        n_quar = all_reduce_(torch.as_tensor(n_quar).clone(), group)
     return dict(best_time=tmin, best_energy=torch.where(t == tmin, e,
                                                         inf).min(),
-                mean_time=finite_mean(torch, new["times"]),
-                n_quarantined=n_quar)
+                mean_time=mean, n_quarantined=n_quar)
 
 
 def _generation_step(price_fn, feasible, n_phys: int, explore_prob: float,
                      state: dict, draws: dict, *, n_islands: int = 1,
                      n_migrants: int = 0, gene_max: int | None = None,
-                     tel=None):
+                     tel=None, group=None):
     """One (mu + lambda) generation on every island: select, mutate,
     price, join each island's offspring to its survivors, rank, survive
     (then migrate, with ``n_migrants``).  Returns (new state, offspring
-    dict, stats dict)."""
+    dict, stats dict).  With a ``group`` the islands are this rank's block
+    and migration and stats cross ranks."""
     I = n_islands
     P = state["cores"].shape[0] // I
     n_off = draws["explore_u"].shape[0] // I
@@ -521,12 +556,12 @@ def _generation_step(price_fn, feasible, n_phys: int, explore_prob: float,
     new = _sorted_state(join(state["cores"], oc), join(state["perm"], op),
                         all_out, P, **kw)
     if n_migrants:
-        new = _migrate(new, n_migrants, **kw)
+        new = _migrate(new, n_migrants, group=group, **kw)
     off = dict(cores=oc, perm=op, times=out["times"],
                energies=out["energies"])
     n_quar = (~(torch.isfinite(out["times"])
                 & torch.isfinite(out["energies"]))).sum()
-    return new, off, _island_stats(new, I, n_quar)
+    return new, off, _island_stats(new, I, n_quar, group)
 
 
 # ----------------------------------------------------------------- engines
@@ -537,8 +572,10 @@ class _GenerationProgram:
 
     def __init__(self, tables: MoveTables, *, n_layers: int, n_slots: int,
                  device, explore_prob: float, tournament_k: int,
-                 n_islands: int = 1, n_migrants: int = 0):
+                 n_islands: int = 1, n_migrants: int = 0, group=None):
         self.device = torch.device(device)
+        #: the process group the islands are spread over (None: one rank)
+        self.group = group
         self.explore_prob = float(explore_prob)
         self.tournament_k = int(tournament_k)
         self.n_layers = int(n_layers)
@@ -584,12 +621,12 @@ class _GenerationProgram:
         return _generation_step(
             self._price, self.feasible, self.n_phys, self.explore_prob,
             state, draws, n_migrants=self.n_migrants if migrate else 0,
-            **self._kw())
+            group=self.group, **self._kw())
 
     def migrate(self, state: dict) -> dict:
         """The migration alone (the unit the multiset property drives)."""
         return _migrate(_on(state, self.device), self.n_migrants,
-                        **self._kw())
+                        group=self.group, **self._kw())
 
 
 class DeviceSearchEngine(_GenerationProgram):
@@ -602,14 +639,14 @@ class DeviceSearchEngine(_GenerationProgram):
 
     def __init__(self, net, profile, cache, tables: MoveTables, *,
                  explore_prob: float, tournament_k: int, n_islands: int = 1,
-                 n_migrants: int = 0):
+                 n_migrants: int = 0, group=None):
         self.pricer = device_pricer(net, profile, cache)
         super().__init__(tables, n_layers=len(cache.layers),
                          n_slots=int(profile.n_cores),
                          device=self.pricer.device,
                          explore_prob=explore_prob,
                          tournament_k=tournament_k, n_islands=n_islands,
-                         n_migrants=n_migrants)
+                         n_migrants=n_migrants, group=group)
 
     def _price(self, cores, perm) -> dict:
         o = self.pricer.price(cores.long(), perm.long())
@@ -619,23 +656,25 @@ class DeviceSearchEngine(_GenerationProgram):
 
 
 class ShardedSearchEngine(DeviceSearchEngine):
-    """The island model on one card: ``n_islands`` islands of
-    ``local_pop`` rows in island-block order, every island's generation in
-    one program, migration a rotation of the island axis."""
+    """The island model: ``n_islands`` islands of ``local_pop`` rows in
+    island-block order, every island's generation in one program,
+    migration a rotation of the island axis.  With a process ``group``
+    the ``n_islands`` are this rank's block of the ring (``_search`` gives
+    rank ``r`` islands ``[r * n_islands, (r + 1) * n_islands)``)."""
 
     def __init__(self, net, profile, cache, tables: MoveTables, *,
                  n_islands: int, local_pop: int, n_migrants: int,
-                 explore_prob: float, tournament_k: int):
+                 explore_prob: float, tournament_k: int, group=None):
         super().__init__(net, profile, cache, tables,
                          explore_prob=explore_prob,
                          tournament_k=tournament_k, n_islands=n_islands,
-                         n_migrants=n_migrants)
+                         n_migrants=n_migrants, group=group)
         self.local_pop = int(local_pop)
 
 
 def _engine_for(net, profile, cache, tables, *, explore_prob, tournament_k,
                 n_islands: int = 1, local_pop: int = 0,
-                n_migrants: int = 0) -> DeviceSearchEngine:
+                n_migrants: int = 0, group=None) -> DeviceSearchEngine:
     """The engine for one run: the device engine, or the island engine
     when the geometry has migrants.  Nothing is compiled, so each run
     builds its own (the JAX package caches its jitted engines on the
@@ -648,7 +687,7 @@ def _engine_for(net, profile, cache, tables, *, explore_prob, tournament_k,
                                n_islands=n_islands, local_pop=local_pop,
                                n_migrants=n_migrants,
                                explore_prob=explore_prob,
-                               tournament_k=tournament_k)
+                               tournament_k=tournament_k, group=group)
 
 
 # -------------------------------------------------------- reference mirrors
@@ -803,13 +842,16 @@ class _ResilientEngine:
     ``Demotion(frm="device" | "sharded", to="numpy-mirror")``.  The mirror
     consumes the same draws under the same key contract, so a mid-run
     demotion continues the trajectory to float64 roundoff; a mirror
-    failure propagates."""
+    failure propagates.  With ``demote=False`` (islands over a process
+    group) the failure propagates instead: a rank that demoted alone would
+    leave the others waiting in a collective."""
 
     def __init__(self, primary, mirror_factory, *,
                  retry: RetryPolicy | None = None,
                  fault_plan: FaultPlan | None = None,
-                 backend: str = "device"):
+                 backend: str = "device", demote: bool = True):
         self.engine = primary
+        self.demote = demote
         self._mirror_factory = mirror_factory
         self.retry = retry or RetryPolicy()
         self.fault_plan = fault_plan
@@ -843,7 +885,7 @@ class _ResilientEngine:
                     return call(self.engine)
                 except Exception as e:          # SimulatedCrash passes:
                     last = e                    # it is a BaseException
-            if self.backend != self._primary:
+            if self.backend != self._primary or not self.demote:
                 raise last                      # mirror failed: no net left
             d = Demotion(site=site, frm=self._primary, to="numpy-mirror",
                          error=repr(last), retries=self.retry.max_retries)
@@ -883,10 +925,12 @@ def _search(net, profile, evaluator, *, engine: str, population_size: int,
             seed: int, max_evaluations, seed_candidates, greedy,
             pareto_eps: float, n_islands, migrate_every: int, n_migrants,
             reference: bool, checkpoint_dir, checkpoint_every: int,
-            checkpoint_keep: int, resume: bool, fault_plan, retry):
+            checkpoint_keep: int, resume: bool, fault_plan, retry,
+            group=None):
     """The shared driver of :func:`evolutionary_search_device` and
     :func:`evolutionary_search_sharded` (``engine`` names which)."""
     sharded = engine == "sharded"
+    R, rank = group_size(group), group_rank(group)
     for attr in ("net", "xs", "profile"):
         if not hasattr(evaluator, attr):
             raise TypeError(
@@ -905,6 +949,20 @@ def _search(net, profile, evaluator, *, engine: str, population_size: int,
             f"over {n_islands} islands — pick a multiple of {n_islands} "
             "or pass n_islands explicitly")
     local_pop = population_size // n_islands
+    if group is not None:
+        if not sharded or reference:
+            raise ValueError("a process group spreads the sharded engine's "
+                             "islands; it has no mirror over ranks")
+        if n_islands % R:
+            raise ValueError(f"{n_islands} islands over {R} ranks")
+    I_loc = n_islands // R                # this rank's islands
+    mine = slice(rank * I_loc * local_pop, (rank + 1) * I_loc * local_pop)
+
+    def gathered(tensors: dict) -> dict:
+        """Every rank's rows of ``tensors``, in island order."""
+        if group is None:
+            return tensors
+        return gather_islands(tensors, group=group, tiled=True)
     if local_pop < 2:
         raise ValueError(
             f"population_size={population_size} over {n_islands} islands "
@@ -949,9 +1007,11 @@ def _search(net, profile, evaluator, *, engine: str, population_size: int,
         eng = _ResilientEngine(
             _engine_for(net, profile, cache, tables,
                         explore_prob=explore_prob, tournament_k=tournament_k,
-                        n_islands=n_islands, local_pop=local_pop,
-                        n_migrants=n_migrants),
-            _mirror, retry=retry, fault_plan=fault_plan, backend=engine)
+                        n_islands=I_loc, local_pop=local_pop,
+                        n_migrants=n_migrants, group=group),
+            _mirror, fault_plan=fault_plan, backend=engine,
+            retry=retry if group is None else RetryPolicy(max_retries=0),
+            demote=group is None)
     tel = SearchTelemetry()
     eng.tel = tel
     base_key = prng.PRNGKey(seed)
@@ -965,14 +1025,14 @@ def _search(net, profile, evaluator, *, engine: str, population_size: int,
         validate_resume_meta(meta, engine=engine,
                              checkpoint_dir=checkpoint_dir,
                              expect=geometry or None)
-        state = {k: torch.as_tensor(np.asarray(arrays[k])).to(
+        state = {k: torch.as_tensor(np.asarray(arrays[k])[mine]).to(
             _F64 if k in ("times", "energies") else _I32)
             for k in _STATE_KEYS}
         archive.load_state(arrays)
         history = [GenStats(**h) for h in meta["history"]]
         evals_used = int(meta["evals_used"])
         seed_best_time = float(meta["seed_best_time"])
-        n_pop = int(state["cores"].shape[0])
+        n_pop = int(np.asarray(arrays["cores"]).shape[0])   # every rank's
         start_gen = gen0 + 1
     else:
         rng = np.random.default_rng(seed)
@@ -990,11 +1050,13 @@ def _search(net, profile, evaluator, *, engine: str, population_size: int,
             cands = cands[:max(1, max_evaluations)]
         pop = Population.from_candidates(cands)
         tel.generation()
-        state, init_out = eng.init(pop.cores, pop.perm)
+        state, init_out = eng.init(pop.cores[mine], pop.perm[mine])
         evals_used = len(pop)
         _charge(evaluator, len(pop))
-        h = _fetch(dict(it=init_out["times"], ie=init_out["energies"],
-                        ft=state["times"], fe=state["energies"]), tel)
+        h = _fetch(gathered(dict(it=init_out["times"],
+                                 ie=init_out["energies"],
+                                 ft=state["times"], fe=state["energies"])),
+                   tel)
         tel.settle()
         # screen the raw seed objectives before they reach host stats or
         # the archive
@@ -1013,12 +1075,16 @@ def _search(net, profile, evaluator, *, engine: str, population_size: int,
         start_gen = 1
 
     def _snapshot(gen: int) -> None:
-        arrays = _fetch({k: state[k] for k in _STATE_KEYS}, tel)
-        arrays.update(archive.state_arrays(n_layers, n_slots))
-        meta = dict(engine=engine, **geometry, evals_used=int(evals_used),
-                    seed_best_time=float(seed_best_time),
-                    history=[dataclasses.asdict(g) for g in history])
-        ckpt.save(gen, arrays, meta)
+        arrays = _fetch(gathered({k: state[k] for k in _STATE_KEYS}), tel)
+        if rank == 0:
+            arrays.update(archive.state_arrays(n_layers, n_slots))
+            meta = dict(engine=engine, **geometry,
+                        evals_used=int(evals_used),
+                        seed_best_time=float(seed_best_time),
+                        history=[dataclasses.asdict(g) for g in history])
+            ckpt.save(gen, arrays, meta)
+        if group is not None:
+            dist.barrier(group=group)
 
     if restored is None:
         if ckpt is not None:
@@ -1036,9 +1102,11 @@ def _search(net, profile, evaluator, *, engine: str, population_size: int,
         migrate = (n_islands > 1 and migrate_every > 0
                    and gen % migrate_every == 0)
         tel.generation()
-        state, off, stats = eng.step(state, island_keys(base_key, gen,
-                                                        n_islands),
+        keys = island_keys(base_key, gen, n_islands)
+        state, off, stats = eng.step(state,
+                                     keys[rank * I_loc:(rank + 1) * I_loc],
                                      local_off, migrate)
+        off = gathered(off)
         evals_used += local_off * n_islands
         _charge(evaluator, local_off * n_islands)
         # the per-generation host transfer: the stats and the offspring,
@@ -1059,8 +1127,8 @@ def _search(net, profile, evaluator, *, engine: str, population_size: int,
         if fault_plan is not None:
             fault_plan.after_generation(gen)
 
-    final = _fetch({k: state[k] for k in ("cores", "perm", "times",
-                                          "energies")})
+    final = _fetch(gathered({k: state[k] for k in ("cores", "perm",
+                                                   "times", "energies")}))
     t0 = final["times"].reshape(n_islands, -1)[:, 0]
     e0 = final["energies"].reshape(n_islands, -1)[:, 0]
     row = int(np.argmin(np.where(t0 == t0.min(), e0, np.inf))) \
@@ -1168,9 +1236,11 @@ def evolutionary_search_sharded(
     resume: bool = False,
     fault_plan: FaultPlan | None = None,
     retry: RetryPolicy | None = None,
+    group=None,
 ) -> SearchResult:
     """Run the island-model search (the ``engine="sharded"`` path of
-    :func:`repro_torch.core.search.evolutionary_search`) on one card.
+    :func:`repro_torch.core.search.evolutionary_search`), on one card or
+    over the ranks of a process ``group``.
 
     The population splits into ``n_islands`` equal islands (default 1;
     ``population_size`` must divide evenly and leave at least 2 rows per
@@ -1183,7 +1253,14 @@ def evolutionary_search_sharded(
     engine's layout (meta ``engine="sharded"`` with the island geometry,
     which resume validates); ``reference=True`` and demotions run
     :class:`_ShardedHostMirror` (``fail={"sharded": n}`` injects
-    failures)."""
+    failures).
+
+    ``group``: spread the islands over the group's R ranks (``n_islands``
+    a multiple of R; each rank passes its own evaluator over the same
+    workload, on its device).  Every rank returns the same result, the
+    genomes of the one-program run; rank 0 writes the snapshots in the
+    one-program layout.  ``reference=True`` raises, and a failed step
+    raises on its rank instead of retrying or demoting."""
     return _search(net, profile, evaluator, engine="sharded",
                    population_size=population_size, generations=generations,
                    tournament_k=tournament_k, explore_prob=explore_prob,
@@ -1194,4 +1271,4 @@ def evolutionary_search_sharded(
                    reference=reference, checkpoint_dir=checkpoint_dir,
                    checkpoint_every=checkpoint_every,
                    checkpoint_keep=checkpoint_keep, resume=resume,
-                   fault_plan=fault_plan, retry=retry)
+                   fault_plan=fault_plan, retry=retry, group=group)

@@ -631,6 +631,7 @@ def evolutionary_search(
     fault_plan: FaultPlan | None = None,
     reference: bool = False,
     retry=None,
+    group=None,
 ) -> SearchResult:
     """Run the (mu + lambda) evolutionary mapping search, tensor-first.
 
@@ -658,7 +659,9 @@ def evolutionary_search(
     two engines ``reference=True`` runs the host mirror, and ``retry``
     (a :class:`~repro_torch.core.resilience.RetryPolicy`) sets the
     retries before a failing engine demotes to it; the island keywords
-    are only meaningful for ``"sharded"``.
+    are only meaningful for ``"sharded"``.  ``group`` (``"sharded"``
+    only): spread the islands over the ranks of a ``torch.distributed``
+    process group.
 
     Fault tolerance: with ``checkpoint_dir`` the search writes an atomic,
     self-contained snapshot every ``checkpoint_every`` generations
@@ -685,11 +688,18 @@ def evolutionary_search(
                   checkpoint_keep=checkpoint_keep, resume=resume,
                   fault_plan=fault_plan, retry=retry)
         if engine == "device":
+            if group is not None:
+                raise ValueError("group= spreads the 'sharded' engine's "
+                                 "islands")
             return device_search.evolutionary_search_device(
                 net, profile, evaluator, **kw)
+        if group is not None:
+            kw["group"] = group
         return device_search.evolutionary_search_sharded(
             net, profile, evaluator, n_islands=n_islands,
             migrate_every=migrate_every, n_migrants=n_migrants, **kw)
+    if group is not None:
+        raise ValueError("group= spreads the 'sharded' engine's islands")
     if engine != "numpy":
         raise ValueError(f"unknown search engine {engine!r}")
     if reference or retry is not None:

@@ -1,28 +1,178 @@
-"""int8-compressed gradient mean with error feedback (PyTorch port of the
-gradient part of ``repro.distributed.collectives``), for one data-parallel
-replica.
+"""Collectives over a ``torch.distributed`` process group (PyTorch port of
+``repro.distributed.collectives``): the island-migration primitives of the
+sharded search, the int8-compressed gradient mean with error feedback,
+and the few differentiable collectives the data- and expert-parallel
+paths need.
+
+**Island migration.**  :func:`ring_shift` rotates every leaf one rank on
+around a ring of ``isend`` / ``irecv`` pairs: rank ``i`` sends its block to
+rank ``(i + shift) % size`` and receives rank ``(i - shift) % size``'s.  A
+rotation moves rows and never copies or drops one, so the global genome
+multiset is kept.  :func:`gather_islands` is the matching ``all_gather``
+(stacked on a new axis, or concatenated with ``tiled=True``).
+
+**Compressed gradient mean.**
 
     q      = quantize_int8(g + err)      # per-leaf scale = max|.| / 127
     g_hat  = psum(q) * scale / n
     err'   = (g + err) - dequant(q)      # residual, fed back next step
 
-Error feedback keeps the accumulated quantization error bounded.  With one
-replica the reference's ``pmax`` and ``psum`` over the data-parallel axes
-are identities and ``n`` is 1, so the mean is the replica's own
-dequantized value; the trainer's ``compress_grads`` mode runs it so.  The
-island primitives (``ring_shift``, ``gather_islands``) are not ported: the
-port's sharded search keeps its islands on one card.
+Error feedback keeps the accumulated quantization error bounded.  Over n
+replicas the scales meet in a MAX all-reduce (the reference's ``pmax``),
+every replica quantizes against that shared scale, the int8 payloads are
+summed as int32, and the mean is ``total * gmax / n``.  Without a group
+(one replica) ``pmax`` and ``psum`` are identities and ``n`` is 1, so the
+mean is the replica's own dequantized value.
+
+**Differentiable collectives.**  :func:`psum` is the reference's ``psum``
+inside a function whose value every rank holds: its backward passes the
+cotangent through unchanged, so that the ranks' gradients, summed, are
+the gradient of the one replicated value.  :func:`all_to_all` moves equal
+row blocks between ranks; its backward moves the cotangents back.
+
+A ``group`` of None means one rank: every function then runs without a
+collective and returns what the one-replica code computes.
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.tree import tree_map
 
 _INV_127 = float(np.float32(1.0) / np.float32(127.0))
 
+
+def group_size(group) -> int:
+    """Ranks in ``group`` (1 for None)."""
+    return 1 if group is None else dist.get_world_size(group)
+
+
+def group_rank(group) -> int:
+    """This process's rank in ``group`` (0 for None)."""
+    return 0 if group is None else dist.get_rank(group)
+
+
+def _global_rank(group, r: int) -> int:
+    return dist.get_global_rank(group, r) if group is not None else r
+
+
+# ------------------------------------------------------- island migration
+
+def ring_shift(tree, *, size: int, group, shift: int = 1):
+    """Rotate every leaf ``shift`` ranks around the ring of ``group``
+    (``size`` ranks): each rank sends its leaf to rank ``(i + shift) %
+    size`` and receives rank ``(i - shift) % size``'s.  A ring of one rank
+    is the identity."""
+    size = int(size)
+    if size < 1:
+        raise ValueError(f"ring over {size} ranks")
+    if size != group_size(group):
+        raise ValueError(f"a ring of {size} over a group of "
+                         f"{group_size(group)}")
+    if size == 1 or shift % size == 0:
+        return tree
+    me = group_rank(group)
+    dst = _global_rank(group, (me + shift) % size)
+    src = _global_rank(group, (me - shift) % size)
+
+    def one(v):
+        v = v.contiguous()
+        out = torch.empty_like(v)
+        ops = [dist.P2POp(dist.isend, v, dst, group),
+               dist.P2POp(dist.irecv, out, src, group)]
+        for req in dist.batch_isend_irecv(ops):
+            req.wait()
+        return out
+    return tree_map(one, tree)
+
+
+def gather_islands(tree, *, group, axis: int = 0, tiled: bool = False):
+    """Leaf-wise ``all_gather`` over ``group``: every rank ends up holding
+    the ranks' values stacked on a new ``axis`` (``tiled=False``) or
+    concatenated along it (``tiled=True``), in rank order."""
+    n = group_size(group)
+
+    def one(v):
+        v = v.contiguous()
+        if group is None:
+            parts = [v]
+        else:
+            parts = [torch.empty_like(v) for _ in range(n)]
+            dist.all_gather(parts, v, group=group)
+        return (torch.cat(parts, dim=axis) if tiled
+                else torch.stack(parts, dim=axis))
+    return tree_map(one, tree)
+
+
+# --------------------------------------------- differentiable collectives
+
+class _PSum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        y = x.detach().clone(memory_format=torch.contiguous_format)
+        dist.all_reduce(y, op=dist.ReduceOp.SUM, group=group)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+def psum(x: torch.Tensor, group) -> torch.Tensor:
+    """SUM all-reduce of ``x`` over ``group`` whose backward passes the
+    cotangent through (see the module docstring); ``x`` itself without a
+    group."""
+    return x if group is None else _PSum.apply(x, group)
+
+
+def pmean(x: torch.Tensor, group) -> torch.Tensor:
+    """:func:`psum` times ``1 / n`` (exact for a power-of-two ``n``, as
+    the reference's division by ``n``)."""
+    if group is None:
+        return x
+    return psum(x, group) * (1.0 / group_size(group))
+
+
+def _all_to_all_raw(x: torch.Tensor, group) -> torch.Tensor:
+    x = x.contiguous()
+    out = torch.empty_like(x)
+    dist.all_to_all_single(out, x, group=group)
+    return out
+
+
+class _AllToAll(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return _all_to_all_raw(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_to_all_raw(g, ctx.group), None
+
+
+def all_to_all(x: torch.Tensor, group) -> torch.Tensor:
+    """Block ``i`` of ``x``'s leading dim (split in ``n`` equal blocks)
+    goes to rank ``i``; the result's block ``j`` came from rank ``j``.
+    Differentiable."""
+    return _AllToAll.apply(x, group)
+
+
+def all_reduce_(x: torch.Tensor, group, op=dist.ReduceOp.SUM
+                ) -> torch.Tensor:
+    """All-reduce of a tensor outside autograd, in place where ``x`` is
+    contiguous (the collective needs it so; a contiguous copy otherwise);
+    returns the reduced tensor, ``x`` itself without a group."""
+    if group is not None:
+        x = x.contiguous()
+        dist.all_reduce(x, op=op, group=group)
+    return x
+
+
+# ------------------------------------------------ compressed gradient mean
 
 def quantize_int8(x: torch.Tensor):
     """(int8 q, float32 scale) with ``scale = max(max|x|, 1e-30) / 127``
@@ -39,20 +189,30 @@ def dequantize_int8(q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
     return q.float() * scale
 
 
-def compressed_psum_mean(x: torch.Tensor, err: torch.Tensor):
-    """One leaf: the error-feedback int8 mean over one replica.  Returns
-    (mean estimate in float32, new error)."""
+def compressed_psum_mean(x: torch.Tensor, err: torch.Tensor, group=None):
+    """One leaf: the error-feedback int8 mean over the replicas of
+    ``group`` (one replica without).  Returns (mean estimate in float32,
+    new error)."""
     xf = x.float() + err
     q, scale = quantize_int8(xf)
-    return dequantize_int8(q, scale), xf - dequantize_int8(q, scale)
+    if group is None:
+        return dequantize_int8(q, scale), xf - dequantize_int8(q, scale)
+    # the replicas share the largest scale, so the wire format is exactly
+    # int8 plus one float32
+    gmax = all_reduce_(scale.clone(), group, dist.ReduceOp.MAX)
+    q2 = torch.clamp(torch.round(xf / gmax), -127, 127).to(torch.int8)
+    new_err = xf - q2.float() * gmax
+    total = all_reduce_(q2.to(torch.int32), group)
+    return total.float() * gmax * (1.0 / group_size(group)), new_err
 
 
-def compressed_grad_mean(grads, err_tree):
+def compressed_grad_mean(grads, err_tree, group=None):
     """Tree version (nested dicts).  Returns (mean gradients in float32,
     new error tree)."""
     if not isinstance(grads, dict):
-        return compressed_psum_mean(grads, err_tree)
-    out = {k: compressed_grad_mean(grads[k], err_tree[k]) for k in grads}
+        return compressed_psum_mean(grads, err_tree, group)
+    out = {k: compressed_grad_mean(grads[k], err_tree[k], group)
+           for k in grads}
     return ({k: o[0] for k, o in out.items()},
             {k: o[1] for k, o in out.items()})
 

@@ -28,8 +28,9 @@ key (``pre{i}``, ``pattern/blk{j}`` with the repeat axis first,
 
 The JAX package's ``island_mesh`` and ``to_shardings`` build JAX meshes and
 ``NamedSharding`` objects and have no counterpart: the port's sharded
-search runs its islands as an axis of one program on one card
-(``core.device_search``), and nothing here places a tensor.
+search takes a process group (``core.device_search``), and nothing here
+places a tensor.  A :class:`ShardCtx` built from a ``launch.mesh.Mesh``
+carries the mesh's process groups beside the sizes (``dp_group``).
 """
 
 from __future__ import annotations
@@ -52,6 +53,17 @@ class ShardCtx:
     dp: tuple[str, ...] = ("data",)     # batch axes (("pod","data") multi-pod)
     tp: Optional[str] = "model"
     batch_sharded: bool = True          # False when B < |dp|
+    #: axis name -> process group (``launch.mesh.Mesh.groups``); None
+    #: when the mesh is a plain mapping
+    groups: Optional[Mapping[str, Any]] = dataclasses.field(
+        default=None, compare=False, hash=False)
+
+    @property
+    def dp_group(self):
+        """The process group of the data axis, or None."""
+        if self.groups is None or len(self.dp) != 1:
+            return None
+        return self.groups.get(self.dp[0])
 
     @property
     def tp_size(self) -> int:
@@ -75,14 +87,17 @@ class ShardCtx:
 
 def make_ctx(mesh: Optional[Mapping[str, int]], *,
              batch_size: int | None = None) -> ShardCtx:
-    """ShardCtx from a mesh mapping (axis names decide dp)."""
+    """ShardCtx from a mesh mapping, or a ``launch.mesh.Mesh`` whose
+    groups it keeps (axis names decide dp)."""
     if mesh is None:
         return ShardCtx(mesh=None)
+    groups = getattr(mesh, "groups", None)
+    mesh = getattr(mesh, "sizes", mesh)
     dp = tuple(a for a in mesh if a in ("pod", "data"))
     dp_size = math.prod(mesh[a] for a in dp)
     sharded = batch_size is None or batch_size % dp_size == 0
     return ShardCtx(mesh=dict(mesh), dp=dp, tp="model",
-                    batch_sharded=sharded)
+                    batch_sharded=sharded, groups=groups)
 
 
 def _map_specs(fn, tree):

@@ -4,18 +4,30 @@
       --smoke --steps 50 --batch 8 --seq 128 --ckpt-dir /tmp/ck \\
       [--resume] [--device cpu]
 
+Data-parallel over N processes, started by torchrun (gloo with
+``--device cpu``, NCCL on the cards, one card a rank):
+
+  PYTHONPATH=src python -m torch.distributed.run --standalone \\
+      --nproc-per-node 2 -m repro_torch.launch.train --arch granite-3-2b \\
+      --smoke --steps 4 --device cpu
+
 ``--smoke`` uses the reduced per-family config; without it the full
-config trains on one card (gemma2-2b fits with AdamW in bf16).  The
-minicpm preset uses the WSD schedule per its paper.  Runs on the card
-unless ``--device cpu``; ``--mesh-shape`` of more than one device raises
-(one card, no mesh).
+config trains (gemma2-2b fits one card with AdamW in bf16).  The minicpm
+preset uses the WSD schedule per its paper.  Runs on the card unless
+``--device cpu``.  Under torchrun (``WORLD_SIZE`` above 1) the process
+group starts from the environment and the mesh defaults to (world, 1);
+``--mesh-shape`` must then hold the world's ranks, and a model axis above
+1 raises (tensor parallelism is not ported).
 """
 
 from __future__ import annotations
 
 import argparse
 
+import torch.distributed as dist
+
 from repro_torch.configs import registry
+from repro_torch.launch.mesh import init_distributed
 from repro_torch.train import data as data_lib
 from repro_torch.train import optim, schedules
 from repro_torch.train.loop import Trainer, TrainerConfig
@@ -42,7 +54,8 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--resume", action="store_true")
     ap.add_argument("--compress-grads", action="store_true")
     ap.add_argument("--mesh-shape", default=None,
-                    help="e.g. 2,4 -> (data,model); default 1-device")
+                    help="e.g. 2,1 -> (data,model); default one device, "
+                         "or (world, 1) under torchrun")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
     return ap.parse_args(argv)
@@ -55,8 +68,11 @@ def build(args: argparse.Namespace) -> Trainer:
         raise SystemExit("this launcher trains decoder-only archs; "
                          "train enc-dec models through Trainer directly")
     cfg = entry.smoke() if args.smoke else entry.config
+    init_distributed(args.device)
     mesh = (tuple(int(x) for x in args.mesh_shape.split(","))
             if args.mesh_shape else None)
+    if mesh is None and dist.is_initialized() and dist.get_world_size() > 1:
+        mesh = (dist.get_world_size(), 1)
     opt = optim.for_arch(cfg.param_count(), lr_for(args.arch, args.lr,
                                                    args.steps))
     data = data_lib.SyntheticLM(data_lib.LMTaskConfig(
@@ -71,10 +87,14 @@ def build(args: argparse.Namespace) -> Trainer:
 
 
 def main(argv=None) -> int:
+    started_here = not dist.is_initialized()
     trainer = build(parse_args(argv))
     hist = trainer.run()
-    print(f"final loss: {hist[-1]['loss']:.4f} "
-          f"(straggler events: {len(trainer.monitor.events)})")
+    if trainer.rank == 0:
+        print(f"final loss: {hist[-1]['loss']:.4f} "
+              f"(straggler events: {len(trainer.monitor.events)})")
+    if started_here and dist.is_initialized():
+        dist.destroy_process_group()
     return 0
 
 

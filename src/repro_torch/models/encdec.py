@@ -27,6 +27,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import resolve_device
+from repro_torch.distributed.collectives import all_reduce_
 from repro_torch.models.common import BlockCfg, ModelCfg
 from repro_torch.models.layers import (MLP, Attention, Params, attention,
                                        attention_decode, dt, init_modules,
@@ -223,14 +224,20 @@ def logits_from_h(model: EncDec, h: torch.Tensor) -> torch.Tensor:
     return matmul_f32(h.reshape(B * S, d), model.embed.t()).reshape(B, S, -1)
 
 
-def loss_fn(model: EncDec, batch: dict, *, z_weight: float = 1e-4):
+def loss_fn(model: EncDec, batch: dict, *, z_weight: float = 1e-4,
+            group=None):
     """batch: {"frontend_embeds" (B, n_frames, d), "tokens" (B, S),
-    "labels" (B, S)[, "weights"]} -> (total loss, {"loss", "z_loss"})."""
+    "labels" (B, S)[, "weights"]} -> (total loss, {"loss", "z_loss"}).
+    A data-parallel ``group`` as in ``lm.loss_fn``."""
     enc_out = encode(model, batch["frontend_embeds"])
     h = decode_train(model, enc_out, batch["tokens"])
     loss, z_loss = sharded_xent(logits_from_h(model, h), batch["labels"],
-                                batch.get("weights"))
-    return loss + z_weight * z_loss, {"loss": loss, "z_loss": z_loss}
+                                batch.get("weights"), group)
+    total = loss + z_weight * z_loss
+    if group is not None:
+        loss = all_reduce_(loss.detach().clone(), group)
+        z_loss = all_reduce_(z_loss.detach().clone(), group)
+    return total, {"loss": loss, "z_loss": z_loss}
 
 
 # ----------------------------------------------------------------- decoding

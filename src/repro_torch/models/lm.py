@@ -39,6 +39,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import resolve_device
+from repro_torch.distributed import collectives as C
 from repro_torch.models import moe as moe_lib
 from repro_torch.models.common import BlockCfg, ModelCfg
 from repro_torch.models.layers import (MLP, RGLRU, SSD, Attention, Params,
@@ -358,7 +359,7 @@ def logits_from_h(model: LM, h: torch.Tensor) -> torch.Tensor:
 
 
 def sharded_xent(logits: torch.Tensor, labels: torch.Tensor,
-                 weights: Optional[torch.Tensor] = None):
+                 weights: Optional[torch.Tensor] = None, group=None):
     """(mean cross entropy, mean squared log-normaliser) of float32
     ``logits`` (B, S, V) against ``labels`` (B, S), weighted.  The label's
     log-likelihood is a gather where the reference sums a one-hot product:
@@ -366,7 +367,12 @@ def sharded_xent(logits: torch.Tensor, labels: torch.Tensor,
     [0, V) matches no column of the one-hot, so its log-likelihood is 0
     (its nll is ``lse``, and its gradient has no -1 term).  The gather
     reads a clamped index: on CUDA an out-of-range index is a device-side
-    assert, which poisons the context."""
+    assert, which poisons the context.
+
+    With a data-parallel ``group`` the rows are this rank's share of the
+    global batch and the means are the global batch's: the weight sum is
+    summed over the group, and each returned value is this rank's term of
+    the global mean (the terms of all ranks sum to it)."""
     logits = logits.float()
     V = logits.shape[-1]
     lse = torch.logsumexp(logits, dim=-1)
@@ -376,26 +382,37 @@ def sharded_xent(logits: torch.Tensor, labels: torch.Tensor,
     nll = lse - torch.where(inside, ll, 0.0)
     if weights is None:
         weights = torch.ones_like(nll)
-    denom = torch.clamp(weights.sum(), min=1.0)
+    denom = torch.clamp(C.all_reduce_(weights.sum(), group), min=1.0)
     loss = (nll * weights).sum() / denom
     z_loss = (lse.square() * weights).sum() / denom
     return loss, z_loss
 
 
-def loss_fn(model: LM, batch: dict, *, z_weight: float = 1e-4):
+def loss_fn(model: LM, batch: dict, *, z_weight: float = 1e-4, group=None):
     """batch: {"tokens" (B, S'), "labels" (B, S)[, "frontend_embeds"]
     [, "weights"]}.  Returns (total loss, metrics): the cross entropy plus
     ``z_weight`` times the z-loss and, with MoE blocks, the router's
-    load-balance and z terms at the first MoE block's weights."""
+    load-balance and z terms at the first MoE block's weights.
+
+    With a data-parallel ``group`` the batch is this rank's rows and the
+    metrics are the global batch's on every rank; the total is this
+    rank's term of the global objective, whose gradients, summed over the
+    group, are the global objective's (the MoE aux terms are replicated
+    values whose collectives pass cotangents through,
+    ``collectives.psum``)."""
     cfg = model.cfg
     h, aux = forward(model, batch["tokens"], batch.get("frontend_embeds"))
     logits = logits_from_h(model, h)
-    loss, z_loss = sharded_xent(logits, batch["labels"], batch.get("weights"))
+    loss, z_loss = sharded_xent(logits, batch["labels"], batch.get("weights"),
+                                group)
     total = loss + z_weight * z_loss
     m = next((b.moe for b in cfg.all_blocks() if b.moe is not None), None)
     if m is not None:
         total = (total + m.router_aux_weight * aux["moe_lb_loss"]
                  + m.router_z_weight * aux["moe_z_loss"])
+    if group is not None:
+        loss = C.all_reduce_(loss.detach().clone(), group)
+        z_loss = C.all_reduce_(z_loss.detach().clone(), group)
     return total, {"loss": loss, "z_loss": z_loss, **aux}
 
 

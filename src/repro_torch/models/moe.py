@@ -1,12 +1,23 @@
 """Mixture-of-Experts channel block, token-choice top-k (PyTorch port).
 
-One device holds every expert, so this is the JAX package's per-device
-body with one expert-parallel shard and no collectives.  Dispatch is
-capacity-based with the reference's slot layout: the c-th token routed to
-expert e (in the stable order of expert ids) takes slot ``e * C3 + c``,
-``C3 = max(1, ceil(T * k / E * cf))``, and tokens past ``C3`` are dropped.
-``aux`` carries the five scalars of the reference: the load-balance and
-z losses, the largest and mean expert load and the dropped fraction.
+Dispatch is capacity-based with the reference's slot layout: the c-th
+token routed to expert e (in the stable order of expert ids) takes slot
+``dest * E_loc * C3 + loc_e * C3 + c`` (``dest = e // E_loc``, ``loc_e =
+e % E_loc``), ``C3 = max(1, ceil(T * k / E * cf))`` from the shard's own T
+tokens, and tokens past ``C3`` go to one out-of-bounds row and are
+dropped.  ``aux`` carries the five scalars of the reference: the
+load-balance and z losses, the largest and mean expert load and the
+dropped fraction.
+
+Expert parallelism (the reference's ``_local_moe`` with ``ep = |data|``
+and ``tp = 1``): :func:`shard_experts` gives each rank of a process group
+the weights of ``E / ep`` experts and records the group on the block.
+Then the dispatch buffer goes to the experts' owners by one
+``all_to_all`` and comes back the same way, ``counts`` are summed and
+``mean_prob``, ``z_loss`` and ``dropped_frac`` averaged over the group.
+Without a group the block holds every expert and runs no collective.
+The reference's ``sp_dispatch`` and tensor-parallel (``tp > 1``)
+branches are not ported.
 """
 
 from __future__ import annotations
@@ -15,8 +26,12 @@ import math
 
 import torch
 
+from repro_torch.distributed import collectives as C
 from repro_torch.models.common import ModelCfg, MoECfg
 from repro_torch.models.layers import ACTS, Params
+
+#: the expert-sharded leaves of an :class:`MoE` block (leading axis E)
+EXPERT_LEAVES = ("wi", "wg", "wo")
 
 
 class MoE(Params):
@@ -48,12 +63,47 @@ def moe_param_specs(cfg: ModelCfg, m: MoECfg, ctx) -> dict:
     return specs
 
 
+def shard_experts(model, group) -> int:
+    """Give every :class:`MoE` block of ``model`` this rank's block of
+    experts over ``group`` (experts ``[r * E_loc, (r + 1) * E_loc)``,
+    ``E_loc = E / |group|``) and record the group: ``moe`` then runs
+    expert-parallel.  Call it before ``step.param_tree``.  Returns the
+    number of blocks sharded."""
+    n, r = C.group_size(group), C.group_rank(group)
+    done = 0
+    for blk in model.modules():
+        if not isinstance(blk, MoE):
+            continue
+        if getattr(blk, "ep_group", None) is not None:
+            raise ValueError("experts are sharded already")
+        E = blk.wi.shape[0]
+        if E % n:
+            raise ValueError(f"{E} experts over {n} ranks")
+        e = E // n
+        with torch.no_grad():
+            for name in EXPERT_LEAVES:
+                p = getattr(blk, name)
+                p.data = p.data[r * e:(r + 1) * e].clone()
+                p.ep_group = group      # read by step.expert_sharded
+        blk.ep_group = group
+        done += 1
+    return done
+
+
 def moe(x: torch.Tensor, p: MoE, m: MoECfg, cfg: ModelCfg, *,
-        decode: bool = False):
-    """MoE block.  x: (B, S, d).  Returns (y, aux dict of 0-d tensors)."""
+        decode: bool = False, sp_dispatch: bool = False):
+    """MoE block.  x: (B, S, d) (this rank's rows under expert
+    parallelism).  Returns (y, aux dict of 0-d tensors)."""
+    if sp_dispatch:
+        raise NotImplementedError("sp_dispatch slices tokens over the "
+                                  "model axis: tensor parallelism is not "
+                                  "ported")
+    group = getattr(p, "ep_group", None)
+    ep = C.group_size(group)
     B, S, d = x.shape
     T = B * S
     E, k = m.n_experts, m.top_k
+    E_loc = E // ep
     cf = m.decode_capacity_factor if decode else m.capacity_factor
     C3 = max(1, math.ceil(T * k / E * cf))
     act = ACTS[cfg.act_fn]
@@ -68,9 +118,10 @@ def moe(x: torch.Tensor, p: MoE, m: MoECfg, cfg: ModelCfg, *,
     counts = torch.zeros(E, dtype=torch.float32, device=x.device)
     counts = counts.index_add(0, ids.reshape(-1),
                               torch.ones(T * k, device=x.device))
+    counts = C.all_reduce_(counts, group)
     frac = counts / torch.clamp(counts.sum(), min=1.0)
-    lb_loss = E * (frac * probs.mean(dim=0)).sum()
-    z_loss = torch.logsumexp(logits, dim=-1).square().mean()
+    lb_loss = E * (frac * C.pmean(probs.mean(dim=0), group)).sum()
+    z_loss = C.pmean(torch.logsumexp(logits, dim=-1).square().mean(), group)
 
     # ---- dispatch slots ----------------------------------------------------
     flat_e = ids.reshape(T * k)
@@ -79,16 +130,23 @@ def moe(x: torch.Tensor, p: MoE, m: MoECfg, cfg: ModelCfg, *,
     starts = torch.searchsorted(sorted_e, torch.arange(E, device=x.device))
     pos = torch.arange(T * k, device=x.device) - starts[sorted_e]
     keep = pos < C3
+    # dest * E_loc * C3 + loc_e * C3 + pos, dest * E_loc + loc_e == e
     slot = torch.where(keep, sorted_e * C3 + pos,
                        torch.full_like(pos, E * C3))     # last row: dropped
     tok = order // k
     aux = {"moe_lb_loss": lb_loss, "moe_z_loss": z_loss,
            "max_expert_load": counts.max(), "mean_expert_load": counts.mean(),
-           "dropped_frac": 1.0 - keep.float().mean()}
+           "dropped_frac": C.pmean(1.0 - keep.float().mean(), group)}
 
     send = xf.new_zeros((E * C3 + 1, d))
     send[slot] = xf[tok]
-    xe = send[:-1].reshape(E, C3, d)
+    if group is None:
+        xe = send[:-1].reshape(E, C3, d)
+    else:
+        # (ep_dest, E_loc, C3) blocks out; (ep_src, E_loc, C3) blocks in
+        recv = C.all_to_all(send[:-1], group)
+        xe = recv.reshape(ep, E_loc, C3, d).transpose(0, 1) \
+                 .reshape(E_loc, ep * C3, d)
 
     # ---- expert FFN --------------------------------------------------------
     h = torch.einsum("ecd,edf->ecf", xe, p.wi)
@@ -96,6 +154,9 @@ def moe(x: torch.Tensor, p: MoE, m: MoECfg, cfg: ModelCfg, *,
     ye = torch.einsum("ecf,efd->ecd", act(g) * h, p.wo)
 
     # ---- return path -------------------------------------------------------
+    if group is not None:
+        ye = C.all_to_all(ye.reshape(E_loc, ep, C3, d).transpose(0, 1)
+                          .reshape(E * C3, d), group)
     back = torch.cat([ye.reshape(E * C3, d), ye.new_zeros((1, d))])
     gate_sorted = gate.reshape(T * k)[order]
     contrib = back[slot] * (gate_sorted * keep)[:, None].to(back.dtype)

@@ -4,7 +4,13 @@
   never leaves a partial checkpoint visible;
 * versioned: ``step_<N>.npz`` + ``meta.json``; ``keep`` newest retained;
 * resumable: :func:`restore` returns (state, step, extra) — ``extra``
-  carries e.g. a data iterator's state so restarts are bit-identical.
+  carries e.g. a data iterator's state so restarts are bit-identical;
+* asynchronous: :func:`save_async` copies the state to the host, then
+  writes the same files from a thread while training goes on;
+* elastic: ``restore(..., shardings=)`` places each leaf on a target
+  device, so a checkpoint written at one world size resumes at another
+  (every leaf is whole: data-parallel ranks replicate the state, and
+  expert-sharded leaves are gathered before a save).
 
 The layout is the JAX package's, so a checkpoint written by either package
 restores in the other.  A state nests dicts, lists and tuples of numpy
@@ -23,6 +29,7 @@ from __future__ import annotations
 
 import json
 import os
+import threading
 
 import numpy as np
 import torch
@@ -45,6 +52,26 @@ def _flatten(state, prefix: tuple = ()) -> list[tuple[str, object]]:
     return [("/".join(prefix), state)]
 
 
+def _flatten_targets(shardings, like, prefix: tuple = ()):
+    """(path, target) pairs of a ``shardings`` tree that matches ``like``
+    (a device or None at each of ``like``'s leaves)."""
+    if isinstance(like, dict):
+        out = []
+        for k in sorted(like):
+            out += _flatten_targets(shardings[k], like[k],
+                                    prefix + (f"[{k!r}]",))
+        return out
+    if isinstance(like, (list, tuple)):
+        out = []
+        for i, v in enumerate(like):
+            out += _flatten_targets(shardings[i], v, prefix + (f"[{i}]",))
+        return out
+    if like is None:
+        return []
+    return [("/".join(prefix),
+             None if shardings is None else torch.device(shardings))]
+
+
 def _unflatten(like, leaves):
     """Rebuild ``like``'s structure from an iterator of leaves."""
     if isinstance(like, dict):
@@ -56,27 +83,26 @@ def _unflatten(like, leaves):
     return next(leaves)
 
 
-def _to_host(v) -> np.ndarray:
+def _to_host(v, copy: bool = False) -> np.ndarray:
+    """``v`` as a host array; ``copy`` makes it storage of its own (a CPU
+    tensor's array otherwise shares the tensor's)."""
     if isinstance(v, torch.Tensor):
-        v = v.detach().to("cpu")
+        v = v.detach().to("cpu", copy=copy)
         if v.dtype == torch.bfloat16:
             # numpy has no bfloat16: the JAX package's npz holds its raw
             # 2-byte words as void ("|V2") entries, and so does this one
             return v.view(torch.int16).numpy().view("V2")
         return v.numpy()
-    return np.asarray(v)
+    return np.array(v, copy=True) if copy else np.asarray(v)
 
 
 def _npz_key(name: str) -> str:
     return name.replace("/", "|")
 
 
-def save(ckpt_dir: str, step: int, state, extra: dict | None = None,
-         keep: int = 3) -> str:
-    """Write ``state`` as ``step_<step>.npz`` (atomically), then
-    ``meta.json``, then drop all but the ``keep`` newest checkpoints."""
+def _write(ckpt_dir: str, step: int, arrays: dict, extra, keep: int
+           ) -> str:
     os.makedirs(ckpt_dir, exist_ok=True)
-    arrays = {_npz_key(k): _to_host(v) for k, v in _flatten(state)}
     tmp = os.path.join(ckpt_dir, f"tmp.{step}.npz")
     final = os.path.join(ckpt_dir, f"step_{step:08d}.npz")
     with open(tmp, "wb") as f:
@@ -89,6 +115,29 @@ def save(ckpt_dir: str, step: int, state, extra: dict | None = None,
     os.replace(mtmp, os.path.join(ckpt_dir, "meta.json"))
     _gc(ckpt_dir, keep)
     return final
+
+
+def _host_arrays(state, copy: bool = False) -> dict:
+    return {_npz_key(k): _to_host(v, copy) for k, v in _flatten(state)}
+
+
+def save(ckpt_dir: str, step: int, state, extra: dict | None = None,
+         keep: int = 3) -> str:
+    """Write ``state`` as ``step_<step>.npz`` (atomically), then
+    ``meta.json``, then drop all but the ``keep`` newest checkpoints."""
+    return _write(ckpt_dir, step, _host_arrays(state), extra, keep)
+
+
+def save_async(ckpt_dir: str, step: int, state, extra: dict | None = None,
+               keep: int = 3) -> threading.Thread:
+    """Copy ``state`` to host memory now, then write :func:`save`'s files
+    from a thread (training goes on during the write).  Returns the
+    started thread; ``join`` it before reading the files."""
+    arrays = _host_arrays(state, copy=True)
+    t = threading.Thread(target=_write, daemon=True,
+                         args=(ckpt_dir, step, arrays, extra, keep))
+    t.start()
+    return t
 
 
 def _gc(ckpt_dir: str, keep: int):
@@ -137,22 +186,33 @@ def latest_step(ckpt_dir: str) -> int | None:
         return json.load(f).get("latest_step")
 
 
-def restore(ckpt_dir: str, like_state, *, step: int | None = None):
+def restore(ckpt_dir: str, like_state, *, shardings=None,
+            step: int | None = None):
     """Restore into the structure of ``like_state`` (arrays, tensors or
     scalars; each restored leaf takes its like-leaf's dtype, and a tensor
-    leaf its device).  Returns (state, step, extra)."""
+    leaf its device).  ``shardings``: a matching tree of target devices
+    (None leaves keep the like-leaf's), the placement on the current
+    mesh — elastic reshard on load; on a data-parallel mesh every leaf is
+    replicated, so a target is this rank's device.  Returns (state, step,
+    extra)."""
     step = step if step is not None else latest_step(ckpt_dir)
     if step is None:
         raise FileNotFoundError(f"no checkpoint in {ckpt_dir}")
     path = os.path.join(ckpt_dir, f"step_{step:08d}.npz")
+    likes = _flatten(like_state)
+    targets = ([v for _, v in _flatten_targets(shardings, like_state)]
+               if shardings is not None else [None] * len(likes))
     out = []
     with np.load(path) as data:
-        for k, like in _flatten(like_state):
+        for (k, like), target in zip(likes, targets):
             a = data[_npz_key(k)]
-            if isinstance(like, torch.Tensor):
+            if isinstance(like, torch.Tensor) or target is not None:
                 t = (torch.from_numpy(a.view(np.int16)).view(torch.bfloat16)
                      if a.dtype == np.dtype("V2") else torch.from_numpy(a))
-                out.append(t.to(device=like.device, dtype=like.dtype))
+                dtype = (like.dtype if isinstance(like, torch.Tensor)
+                         else t.dtype)
+                device = target if target is not None else like.device
+                out.append(t.to(device=device, dtype=dtype))
             else:
                 dt = np.asarray(like).dtype
                 out.append(a.astype(dt) if a.dtype != dt else a)

@@ -1,6 +1,6 @@
 """Training loop (PyTorch port of ``repro.train.loop``): the train step,
-checkpoint and restart, straggler detection, fault recovery, and the
-optional int8-compressed gradient step, on one card.
+checkpoint and restart, straggler detection, fault recovery, the optional
+int8-compressed gradient step, and data parallelism over a process group.
 
 Fault model:
   * process crash      -> restart with ``resume``: restore the latest
@@ -15,13 +15,26 @@ Fault model:
                           fails again after the restore, before the run
                           has passed it, raises: the fault is not
                           transient (the reference restores forever);
+  * node-count change  -> elastic: a checkpoint holds the whole state, so
+                          it resumes at another data-parallel world size;
   * straggler steps    -> StragglerMonitor flags steps > k x EWMA.
 
 Checkpoints have the reference's layout (``params``, ``opt``, ``step``,
 ``err`` with ``compress_grads``; ``data_step`` in ``meta.json``), so a
-run checkpointed by either package resumes in the other.  The reference
-reshards a checkpoint onto another mesh; the port runs on one device,
-and a mesh of more than one device raises.
+run checkpointed by either package resumes in the other.
+
+Data parallelism: on a ``(data, 1)`` mesh (``launch.mesh.make_mesh`` over
+the process group) every rank holds the same parameters and takes rows
+``[r * B / n, (r + 1) * B / n)`` of each global batch.  The exact step is
+the reference's GSPMD step: the loss and gradients of the global batch
+(``step.make_train_step`` with the data group), with MoE experts sharded
+over the group (``moe.shard_experts``).  With ``compress_grads`` each rank
+takes its local loss and gradients, the gradients meet in the int8
+compressed mean and the metrics in a mean (the reference's
+``make_dp_compressed_step``).  A fault hook must raise on every rank at
+the same step, so that all ranks restore together; only rank 0 writes
+checkpoints, and every rank waits for the write.  A ``"model"`` axis
+above 1 (tensor parallelism) raises.
 """
 
 from __future__ import annotations
@@ -32,15 +45,19 @@ import time
 from typing import Callable, Optional
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.device import resolve_device
-from repro_torch.distributed import collectives
+from repro_torch.distributed import collectives, sharding
+from repro_torch.launch.mesh import mesh_of
 from repro_torch.models import encdec, lm
+from repro_torch.models import moe as moe_lib
 from repro_torch.models.encdec import EncDecCfg
+from repro_torch.models.layers import map_layout
 from repro_torch.train import checkpoint as ckpt_lib
 from repro_torch.train import step as step_lib
 from repro_torch.train.optim import Optimizer
-from repro_torch.tree import tree_map
+from repro_torch.tree import tree_leaves, tree_map
 
 
 @dataclasses.dataclass
@@ -74,22 +91,37 @@ class StragglerMonitor:
         return slow
 
 
-def make_dp_compressed_step(model, optimizer: Optimizer) -> Callable:
-    """The train step with int8 error-feedback gradient reduction, for one
-    data-parallel replica: the state carries ``err``, and the optimizer
-    sees the float32 dequantized mean."""
+def make_dp_compressed_step(model, optimizer: Optimizer, group=None
+                            ) -> Callable:
+    """The train step with int8 error-feedback gradient reduction over the
+    data-parallel ``group`` (one replica without): the state carries
+    ``err`` (updated in place, leaf by leaf), each replica takes its local
+    loss and gradients, the optimizer sees the float32 compressed mean,
+    and the metrics are averaged over the group."""
     params = step_lib.param_tree(model)
+    if any(tree_leaves(step_lib.expert_sharded(model))):
+        raise ValueError("the compressed step runs each replica's local "
+                         "math: experts must not be sharded")
+    inv_n = 1.0 / collectives.group_size(group)
+
+    def mean_of(g, e):
+        mean, new_err = collectives.compressed_psum_mean(g, e, group)
+        e.copy_(new_err)            # one leaf's new error alive at a time
+        return mean
 
     def step(state, batch):
         if state["params"] is not params:
             raise ValueError("state['params'] is not this model's "
                              "param_tree; build it with init_state")
         _, metrics, grads = step_lib.value_and_grad(model, batch)
-        g_mean, new_err = collectives.compressed_grad_mean(grads,
-                                                           state["err"])
+        g_mean = tree_map(mean_of, grads, state["err"])
+        del grads
+        if group is not None:
+            metrics = {k: collectives.all_reduce_(v.clone(), group) * inv_n
+                       for k, v in metrics.items()}
         new_params, new_opt = optimizer.update(
             g_mean, state["opt"], params, state["step"])
-        return ({"params": new_params, "opt": new_opt, "err": new_err,
+        return ({"params": new_params, "opt": new_opt, "err": state["err"],
                  "step": state["step"] + 1}, metrics)
     return step
 
@@ -97,16 +129,19 @@ def make_dp_compressed_step(model, optimizer: Optimizer) -> Callable:
 class Trainer:
     """``Trainer(cfg, mesh, optimizer, data, tcfg, device=...)`` trains
     ``cfg`` from ``init_params(cfg, tcfg.seed, device)`` (or resumes).
-    ``mesh`` is None or a mesh shape such as the launcher's
-    ``--mesh-shape``; more than one device raises.  Runs on the card
-    unless ``device="cpu"``."""
+    ``mesh`` is None, a ``launch.mesh.Mesh`` or a mesh shape such as the
+    launcher's ``--mesh-shape`` (laid out over the process group): a
+    ``(data, 1)`` mesh trains data-parallel (module docstring).  Runs on
+    the card unless ``device="cpu"``."""
 
     def __init__(self, cfg, mesh, optimizer: Optimizer, data,
                  tcfg: TrainerConfig, *, device: "str | torch.device" =
                  "cuda"):
-        if mesh is not None and math.prod(mesh) > 1:
-            raise ValueError(f"mesh {tuple(mesh)}: the port trains on one "
-                             "device")
+        self.mesh = mesh_of(mesh)
+        self.ctx = sharding.make_ctx(self.mesh)
+        self.group = self.ctx.dp_group
+        self.n_dp = collectives.group_size(self.group)
+        self.rank = collectives.group_rank(self.group)
         self.cfg, self.opt, self.data, self.tcfg = cfg, optimizer, data, tcfg
         self.device = resolve_device(device)
         self.monitor = StragglerMonitor(tcfg.straggler_factor)
@@ -116,43 +151,108 @@ class Trainer:
         self._build()
 
     def _build(self):
-        cfg, tcfg = self.cfg, self.tcfg
+        cfg, tcfg, group = self.cfg, self.tcfg, self.group
         lib = encdec if isinstance(cfg, EncDecCfg) else lm
         self.model = lib.init_params(cfg, tcfg.seed, self.device)
+        if group is not None:
+            self._check_replicated()
+            if not tcfg.compress_grads:
+                moe_lib.shard_experts(self.model, group)
         self.state = step_lib.init_state(self.model, self.opt)
         if tcfg.compress_grads:
             self.state["err"] = collectives.init_error_feedback(
                 self.state["params"])
-            self.step_fn = make_dp_compressed_step(self.model, self.opt)
+            self.step_fn = make_dp_compressed_step(self.model, self.opt,
+                                                   group)
         else:
             self.step_fn = step_lib.make_train_step(
                 self.model, self.opt,
-                num_microbatches=tcfg.num_microbatches)
+                num_microbatches=tcfg.num_microbatches, group=group)
+        # the stacked leaves' expert axis, where experts are sharded
+        self._ep_axis = map_layout(
+            lambda x: (1 if isinstance(x, tuple) else 0)
+            if getattr(x[0] if isinstance(x, tuple) else x, "ep_group",
+                       None) is not None else None,
+            lib.param_layout(self.model))
         start = 0
         self.data_step = 0
         if tcfg.resume and tcfg.ckpt_dir and \
                 ckpt_lib.latest_step(tcfg.ckpt_dir) is not None:
             start = self._restore()
-            print(f"[trainer] resumed from step {start}")
+            self._log(f"[trainer] resumed from step {start}")
         self.start_step = start
+
+    def _check_replicated(self):
+        """Every rank drew the same parameters (the same seed): the
+        float64 sum of every leaf is equal across the group."""
+        sums = torch.stack([p.detach().double().sum()
+                            for p in self.model.parameters()])
+        hi = collectives.all_reduce_(sums.clone(), self.group,
+                                     dist.ReduceOp.MAX)
+        lo = collectives.all_reduce_(sums.clone(), self.group,
+                                     dist.ReduceOp.MIN)
+        if not torch.equal(hi, lo):
+            raise RuntimeError("the ranks' initial parameters differ")
+
+    def _log(self, msg: str):
+        if self.rank == 0:
+            print(msg)
+
+    def _map_ep(self, fn, state: dict) -> dict:
+        """``fn(leaf, expert axis)`` over the parameters and the AdamW
+        state trees of ``state`` (the axis None where not sharded)."""
+        axes = self._ep_axis
+        out = dict(state)
+        out["params"] = tree_map(fn, state["params"], axes)
+        out["opt"] = {k: tree_map(fn, v, axes)
+                      for k, v in state["opt"].items()}
+        return out
+
+    def _whole_state(self) -> dict:
+        """The state with expert-sharded leaves gathered over the group."""
+        if not any(a is not None for a in tree_leaves(self._ep_axis)):
+            return self.state
+        return self._map_ep(
+            lambda t, ax: t if ax is None else collectives.gather_islands(
+                t, group=self.group, axis=ax, tiled=True), self.state)
 
     def _restore(self) -> int:
         """Load the latest checkpoint into the state's tensors (through
-        the host, so the device never holds two copies) -> its step."""
+        the host, so the device never holds two copies; expert-sharded
+        leaves take this rank's block) -> its step."""
         like = tree_map(lambda t: torch.empty((), dtype=t.dtype), self.state)
         saved, step, extra = ckpt_lib.restore(self.tcfg.ckpt_dir, like)
+
+        def block(t, ax):
+            if ax is None:
+                return t
+            e = t.shape[ax] // self.n_dp
+            return t.narrow(ax, self.rank * e, e)
+        if any(a is not None for a in tree_leaves(self._ep_axis)):
+            saved = self._map_ep(block, saved)
         with torch.no_grad():
             tree_map(lambda dst, src: dst.copy_(src), self.state, saved)
         self.data_step = extra.get("data_step", step)
         return step
 
     def _save(self, step: int):
-        ckpt_lib.save(self.tcfg.ckpt_dir, step, self.state,
-                      extra={"data_step": self.data_step},
-                      keep=self.tcfg.keep)
+        state = self._whole_state()
+        if self.rank == 0:
+            ckpt_lib.save(self.tcfg.ckpt_dir, step, state,
+                          extra={"data_step": self.data_step},
+                          keep=self.tcfg.keep)
+        if self.group is not None:
+            dist.barrier(group=self.group)
 
     def _put_batch(self, batch_np: dict) -> dict:
-        return {k: torch.from_numpy(v).to(self.device)
+        """This rank's rows of the global batch on the device."""
+        def rows(v):
+            if v.shape[0] % self.n_dp:
+                raise ValueError(f"a global batch of {v.shape[0]} does not "
+                                 f"split over {self.n_dp} ranks")
+            b = v.shape[0] // self.n_dp
+            return v[self.rank * b:(self.rank + 1) * b]
+        return {k: torch.from_numpy(rows(v)).to(self.device)
                 for k, v in batch_np.items()}
 
     def _sync(self):
@@ -181,9 +281,9 @@ class Trainer:
                     m = {k: float(v) for k, v in metrics.items()}
                     m.update(step=step, dt=round(dt, 4), straggler=slow)
                     self.history.append(m)
-                    print(f"[trainer] step {step} loss {m['loss']:.4f} "
-                          f"({dt*1e3:.0f} ms)"
-                          + (" STRAGGLER" if slow else ""))
+                    self._log(f"[trainer] step {step} loss {m['loss']:.4f} "
+                              f"({dt*1e3:.0f} ms)"
+                              + (" STRAGGLER" if slow else ""))
                 if tcfg.ckpt_dir and step % tcfg.ckpt_every == 0:
                     self._save(step)
             except RuntimeError as e:
@@ -194,7 +294,7 @@ class Trainer:
                 if failed_at == step:
                     raise RuntimeError(f"step {step} failed again after a "
                                        f"restore: {e}") from e
-                print(f"[trainer] step {step} failed ({e}); restoring")
+                self._log(f"[trainer] step {step} failed ({e}); restoring")
                 failed_at = step
                 self.recoveries.append((step, str(e)))
                 step = self._restore()

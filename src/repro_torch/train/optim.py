@@ -16,7 +16,8 @@ factors by a leaf's last two dims and clips each update by its rms over
 the whole stacked leaf, all R repeats together.
 
 Both expose ``init(params) -> state`` and ``update(grads, state, params,
-step) -> (params, state)``.  ``step`` is a 0-d integer tensor; the
+step[, norm_fn]) -> (params, state)`` (``norm_fn``: AdamW's clipping norm
+over leaves sharded across ranks; Adafactor raises for it).  ``step`` is a 0-d integer tensor; the
 learning rate and bias corrections are 0-d float32 tensors on its
 device, as XLA computes them.  ``update`` writes the new values into the
 tensors of ``params`` and ``state`` and returns them: the reference's
@@ -53,11 +54,13 @@ def _global_norm(tree) -> torch.Tensor:
                           for g in tree_leaves(tree)))
 
 
-def clip_by_global_norm(grads, max_norm: float):
+def clip_by_global_norm(grads, max_norm: float, norm_fn=None):
     """(grads scaled in float32 to a global norm of at most ``max_norm``
     and rounded back to their dtypes, the norm).  Gradients of bfloat16
-    parameters are so rounded to bfloat16, as in the reference."""
-    norm = _global_norm(grads)
+    parameters are so rounded to bfloat16, as in the reference.
+    ``norm_fn`` (tree -> norm) replaces the local norm, e.g. for leaves
+    sharded over ranks (``step.sharded_norm``)."""
+    norm = (norm_fn or _global_norm)(grads)
     scale = torch.clamp(norm.new_tensor(max_norm)
                         / torch.clamp(norm, min=1e-9), max=1.0)
     return tree_map(lambda g: (g.float() * scale).to(g.dtype), grads), norm
@@ -76,8 +79,8 @@ def adamw(lr_fn: Callable[[torch.Tensor], torch.Tensor], *, b1: float = 0.9,
                     torch.float32, copy=True), params)}
 
     @torch.no_grad()
-    def update(grads, state, params, step):
-        grads, _ = clip_by_global_norm(grads, grad_clip)
+    def update(grads, state, params, step, norm_fn=None):
+        grads, _ = clip_by_global_norm(grads, grad_clip, norm_fn)
         t = step.to(torch.float32) + 1.0
         lr = lr_fn(step)
         c1 = 1.0 - torch.pow(b1, t)
@@ -123,7 +126,12 @@ def adafactor(lr_fn: Callable[[torch.Tensor], torch.Tensor], *,
         return {"fac": tree_map(one, params)}
 
     @torch.no_grad()
-    def update(grads, state, params, step):
+    def update(grads, state, params, step, norm_fn=None):
+        if norm_fn is not None:
+            raise NotImplementedError(
+                "Adafactor clips each update by its rms over the whole "
+                "leaf; over expert-sharded leaves that needs a reduction "
+                "the port does not have")
         t = step.to(torch.float32) + 1.0
         beta2 = 1.0 - torch.pow(t, -decay_pow)
         lr = lr_fn(step)

@@ -11,6 +11,15 @@ microbatch the gradients are those of the parameters, in their dtype, so
 gradient clipping rounds them to bfloat16 for a bfloat16 model.  With
 ``M > 1`` microbatches, gradients accumulate in ``grad_accum_dtype``
 (float32 by default) and are divided by ``M``.
+
+With a data-parallel ``group`` (the reference's GSPMD step on a ``(data,
+1)`` mesh) each rank holds its rows of the global batch and the loss and
+gradients are the global batch's: ``loss_fn`` normalises by the global
+weight sum, and the gradients of the replicated parameters are summed
+over the group.  Experts sharded by ``moe.shard_experts`` get their whole
+gradient through the MoE block's ``all_to_all`` and are not reduced; the
+clipping norm sums their squares over the group.  With ``M > 1``
+microbatch ``i`` is each rank's ``i``-th slice of its rows.
 :func:`state_spec_tree` gives the training state's sharding specs as data
 (``distributed.sharding``).
 """
@@ -21,13 +30,16 @@ from typing import Callable
 
 import torch
 
+import torch.distributed as dist
+
+from repro_torch.distributed import collectives as C
 from repro_torch.distributed import sharding
 from repro_torch.models import encdec, lm
 from repro_torch.models.encdec import EncDec, EncDecCfg
 from repro_torch.models.layers import dt, map_layout
 from repro_torch.train.optim import Optimizer
 from repro_torch.train.schedules import f32_reciprocal
-from repro_torch.tree import tree_map
+from repro_torch.tree import tree_leaves, tree_map
 
 
 def _lib(model):
@@ -60,13 +72,15 @@ def param_tree(model) -> dict:
     return tree
 
 
-def value_and_grad(model, batch: dict):
+def value_and_grad(model, batch: dict, group=None):
     """(total loss, metrics, gradients) of the model's ``loss_fn`` on
     ``batch``: the gradients in the reference's tree, each in its
-    parameter's dtype, stacked leaves stacked."""
+    parameter's dtype, stacked leaves stacked.  With a data-parallel
+    ``group`` they are this rank's terms (:func:`reduce_grads` sums
+    them)."""
     param_tree(model)                   # every parameter trainable
     params = list(model.parameters())
-    total, metrics = _lib(model).loss_fn(model, batch)
+    total, metrics = _lib(model).loss_fn(model, batch, group=group)
     grads = dict(zip(params, torch.autograd.grad(total, params,
                                                  materialize_grads=True)))
 
@@ -77,6 +91,48 @@ def value_and_grad(model, batch: dict):
     layout = _lib(model).param_layout(model)
     return (total.detach(), {k: v.detach() for k, v in metrics.items()},
             map_layout(gather, layout))
+
+
+def expert_sharded(model) -> dict:
+    """The parameter tree's mask of leaves that each rank holds a block of
+    (experts sharded by ``moe.shard_experts``): True there."""
+    def one(x):
+        p = x[0] if isinstance(x, tuple) else x
+        return getattr(p, "ep_group", None) is not None
+    return map_layout(one, _lib(model).param_layout(model))
+
+
+def reduce_grads(grads, sharded, group):
+    """The gradients with the replicated leaves summed over ``group``;
+    expert-sharded leaves are whole already.  (A gradient may come out of
+    autograd with strides of its own on the card; the collective needs
+    it contiguous.)"""
+    if group is None:
+        return grads
+
+    def one(g, s):
+        if not s:
+            g = g.contiguous()
+            dist.all_reduce(g, group=group)
+        return g
+    return tree_map(one, grads, sharded)
+
+
+def sharded_norm(sharded, group):
+    """The clipping norm of a gradient tree whose ``sharded`` leaves are
+    blocks of a leaf over ``group``: their squared sums are summed over
+    the group, then every leaf's is added in tree order."""
+    def norm(grads):
+        sq = tree_map(lambda g: g.float().square().sum(), grads)
+        flags = tree_leaves(sharded)
+        leaves = tree_leaves(sq)
+        part = [x for x, f in zip(leaves, flags) if f]
+        if part:
+            summed = iter(C.all_reduce_(torch.stack(part), group).unbind())
+            leaves = [next(summed) if f else x
+                      for x, f in zip(leaves, flags)]
+        return torch.sqrt(sum(leaves))
+    return norm
 
 
 def microbatches(batch: dict, M: int):
@@ -92,18 +148,23 @@ def microbatches(batch: dict, M: int):
 
 def train_step_parts(model, optimizer: Optimizer, *,
                      num_microbatches: int = 1,
-                     grad_accum_dtype: str | None = None):
+                     grad_accum_dtype: str | None = None, group=None):
     """The train step as ``(start, body, finish)``: ``carry = start()``,
     ``carry = body(carry, mb)`` for each microbatch (the reference's scan
     body), then ``finish(state, carry) -> (state, metrics)``.  The body's
     work is the same for every microbatch, so ``core.hlo_cost`` counts it
-    once and scales it by the count."""
+    once and scales it by the count.  ``group``: data parallelism (the
+    module docstring)."""
     params = param_tree(model)
     M = num_microbatches
+    sharded = expert_sharded(model)
+    kw = ({"norm_fn": sharded_norm(sharded, group)}
+          if any(tree_leaves(sharded)) else {})
 
     def _update(state, grads, metrics):
+        grads = reduce_grads(grads, sharded, group)
         new_params, new_opt = optimizer.update(
-            grads, state["opt"], params, state["step"])
+            grads, state["opt"], params, state["step"], **kw)
         return ({"params": new_params, "opt": new_opt,
                  "step": state["step"] + 1}, metrics)
 
@@ -113,7 +174,7 @@ def train_step_parts(model, optimizer: Optimizer, *,
             return None
 
         def body(carry, mb):
-            _, metrics, grads = value_and_grad(model, mb)
+            _, metrics, grads = value_and_grad(model, mb, group)
             return grads, metrics
 
         def finish(state, carry):
@@ -132,7 +193,7 @@ def train_step_parts(model, optimizer: Optimizer, *,
 
     def body(carry, mb):
         grads, metrics, zero = carry
-        _, m, g = value_and_grad(model, mb)
+        _, m, g = value_and_grad(model, mb, group)
         tree_map(lambda a, b: a.add_(b.to(a.dtype)), grads, g)
         return grads, {k: metrics.get(k, zero) + v for k, v in m.items()}, \
             zero
@@ -149,17 +210,18 @@ def train_step_parts(model, optimizer: Optimizer, *,
 
 def make_train_step(model, optimizer: Optimizer, *,
                     num_microbatches: int = 1,
-                    grad_accum_dtype: str | None = None) -> Callable:
+                    grad_accum_dtype: str | None = None,
+                    group=None) -> Callable:
     """Returns ``train_step(state, batch) -> (state, metrics)``.
 
     ``state`` is :func:`init_state`'s ``{"params", "opt", "step"}`` for
     this ``model``; batch leaves are tensors on its device with a leading
-    global batch dim divisible by ``num_microbatches``.  The state's
-    tensors are updated in place."""
+    batch dim (this rank's rows with a data-parallel ``group``) divisible
+    by ``num_microbatches``.  The state's tensors are updated in place."""
     params = param_tree(model)
     start, body, finish = train_step_parts(
         model, optimizer, num_microbatches=num_microbatches,
-        grad_accum_dtype=grad_accum_dtype)
+        grad_accum_dtype=grad_accum_dtype, group=group)
 
     def train_step(state, batch):
         if state["params"] is not params:

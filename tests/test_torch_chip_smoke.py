@@ -295,3 +295,45 @@ def test_option_and_vmap_phases_pass_at_small_widths(capsys):
     lines = [json.loads(l) for l in capsys.readouterr().out.splitlines()]
     assert [l["phase"] for l in lines] == ["event_options", "vmap_pricing"]
 
+
+
+def test_data_parallel_phases_pass_over_a_one_rank_group(tmp_path, capsys):
+    """Phase (I) on the CPU over a one-rank gloo group, with the smoke
+    configs in place of the full ones: the exact DP step bit-identical to
+    the step without a group, the compressed step, the EP olmoe loss and
+    gradients bit-identical to the path without a group, four islands
+    over the group held to the one-program run, and an asynchronous
+    checkpoint restored bit-identical to a synchronous one.  (A)'s result
+    is stood in for: a step of 1 s."""
+    smoke = _chip_smoke()
+    net = fc_network([32, 64, 32, 16], weight_density=0.5,
+                     neuron_model="sd_relu", seed=0, device="cpu")
+    xs = make_inputs(32, density=0.1, steps=24, seed=1, device="cpu")
+    chip = loihi2_like()
+    ctx = dict(pnet=net, xs=xs, chip=chip,
+               cache=precompute_pricing(net, xs, chip), greedy=None,
+               search=dict(population_size=8, generations=4, seed=0),
+               islands=dict(n_islands=4, migrate_every=2))
+    smoke.data_parallel_phases(
+        device="cpu", card="cpu", ckpt_root=tmp_path / "dp",
+        lm_a={"step_s": 1.0}, islands_ctx=ctx, full=False,
+        train=dict(batch=2, seq=32, lr=1e-2), dp_steps=2,
+        async_ckpt=dict(save_at=2, steps=3))
+    lines = [json.loads(l) for l in capsys.readouterr().out.splitlines()
+             if l.startswith("{")]
+    assert [l["phase"] for l in lines] == [
+        "dp_train", "dp_expert_parallel", "dp_islands",
+        "dp_async_checkpoint"]
+    a, b, c, d = lines
+    assert a["backend"] == "gloo" and a["world"] == 1
+    assert a["exact_dp_bit_identical_to_no_group"]
+    # float32 smoke config: the error tree is the gradient tree's size
+    assert a["dtype"] == "float32"
+    assert a["error_feedback_bytes"] == a["gradient_bytes"] > 0
+    assert len(a["step_s"]["compressed_dp"]) == 2
+    assert b["loss_and_grads_bit_identical_to_no_group"]
+    assert b["metrics"]["max_expert_load"] > 0
+    assert c["genomes_identical_every_snapshot"] == 5
+    assert not c["held_to_phase_s_snapshots"]
+    assert d["restore_bit_identical_to_sync_save"]
+    assert len(d["step_s_during_write"]) + len(d["step_s_after_write"]) == 3
