@@ -335,6 +335,27 @@ Phases, each printing one JSON line:
                   group, a ``save_async`` while it trains on (step times
                   during the write), restored bit-identical to a
                   synchronous save.  No ported kernel may launch.
+  (J) tensor_parallel — the tensor-parallel code over a (1, 1) mesh on a
+                  one-rank process group (NCCL), so that its model group
+                  is real: (J.a) phase (x)'s cell through ``Engine(...,
+                  mesh=...)`` (full-width gemma2-2b, bf16, batch 4, 128-
+                  token prompts, 32 new tokens): tokens equal to (x)'s,
+                  decode ms a token beside (x)'s, 7 decode steps traced
+                  (device ops, idle share, NCCL kernels); (J.b) 2 AdamW
+                  steps of phase (A)'s cell through the launcher's
+                  ``Trainer`` with ``--mesh-shape 1,1``: losses and every
+                  parameter
+                  bit-identical to the same steps without a group, s a
+                  step and peaks of both; (J.c) the collective launches of
+                  one decode step and one train step
+                  (``collectives.TP_CALLS``) equal to the count derived
+                  from the code (``tp_calls_per_step``); (J.d)
+                  ``PerfFlags(True, True)`` on full-width gemma2-2b and
+                  olmoe-1b-7b (6 of 16 layers): loss and gradients
+                  bit-identical to the path without a group; olmoe's,
+                  mamba2's and recurrentgemma's smoke configs on the card
+                  over the group, with and without the flags, against the
+                  host.  No ported kernel may launch.
 
 Then a ``{"kernels": [...]}`` line, the card's name and power limit as
 nvidia-smi reports them, and a last line ``{"ok": true, "device": ...}``.
@@ -426,6 +447,10 @@ VMAP_BACKENDS = ("vmap", "device", "numpy")   # (H)
 # phase (I): the data-parallel half over a one-rank process group
 DP_STEPS = 4                          # (I.a): timed steps of each path
 ASYNC_CKPT = dict(save_at=4, steps=8)  # (I.d): steps before and after
+
+# phase (J): tensor parallelism over a one-rank model group
+TP_STEPS = 2                          # (J.b): steps of phase (A)'s cell
+TP_SMOKE = ("olmoe-1b-7b", "mamba2-1.3b", "recurrentgemma-2b")   # (J.d)
 
 # stated tolerances
 GRAD_CHECK_RTOL = 1e-2                # (B) <g, d> vs the central difference
@@ -1577,11 +1602,12 @@ def serve_phases(*, device, card: str, full: bool = True,
                  trace_steps: int = SERVE_TRACE_STEPS,
                  check_prompts=CHECK_PROMPTS,
                  family_steps: int = FAMILY_STEPS,
-                 whisper_steps: int = WHISPER_STEPS) -> None:
+                 whisper_steps: int = WHISPER_STEPS) -> dict:
     """Phases (x) to (z): the model and serving stack (see the module
     docstring).  ``full=False`` (the tests' rehearsal on the CPU) serves
     the smoke configs in place of full-width gemma2-2b and whisper-base,
-    and traces nothing."""
+    and traces nothing.  Returns phase (x)'s greedy tokens and decode ms
+    a token (phase J serves the same cell)."""
     import copy
     import dataclasses
     import math
@@ -1691,6 +1717,7 @@ def serve_phases(*, device, card: str, full: bool = True,
           "greedy_row0": out[0], "ported_kernel_launches": launches,
           "scalar_vs_true_division_differing_of_2e20": division,
           "phase_wall_s": time.perf_counter() - t_phase})
+    serve_x = {"tokens": out, "decode_ms": decode_ms}
     del eng
     if on_card:
         torch.cuda.empty_cache()
@@ -1841,6 +1868,7 @@ def serve_phases(*, device, card: str, full: bool = True,
                       "max_abs_logit_diff_vs_decode_train": w_err,
                       "tol": SERVE_LOGIT_ATOL, "wall_s": w_s},
           "phase_wall_s": time.perf_counter() - t_phase})
+    return serve_x
 
 
 def lm_step_bound(cfg, B: int, S: int) -> dict:
@@ -3039,6 +3067,309 @@ def data_parallel_phases(*, device, card: str, ckpt_root, lm_a: dict,
             f"{launches}")
 
 
+def tp_calls_per_step(cfg) -> dict:
+    """The tensor-parallel collective launches (``collectives.TP_CALLS``)
+    of one decode step and one train step of ``cfg`` without PerfFlags,
+    counted from the code, for a stack of L attention blocks with a dense
+    MLP whose heads divide the group (branch a) and no qk-norm:
+
+    decode: the embedding's psum; per block the query's and the new K's
+    and V's gather_from, the flash-decoding merge's pmax and two psums,
+    the row-parallel psums of ``wo`` and the MLP; the logits'
+    gather_from.  psum 1 + 4L, gather_from 3L + 1, pmax L.
+
+    train: the forward's psums (embedding, 2 a block, the cross entropy's
+    sum of exponentials and its label logits: 2L + 3) and the max of the
+    log-normaliser (1); the backward's all-reduce of each ``copy_to``
+    (2 a block, the logits': 2L + 1); ``remat="block"`` recomputes each
+    repeated block's forward, 2 psums each."""
+    blocks = cfg.all_blocks()
+    require(all(b.kind == "attn" and b.d_ff and b.moe is None
+                for b in blocks) and not cfg.qk_norm
+            and cfg.frontend == "none", f"{cfg.name}: not the counted stack")
+    L = len(blocks)
+    rep = len(cfg.pattern) * cfg.n_repeats if cfg.remat == "block" else 0
+    return {"decode": {"psum": 1 + 4 * L, "gather_from": 3 * L + 1,
+                       "pmax": L},
+            "train": {"psum": 2 * L + 3 + 2 * rep, "pmax": 1,
+                      "copy_to.grad": 2 * L + 1}}
+
+
+def tensor_parallel_phases(*, device, card: str, ckpt_root, serve_x: dict,
+                           full: bool = True, serve_args: dict = SERVE,
+                           train: dict = LM_TRAIN, steps: int = TP_STEPS,
+                           trace_steps: int = SERVE_TRACE_STEPS) -> None:
+    """Phase (J): the tensor-parallel code on a (1, 1) mesh over a
+    one-rank process group (see the module docstring); ``serve_x`` is
+    phase (x)'s result.  ``full=False`` (the tests' rehearsal on the CPU,
+    over gloo) uses the smoke configs."""
+    import dataclasses
+    import gc
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs import registry
+    from repro_torch.core.hlo_cost import ported_kernels
+    from repro_torch.device import resolve_device
+    from repro_torch.distributed import collectives as C
+    from repro_torch.distributed import sharding
+    from repro_torch.launch import serve
+    from repro_torch.launch import train as launcher
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import lm
+    from repro_torch.serve.engine import Engine
+    from repro_torch.train import data as data_lib
+    from repro_torch.train import step as step_lib
+    from repro_torch.tree import tree_leaves, tree_map
+
+    dev = resolve_device(device)
+    on_card = dev.type == "cuda"
+    counted = ported_kernels()
+    for fn in counted.values():
+        fn.launches = 0
+    shutil.rmtree(ckpt_root, ignore_errors=True)
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize(dev)
+
+    def free():
+        gc.collect()
+        if on_card:
+            torch.cuda.empty_cache()
+
+    def peak_reset():
+        if on_card:
+            torch.cuda.reset_peak_memory_stats()
+
+    def peak():
+        return torch.cuda.max_memory_allocated() if on_card \
+            else "not measured"
+
+    def host(tree):
+        return tree_map(lambda t: t.detach().to("cpu", copy=True), tree)
+
+    def identical(a, b) -> bool:
+        la, lb = tree_leaves(a), tree_leaves(b)
+        return len(la) == len(lb) and all(torch.equal(x, y.to(x.device))
+                                          for x, y in zip(la, lb))
+
+    group = one_rank_group(dev, ckpt_root / "group")
+    backend = dist.get_backend()
+    try:
+        mesh = make_mesh((1, 1), ("data", "model"))
+        require(mesh.groups["model"] is not None, "(J) no model group")
+        entry = registry.get(LM_ARCH)
+        cfg = entry.config if full else entry.smoke()
+        want_calls = tp_calls_per_step(cfg)
+
+        # ------------------------------------------------ (J.a) serving
+        t_phase = time.perf_counter()
+        B, P, N = (serve_args[k] for k in ("batch", "prompt_len",
+                                           "new_tokens"))
+        scfg, eng0, prompts = serve.build(serve.parse_args(
+            ["--arch", SERVE_ARCH, "--batch", str(B), "--prompt-len",
+             str(P), "--new-tokens", str(N), "--device", device]
+            + ([] if full else ["--smoke"])))
+        eng = Engine(scfg, eng0.model, eng0.scfg, device=device, mesh=mesh)
+        del eng0
+        require(eng.ctx.tp_group is not None, "(J.a) the engine's group")
+        first = eng.generate(prompts)             # warm
+        out = eng.generate(prompts)
+        decode_ms = statistics.median(s * 1e3
+                                      for s in eng.timings["step_s"][1:])
+        require(out == first == serve_x["tokens"],
+                "(J.a) tokens over the model group differ from (x)'s")
+        with torch.no_grad():
+            logits, cache = eng.prefill(torch.tensor(prompts, device=dev),
+                                        P + trace_steps)
+            sync()
+            C.TP_CALLS.clear()
+            cur = logits.argmax(-1)
+            logits, _ = lm.decode_step(eng.model, cur[:, None], cache, P)
+            serve_calls = dict(C.TP_CALLS)
+            cur = logits.argmax(-1)
+
+            def decode_steps():
+                nonlocal cur
+                for t in range(1, trace_steps):
+                    lg, _ = lm.decode_step(eng.model, cur[:, None], cache,
+                                           P + t)
+                    cur = lg.argmax(-1)
+            if on_card:
+                trace = traced(decode_steps,
+                               match={"nccl": ("nccl", "Nccl")})
+                trace["device_ops_per_step"] = (trace["device_ops"]
+                                                / (trace_steps - 1))
+            else:
+                decode_steps()
+                trace = "not measured (CPU)"
+        require(serve_calls == want_calls["decode"],
+                f"(J.c) decode step's collectives {serve_calls} != "
+                f"{want_calls['decode']}")
+        emit({"phase": "tp_serve", "card": card, "backend": backend,
+              "mesh": [1, 1], "arch": scfg.name, "dtype": scfg.param_dtype,
+              "batch": B, "prompt_len": P, "new_tokens": N,
+              "tokens_equal_phase_x": True,
+              "decode_ms_per_token": {"phase_x": serve_x["decode_ms"],
+                                      "tp_group": decode_ms},
+              "prefill_s": eng.timings["prefill_s"],
+              "collectives_per_decode_step": serve_calls,
+              "traced_decode": trace, "traced_steps": trace_steps - 1,
+              "phase_wall_s": time.perf_counter() - t_phase})
+        del eng, cache, logits, cur
+        free()
+
+        # ----------------------------------------------- (J.b) training
+        t_phase = time.perf_counter()
+        args = ["--arch", LM_ARCH, "--steps", str(steps), "--batch",
+                str(train["batch"]), "--seq", str(train["seq"]), "--lr",
+                str(train["lr"]), "--device", device] \
+            + ([] if full else ["--smoke"])
+        runs = {}
+        for name, extra in (("no_group", []),
+                            ("tp_group", ["--mesh-shape", "1,1"])):
+            tr = launcher.build(launcher.parse_args(args + extra))
+            tr.tcfg.log_every = 1
+            require((tr.ctx.tp_group is not None) == bool(extra),
+                    f"(J.b) {name}: the trainer's model group")
+            peak_reset()
+            C.TP_CALLS.clear()
+            hist = tr.run()
+            sync()
+            runs[name] = {"losses": [h["loss"] for h in hist],
+                          "s_per_step": [h["dt"] for h in hist],
+                          "peak": peak(), "calls": dict(C.TP_CALLS),
+                          "params": host(tr.state["params"])}
+            del tr, hist
+            free()
+        a, b = runs["no_group"], runs["tp_group"]
+        require(a["losses"] == b["losses"] and identical(a["params"],
+                                                         b["params"]),
+                f"(J.b) the train step over the model group is not the "
+                f"step without one: losses {a['losses']} {b['losses']}")
+        train_calls = {k: v / steps for k, v in b["calls"].items()}
+        require(not a["calls"] and train_calls == want_calls["train"],
+                f"(J.c) train step's collectives {train_calls} != "
+                f"{want_calls['train']}")
+        emit({"phase": "tp_train", "card": card, "backend": backend,
+              "mesh": [1, 1], "arch": cfg.name, "dtype": cfg.param_dtype,
+              "optimizer": "adamw", "batch": train["batch"],
+              "seq_len": train["seq"], "steps": steps,
+              "loss_and_params_bit_identical_to_no_group": True,
+              "losses": b["losses"],
+              "s_per_step": {k: r["s_per_step"] for k, r in runs.items()},
+              "peak_device_bytes": {k: r["peak"] for k, r in runs.items()},
+              "collectives_per_train_step": train_calls,
+              "phase_wall_s": time.perf_counter() - t_phase})
+        emit({"phase": "tp_collectives", "card": card,
+              "expected_from_code": want_calls,
+              "measured": {"decode": serve_calls, "train": train_calls},
+              "equal": True})
+        del runs, a, b
+        free()
+
+        # ------------------------- (J.d) PerfFlags and other block kinds
+        t_phase = time.perf_counter()
+        S = train["seq"]
+        flags = sharding.PerfFlags(moe_sp_dispatch=True, sp_residual=True)
+        flag_cfgs = [entry.config if full else entry.smoke()]
+        ocfg = registry.get("olmoe-1b-7b")
+        ocfg = ocfg.config if full else ocfg.smoke()
+        if full:
+            ocfg = dataclasses.replace(ocfg, n_repeats=BOUND_MOE_REPEATS)
+        flag_cfgs.append(ocfg)
+        # the MoE's index_add sums with atomics on the card: bit identity
+        # needs the deterministic implementations (as phase I.b)
+        was = torch.are_deterministic_algorithms_enabled()
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        flag_rows = []
+        for fcfg in flag_cfgs:
+            data = data_lib.SyntheticLM(data_lib.LMTaskConfig(
+                vocab_size=fcfg.vocab_size, seq_len=S,
+                global_batch=train["batch"], seed=0))
+            batch = {k: torch.from_numpy(v).to(dev)
+                     for k, v in data.batch(0).items()}
+            res = {}
+            for name, fl in (("no_group", None), ("flags", flags)):
+                model = lm.init_params(fcfg, 0, device)
+                if fl is not None:
+                    sharding.shard_params(model, sharding.make_ctx(
+                        mesh, flags=fl))
+                C.TP_CALLS.clear()
+                t0 = time.perf_counter()
+                total, metrics, grads = step_lib.value_and_grad(model, batch)
+                sync()
+                res[name] = (total.item(), host(grads),
+                             time.perf_counter() - t0, dict(C.TP_CALLS))
+                del model, total, metrics, grads
+                free()
+            (la, ga, sa, _), (lb, gb, sb, calls) = (res["no_group"],
+                                                    res["flags"])
+            require(la == lb and identical(ga, gb),
+                    f"(J.d) {fcfg.name} under PerfFlags(True, True) over "
+                    f"one rank differs from the path without a group")
+            flag_rows.append({"config": fcfg.name,
+                              "n_repeats": fcfg.n_repeats,
+                              "dtype": fcfg.param_dtype, "loss": la,
+                              "bit_identical": True,
+                              "value_and_grad_s": {"no_group": sa,
+                                                   "flags": sb},
+                              "collectives": calls})
+            del res, ga, gb
+            free()
+        torch.use_deterministic_algorithms(was)
+
+        # smoke configs of the other block kinds: card against host
+        fam_rows = []
+        for arch in TP_SMOKE:
+            fcfg = registry.get(arch).smoke()
+            data = data_lib.SyntheticLM(data_lib.LMTaskConfig(
+                vocab_size=fcfg.vocab_size, seq_len=16, global_batch=4,
+                seed=0))
+            hb = {k: torch.from_numpy(v) for k, v in data.batch(0).items()}
+            host_m = lm.init_params(fcfg, 0, "cpu")
+            hl, _, hg = step_lib.value_and_grad(host_m, hb)
+            tree = lm.params_to_numpy(host_m)
+            row = {"config": fcfg.name}
+            for name, fl in (("tp", sharding.PerfFlags()), ("flags", flags)):
+                model = lm.params_from_numpy(fcfg, tree, device)
+                sharding.shard_params(model, sharding.make_ctx(mesh,
+                                                               flags=fl))
+                cl, _, cg = step_lib.value_and_grad(
+                    model, {k: v.to(dev) for k, v in hb.items()})
+                require(abs(cl.item() - hl.item())
+                        <= LM_LOSS_RTOL * abs(hl.item()),
+                        f"(J.d) {arch} {name}: loss {cl.item()} on the card "
+                        f"vs {hl.item()} on the host")
+                err = 0.0
+                for g, h in zip(tree_leaves(cg), tree_leaves(hg)):
+                    e = float((g.cpu() - h).abs().max())
+                    scale = float(h.abs().max())
+                    require(e <= LM_GRAD_ATOL * max(scale, 1e-30),
+                            f"(J.d) {arch} {name}: a gradient {e} from the "
+                            f"host's (largest {scale})")
+                    err = max(err, e / max(scale, 1e-30))
+                row[name] = {"loss_abs_diff": abs(cl.item() - hl.item()),
+                             "max_grad_rel_diff": err}
+            fam_rows.append(row)
+        emit({"phase": "tp_flags", "card": card, "backend": backend,
+              "mesh": [1, 1], "flags": dataclasses.asdict(flags),
+              "batch": train["batch"], "seq_len": S,
+              "full_width_bit_identical": flag_rows,
+              "smoke_card_vs_host": fam_rows,
+              "tol": {"loss_rtol": LM_LOSS_RTOL,
+                      "grad_atol_of_leaf_max": LM_GRAD_ATOL},
+              "phase_wall_s": time.perf_counter() - t_phase})
+    finally:
+        dist.destroy_process_group()
+    launches = {k: fn.launches for k, fn in counted.items()}
+    require(not any(launches.values()),
+            f"(J) the tensor-parallel paths launched a ported kernel: "
+            f"{launches}")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -4153,7 +4484,7 @@ def main() -> int:
 
     # ---------------- (x)-(z) the model and serving stack at full width
     torch.cuda.empty_cache()
-    serve_phases(device=DEVICE, card=card)
+    serve_x = serve_phases(device=DEVICE, card=card)
 
     # ------------------ (A)-(D) training of the LM stack at full width
     torch.cuda.empty_cache()
@@ -4178,6 +4509,12 @@ def main() -> int:
             pnet=pnet, xs=xs, chip=prof, cache=pcache, greedy=pgreedy,
             search=SEARCH, islands=ISLANDS,
             phase_s_dir=build.BUILD_DIR / "ckpt" / "r" / "islands"))
+
+    # ------------- (J) tensor parallelism over a one-rank model group
+    torch.cuda.empty_cache()
+    tensor_parallel_phases(device=DEVICE, card=card,
+                           ckpt_root=build.BUILD_DIR / "ckpt" / "tp",
+                           serve_x=serve_x)
 
     emit({"kernels": [mm, wc, fa, em1, sdk]})
     print(card, flush=True)

@@ -30,11 +30,37 @@ cotangent through unchanged, so that the ranks' gradients, summed, are
 the gradient of the one replicated value.  :func:`all_to_all` moves equal
 row blocks between ranks; its backward moves the cotangents back.
 
+**Tensor parallelism** (Megatron's pairs, over the ``"model"`` group).
+Every rank of the group computes the same loss; a tensor outside a
+rank-local region carries its whole gradient on every rank.  A region
+starts where a replicated tensor meets this rank's shard of a weight and
+ends where the ranks' partial results meet:
+
+    function            forward            backward
+    copy_to             identity           all-reduce (sum)
+    psum (reduce_from)  all-reduce (sum)   identity
+    gather_from(dim)    all-gather         this rank's slice
+    scatter_to(dim)     this rank's slice  all-gather
+    all_gather(dim)     all-gather         reduce-scatter
+    reduce_scatter(dim) reduce-scatter     all-gather
+    all_to_all_dims     all-to-all         the all-to-all back
+
+``gather_from`` / ``scatter_to`` border replicated computation (each
+rank's cotangent is whole already); ``all_gather`` / ``reduce_scatter``
+border rank-local computation (the cotangents are partial sums), as at
+the sequence-sharded residual of Megatron-SP.  :func:`pmax` is a max
+all-reduce outside autograd.  Each launch adds one to :data:`TP_CALLS`
+under the function's name (``"<name>.grad"`` for a backward's launch).
+A group of one rank still launches every collective: only ``None``
+skips them.
+
 A ``group`` of None means one rank: every function then runs without a
 collective and returns what the one-replica code computes.
 """
 
 from __future__ import annotations
+
+import collections
 
 import numpy as np
 import torch
@@ -109,12 +135,48 @@ def gather_islands(tree, *, group, axis: int = 0, tiled: bool = False):
 
 # --------------------------------------------- differentiable collectives
 
+#: launches of each differentiable collective (module docstring)
+TP_CALLS: collections.Counter = collections.Counter()
+
+
+def _ar(x: torch.Tensor, group, name: str) -> torch.Tensor:
+    """A SUM all-reduce of a contiguous copy of ``x``."""
+    TP_CALLS[name] += 1
+    y = x.detach().clone(memory_format=torch.contiguous_format)
+    dist.all_reduce(y, op=dist.ReduceOp.SUM, group=group)
+    return y
+
+
+def _ag(x: torch.Tensor, dim: int, group, name: str) -> torch.Tensor:
+    """The ranks' ``x`` concatenated along ``dim`` in rank order."""
+    TP_CALLS[name] += 1
+    xt = x.detach().movedim(dim, 0).contiguous()
+    out = xt.new_empty((group_size(group) * xt.shape[0],) + xt.shape[1:])
+    dist.all_gather_into_tensor(out, xt, group=group)
+    # contiguous, as the tensors it stands for: a reduction over another
+    # layout sums in another order
+    return out.movedim(0, dim).contiguous()
+
+
+def _rs(x: torch.Tensor, dim: int, group, name: str) -> torch.Tensor:
+    """This rank's block along ``dim`` of the ranks' ``x`` summed."""
+    TP_CALLS[name] += 1
+    xt = x.detach().movedim(dim, 0).contiguous()
+    out = xt.new_empty((xt.shape[0] // group_size(group),) + xt.shape[1:])
+    dist.reduce_scatter_tensor(out, xt, group=group)
+    return out.movedim(0, dim).contiguous()
+
+
+def _own(x: torch.Tensor, dim: int, group) -> torch.Tensor:
+    """This rank's block of ``x`` along ``dim``."""
+    k = x.shape[dim] // group_size(group)
+    return x.narrow(dim, group_rank(group) * k, k)
+
+
 class _PSum(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, group):
-        y = x.detach().clone(memory_format=torch.contiguous_format)
-        dist.all_reduce(y, op=dist.ReduceOp.SUM, group=group)
-        return y
+        return _ar(x, group, "psum")
 
     @staticmethod
     def backward(ctx, g):
@@ -126,6 +188,118 @@ def psum(x: torch.Tensor, group) -> torch.Tensor:
     cotangent through (see the module docstring); ``x`` itself without a
     group."""
     return x if group is None else _PSum.apply(x, group)
+
+
+class _CopyTo(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _ar(g, ctx.group, "copy_to.grad"), None
+
+
+def copy_to(x: torch.Tensor, group) -> torch.Tensor:
+    """Identity whose backward sums the cotangent over ``group``: a
+    replicated tensor entering rank-local computation."""
+    return x if group is None else _CopyTo.apply(x, group)
+
+
+class _Gather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim, group, partial):
+        ctx.dim, ctx.group, ctx.partial = dim, group, partial
+        return _ag(x, dim, group, "all_gather" if partial else "gather_from")
+
+    @staticmethod
+    def backward(ctx, g):
+        if ctx.partial:
+            return _rs(g, ctx.dim, ctx.group, "all_gather.grad"), None, \
+                None, None
+        return _own(g, ctx.dim, ctx.group), None, None, None
+
+
+def gather_from(x: torch.Tensor, dim: int, group) -> torch.Tensor:
+    """All-gather along ``dim`` into replicated computation: the backward
+    keeps this rank's slice of the (whole) cotangent."""
+    return x if group is None else _Gather.apply(x, dim, group, False)
+
+
+def all_gather(x: torch.Tensor, dim: int, group) -> torch.Tensor:
+    """All-gather along ``dim`` into rank-local computation: the backward
+    reduce-scatters the (partial) cotangents."""
+    return x if group is None else _Gather.apply(x, dim, group, True)
+
+
+class _Scatter(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim, group, reduce):
+        ctx.dim, ctx.group, ctx.reduce = dim, group, reduce
+        if reduce:
+            return _rs(x, dim, group, "reduce_scatter")
+        return _own(x, dim, group).clone()
+
+    @staticmethod
+    def backward(ctx, g):
+        name = ("reduce_scatter" if ctx.reduce else "scatter_to") + ".grad"
+        return _ag(g, ctx.dim, ctx.group, name), None, None, None
+
+
+def scatter_to(x: torch.Tensor, dim: int, group) -> torch.Tensor:
+    """This rank's block along ``dim`` of a replicated tensor; the
+    backward all-gathers the blocks' cotangents."""
+    return x if group is None else _Scatter.apply(x, dim, group, False)
+
+
+def reduce_scatter(x: torch.Tensor, dim: int, group) -> torch.Tensor:
+    """The ranks' partial ``x`` summed, this rank's block along ``dim``
+    kept; the backward all-gathers."""
+    return x if group is None else _Scatter.apply(x, dim, group, True)
+
+
+def _a2a_dims(x, split_dim: int, cat_dim: int, group, name: str):
+    TP_CALLS[name] += 1
+    n = group_size(group)
+    send = torch.stack(x.detach().chunk(n, dim=split_dim)).contiguous()
+    recv = torch.empty_like(send)
+    dist.all_to_all_single(recv, send, group=group)
+    return torch.cat(recv.unbind(0), dim=cat_dim)
+
+
+class _AllToAllDims(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, split_dim, cat_dim, group):
+        ctx.dims, ctx.group = (split_dim, cat_dim), group
+        return _a2a_dims(x, split_dim, cat_dim, group, "all_to_all_dims")
+
+    @staticmethod
+    def backward(ctx, g):
+        split_dim, cat_dim = ctx.dims
+        return _a2a_dims(g, cat_dim, split_dim, ctx.group,
+                         "all_to_all_dims.grad"), None, None, None
+
+
+def all_to_all_dims(x: torch.Tensor, split_dim: int, cat_dim: int, group
+                    ) -> torch.Tensor:
+    """Block ``j`` of ``x`` along ``split_dim`` goes to rank ``j``; the
+    blocks received are concatenated along ``cat_dim`` in rank order
+    (e.g. head_dim-sharded to sequence-sharded).  Differentiable."""
+    if group is None:
+        return x
+    return _AllToAllDims.apply(x, split_dim, cat_dim, group)
+
+
+def pmax(x: torch.Tensor, group) -> torch.Tensor:
+    """MAX all-reduce of ``x`` over ``group`` outside autograd (a new
+    tensor); ``x`` without a group."""
+    if group is None:
+        return x
+    TP_CALLS["pmax"] += 1
+    y = x.detach().clone(memory_format=torch.contiguous_format)
+    dist.all_reduce(y, op=dist.ReduceOp.MAX, group=group)
+    return y
 
 
 def pmean(x: torch.Tensor, group) -> torch.Tensor:

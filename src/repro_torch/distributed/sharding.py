@@ -13,8 +13,7 @@ Sharding rules (mesh ``("pod","data","model")`` / ``("data","model")``):
   optimizer state  -> ZeRO-1: + `data` on the first unsharded divisible dim
   giant gradients  -> + `pod` for leaves of 256 Mi elements or more
 
-One card shards nothing, so the specs are plain data that a multi-card
-port can turn into placements.  A spec is a tuple with one entry per
+A spec is a tuple with one entry per
 leading dim of its leaf; an entry is None, an axis name or a tuple of axis
 names (the content of the JAX package's ``PartitionSpec``: ``P(*dims)``
 there is ``tuple(dims)`` here).  A mesh is a mapping from axis name to
@@ -28,9 +27,21 @@ key (``pre{i}``, ``pattern/blk{j}`` with the repeat axis first,
 
 The JAX package's ``island_mesh`` and ``to_shardings`` build JAX meshes and
 ``NamedSharding`` objects and have no counterpart: the port's sharded
-search takes a process group (``core.device_search``), and nothing here
-places a tensor.  A :class:`ShardCtx` built from a ``launch.mesh.Mesh``
-carries the mesh's process groups beside the sizes (``dp_group``).
+search takes a process group (``core.device_search``).  A
+:class:`ShardCtx` built from a ``launch.mesh.Mesh`` carries the mesh's
+process groups beside the sizes (``dp_group``, ``tp_group``) and the
+reference's :class:`PerfFlags`.
+
+**Tensor parallelism.**  :func:`shard_params` places a model on the
+``"model"`` group: every leaf whose spec names `model` keeps this rank's
+block along that dim (the reference's GSPMD placement, made explicit),
+each parameter records its :class:`Split`, and the model records the
+context that its layers read.  The fused projections ``ssd.in_xz`` =
+``[x | z]`` and ``rglru.in_xy`` = ``[x | gate]`` keep this rank's block of
+each half (Megatron's fused layout), so that a rank's ``x`` and ``z``
+channels match.  :func:`gather_leaf` is the inverse (the reference's
+layout, for ``params_to_numpy`` and checkpoints), :func:`slice_leaf`
+cuts a whole leaf to this rank's block (a restore on another mesh).
 """
 
 from __future__ import annotations
@@ -39,9 +50,22 @@ import dataclasses
 import math
 from typing import Any, Mapping, Optional
 
+import torch
+import torch.distributed as dist
+
+from repro_torch.distributed import collectives as C
 from repro_torch.models import moe as moe_lib
 from repro_torch.models.common import BlockCfg, ModelCfg
 from repro_torch.models.encdec import EncDecCfg
+
+
+@dataclasses.dataclass(frozen=True)
+class PerfFlags:
+    """The reference's hillclimb knobs; the defaults are its baseline."""
+
+    moe_sp_dispatch: bool = False   # slice the MoE a2a payload over `model`
+    sp_residual: bool = False       # Megatron-SP: the residual stream
+                                    # sequence-sharded over `model`
 
 
 @dataclasses.dataclass(frozen=True)
@@ -53,6 +77,7 @@ class ShardCtx:
     dp: tuple[str, ...] = ("data",)     # batch axes (("pod","data") multi-pod)
     tp: Optional[str] = "model"
     batch_sharded: bool = True          # False when B < |dp|
+    flags: PerfFlags = PerfFlags()
     #: axis name -> process group (``launch.mesh.Mesh.groups``); None
     #: when the mesh is a plain mapping
     groups: Optional[Mapping[str, Any]] = dataclasses.field(
@@ -64,6 +89,26 @@ class ShardCtx:
         if self.groups is None or len(self.dp) != 1:
             return None
         return self.groups.get(self.dp[0])
+
+    @property
+    def tp_group(self):
+        """The process group of the model axis, or None (no tensor
+        parallelism at run time)."""
+        if self.groups is None or self.tp is None:
+            return None
+        return self.groups.get(self.tp)
+
+    @property
+    def tp_rank(self) -> int:
+        return C.group_rank(self.tp_group)
+
+    def seq_sharded(self, seq_len: int) -> bool:
+        """The reference's ``cs_res`` rule as a predicate: the residual
+        stream of ``seq_len`` positions is sequence-sharded over `model`
+        (Megatron-SP) when ``flags.sp_residual`` holds and the model
+        group's size divides ``seq_len``."""
+        return (self.flags.sp_residual and self.tp_group is not None
+                and seq_len % self.tp_size == 0)
 
     @property
     def tp_size(self) -> int:
@@ -86,18 +131,160 @@ class ShardCtx:
 
 
 def make_ctx(mesh: Optional[Mapping[str, int]], *,
-             batch_size: int | None = None) -> ShardCtx:
+             batch_size: int | None = None,
+             flags: PerfFlags = PerfFlags()) -> ShardCtx:
     """ShardCtx from a mesh mapping, or a ``launch.mesh.Mesh`` whose
     groups it keeps (axis names decide dp)."""
     if mesh is None:
-        return ShardCtx(mesh=None)
+        return ShardCtx(mesh=None, flags=flags)
     groups = getattr(mesh, "groups", None)
     mesh = getattr(mesh, "sizes", mesh)
     dp = tuple(a for a in mesh if a in ("pod", "data"))
     dp_size = math.prod(mesh[a] for a in dp)
     sharded = batch_size is None or batch_size % dp_size == 0
     return ShardCtx(mesh=dict(mesh), dp=dp, tp="model",
-                    batch_sharded=sharded, groups=groups)
+                    batch_sharded=sharded, flags=flags, groups=groups)
+
+
+# ------------------------------------------------- tensor-parallel leaves
+
+#: leaves that concatenate two projections on their last dim; each half
+#: is split on its own
+FUSED = {"in_xz": 2, "in_xy": 2}
+
+
+@dataclasses.dataclass(frozen=True)
+class Split:
+    """A leaf held in blocks over a process group: this rank keeps block
+    ``rank`` along ``dim`` of each of the leaf's ``parts`` equal chunks."""
+
+    dim: int
+    group: Any = dataclasses.field(compare=False)
+    parts: int = 1
+
+
+def slice_leaf(t: torch.Tensor, splits) -> torch.Tensor:
+    """This rank's block of the whole leaf ``t`` (a new tensor for any
+    split)."""
+    for sp in splits:
+        n = C.group_size(sp.group)
+        if t.shape[sp.dim] % (n * sp.parts):
+            raise ValueError(f"dim {sp.dim} of {tuple(t.shape)} does not "
+                             f"split in {sp.parts} x {n}")
+        chunks = t.chunk(sp.parts, dim=sp.dim)
+        k = chunks[0].shape[sp.dim] // n
+        r = C.group_rank(sp.group)
+        t = torch.cat([c.narrow(sp.dim, r * k, k) for c in chunks],
+                      dim=sp.dim)
+    return t
+
+
+def gather_leaf(t: torch.Tensor, splits) -> torch.Tensor:
+    """The whole leaf from every rank's block (outside autograd; every
+    rank of each group calls it)."""
+    t = t.detach()
+    for sp in reversed(tuple(splits)):
+        n = C.group_size(sp.group)
+        blocks = [torch.empty_like(t) for _ in range(n)]
+        dist.all_gather(blocks, t.contiguous(), group=sp.group)
+        parts = [b.chunk(sp.parts, dim=sp.dim) for b in blocks]
+        t = torch.cat([parts[r][j] for j in range(sp.parts)
+                       for r in range(n)], dim=sp.dim)
+    return t
+
+
+def global_shape(t, splits) -> tuple:
+    """The whole leaf's shape from a block's."""
+    shape = list(t.shape)
+    for sp in splits:
+        shape[sp.dim] *= C.group_size(sp.group)
+    return tuple(shape)
+
+
+def param_splits(p, stacked: bool = False) -> tuple:
+    """The :class:`Split` s of a parameter (its experts over the data
+    group, ``moe.shard_experts``; a dim over the model group,
+    :func:`shard_params`), with dims moved one on for a ``stacked`` leaf
+    (the reference's leading repeat axis)."""
+    s = int(stacked)
+    out = []
+    if getattr(p, "ep_group", None) is not None:
+        out.append(Split(s, p.ep_group))
+    if getattr(p, "tp_group", None) is not None:
+        dim, parts = p.tp_split
+        out.append(Split(dim + s, p.tp_group, parts))
+    return tuple(out)
+
+
+def layout_splits(layout: dict) -> dict:
+    """:func:`param_splits` over a parameter layout (``lm.param_layout``:
+    a parameter, or the tuple of a stacked leaf's parameters)."""
+    from repro_torch.models.layers import map_layout
+    return map_layout(lambda x: param_splits(
+        x[0] if isinstance(x, tuple) else x, isinstance(x, tuple)), layout)
+
+
+def gather_layout(layout: dict) -> dict:
+    """A parameter layout with each leaf whole: stacked leaves stacked,
+    split leaves gathered (every rank calls it)."""
+    from repro_torch.models.layers import map_layout
+
+    def one(x):
+        t = torch.stack(x) if isinstance(x, tuple) else x
+        return gather_leaf(t, param_splits(
+            x[0] if isinstance(x, tuple) else x, isinstance(x, tuple)))
+    return map_layout(one, layout)
+
+
+def _lib(model):
+    from repro_torch.models import encdec, lm
+    return encdec if isinstance(model, encdec.EncDec) else lm
+
+
+@torch.no_grad()
+def shard_params(model, ctx: ShardCtx) -> int:
+    """Keep this rank's block of every leaf of ``model`` whose spec
+    (:func:`param_specs`) names `model`, record each block's
+    :class:`Split` on its parameter and ``ctx`` on the model (its layers
+    then run tensor-parallel over ``ctx.tp_group``).  Leaves the spec
+    replicates stay whole.  Call it on the whole model (from
+    ``init_params`` or ``params_from_numpy``; before or after
+    ``moe.shard_experts``), before ``step.param_tree``.  Without a model
+    group it records ``ctx`` and slices nothing.  Returns the number of
+    leaves sliced."""
+    if getattr(model, "shard_ctx", None) is not None:
+        raise ValueError("the model is placed already")
+    if getattr(model, "_param_tree", None) is not None:
+        raise ValueError("shard_params before step.param_tree")
+    model.shard_ctx = ctx
+    group = ctx.tp_group
+    if group is None:
+        return 0
+    if C.group_size(group) != ctx.tp_size:
+        raise ValueError(f"a model axis of {ctx.tp_size} over a group of "
+                         f"{C.group_size(group)}")
+    done = 0
+
+    def walk(layout, specs, name=""):
+        nonlocal done
+        if isinstance(layout, dict):
+            for k, v in layout.items():
+                walk(v, specs[k], k)
+            return
+        stacked = isinstance(layout, tuple)
+        spec = tuple(specs)[int(stacked):]
+        dims = [i for i, e in enumerate(spec)
+                if e is not None and ctx.tp in _axes(e)]
+        if not dims:
+            return
+        (dim,) = dims
+        sp = Split(dim, group, FUSED.get(name, 1))
+        for p in (layout if stacked else (layout,)):
+            p.data = slice_leaf(p.data, (sp,))
+            p.tp_group, p.tp_split = group, (dim, sp.parts)
+            done += 1
+    walk(_lib(model).param_layout(model), param_specs(model.cfg, ctx))
+    return done
 
 
 def _map_specs(fn, tree):

@@ -8,8 +8,9 @@ on one 256-chip TPU v5e pod and (2, 16, 16) ("pod", "data", "model") on
 over the ranks of the initialised process group with
 ``torch.distributed.device_mesh.init_device_mesh``: one group per axis,
 each axis's size and this rank's coordinate.  The XLA flag functions have
-no counterpart.  Tensor parallelism (a ``"model"`` axis above 1) is not
-ported yet and raises.
+no counterpart.  The ``"data"`` axis carries data and expert parallelism,
+the ``"model"`` axis tensor parallelism (``distributed.sharding.
+shard_params``).
 
 :func:`init_distributed` starts the process group from torchrun's
 environment (``RANK``, ``WORLD_SIZE``, ``MASTER_ADDR``, ``MASTER_PORT``):
@@ -52,12 +53,6 @@ class Mesh(tuple):
 def _check(shape, axes) -> None:
     if len(shape) != len(axes):
         raise ValueError(f"mesh {tuple(shape)} against axes {tuple(axes)}")
-    for a, n in zip(axes, shape):
-        if a == "model" and n > 1:
-            raise ValueError(
-                f"mesh {tuple(shape)}: a model axis of {n} needs tensor "
-                "parallelism, which the port does not have yet; use "
-                "(data, 1)")
 
 
 def make_mesh(shape: tuple[int, ...], axes: tuple[str, ...]) -> Mesh:
@@ -65,9 +60,10 @@ def make_mesh(shape: tuple[int, ...], axes: tuple[str, ...]) -> Mesh:
 
     A shape of one device needs no process group: without one, the mesh
     has no groups.  Otherwise the process group must be initialised with
-    exactly ``prod(shape)`` ranks; the groups live on the group's device
-    type (``"cuda"`` under NCCL, ``"cpu"`` under gloo).  A ``"model"``
-    axis above 1 raises."""
+    exactly ``prod(shape)`` ranks, laid out row-major (rank ``d * m +
+    j`` of a ``(d, m)`` mesh is data coordinate ``d``, model coordinate
+    ``j``); the groups live on the group's device type (``"cuda"`` under
+    NCCL, ``"cpu"`` under gloo)."""
     shape = tuple(int(n) for n in shape)
     _check(shape, axes)
     n = math.prod(shape)

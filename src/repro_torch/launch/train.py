@@ -4,20 +4,20 @@
       --smoke --steps 50 --batch 8 --seq 128 --ckpt-dir /tmp/ck \\
       [--resume] [--device cpu]
 
-Data-parallel over N processes, started by torchrun (gloo with
-``--device cpu``, NCCL on the cards, one card a rank):
+Data- and tensor-parallel over N processes, started by torchrun (gloo
+with ``--device cpu``, NCCL on the cards, one card a rank):
 
   PYTHONPATH=src python -m torch.distributed.run --standalone \\
-      --nproc-per-node 2 -m repro_torch.launch.train --arch granite-3-2b \\
-      --smoke --steps 4 --device cpu
+      --nproc-per-node 4 -m repro_torch.launch.train --arch granite-3-2b \\
+      --smoke --steps 4 --mesh-shape 2,2 --device cpu
 
 ``--smoke`` uses the reduced per-family config; without it the full
 config trains (gemma2-2b fits one card with AdamW in bf16).  The minicpm
 preset uses the WSD schedule per its paper.  Runs on the card unless
 ``--device cpu``.  Under torchrun (``WORLD_SIZE`` above 1) the process
 group starts from the environment and the mesh defaults to (world, 1);
-``--mesh-shape`` must then hold the world's ranks, and a model axis above
-1 raises (tensor parallelism is not ported).
+``--mesh-shape`` (data, model) must then hold the world's ranks; a model
+axis above 1 trains tensor-parallel over it.
 """
 
 from __future__ import annotations
@@ -54,7 +54,7 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--resume", action="store_true")
     ap.add_argument("--compress-grads", action="store_true")
     ap.add_argument("--mesh-shape", default=None,
-                    help="e.g. 2,1 -> (data,model); default one device, "
+                    help="e.g. 2,2 -> (data,model); default one device, "
                          "or (world, 1) under torchrun")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
@@ -90,7 +90,7 @@ def main(argv=None) -> int:
     started_here = not dist.is_initialized()
     trainer = build(parse_args(argv))
     hist = trainer.run()
-    if trainer.rank == 0:
+    if trainer.lead:
         print(f"final loss: {hist[-1]['loss']:.4f} "
               f"(straggler events: {len(trainer.monitor.events)})")
     if started_here and dist.is_initialized():

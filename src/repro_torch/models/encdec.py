@@ -16,6 +16,15 @@ Entry points, with the reference's names: ``init_params`` /
 the dry-run.  With
 ``cfg.remat == "block"`` a forward that records gradients recomputes each
 layer in the backward, as the reference's ``jax.checkpoint`` does.
+
+Tensor parallelism (``sharding.shard_params``) as in ``lm``: every layer
+is the layers' regions over the model group, the logits are this rank's
+vocabulary columns (``lm.sharded_xent`` reduces over them), and under
+``PerfFlags.sp_residual`` each stream (encoder, decoder) is
+sequence-sharded when the group divides its length; the encoder's output
+is whole on every rank.  The decode cache's self-attention slots are
+split over the group; the cross-attention K/V stay whole (the
+reference's ``cache_spec`` replicates them over `model`).
 """
 
 from __future__ import annotations
@@ -27,14 +36,15 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import resolve_device
+from repro_torch.distributed import collectives as C
 from repro_torch.distributed.collectives import all_reduce_
 from repro_torch.models.common import BlockCfg, ModelCfg
 from repro_torch.models.layers import (MLP, Attention, Params, attention,
                                        attention_decode, dt, init_modules,
-                                       layout_to_numpy, load_tree,
-                                       matmul_f32, mlp, rms_norm,
-                                       stacked_layout)
-from repro_torch.models.lm import sharded_xent
+                                       layout_to_numpy, load_tree, mlp,
+                                       model_ctx, rms_norm, stacked_layout)
+from repro_torch.models.lm import (gather_vocab, lookup, residual_in,
+                                   sharded_xent, slots, vocab_logits)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -154,8 +164,9 @@ def param_layout(model: EncDec) -> dict:
 
 def params_to_numpy(model: EncDec) -> dict:
     """The inverse of :func:`params_from_numpy` (float32 numpy arrays,
-    ``enc``/``dec`` stacked)."""
-    return layout_to_numpy(param_layout(model))
+    ``enc``/``dec`` stacked; split leaves gathered, on every rank)."""
+    from repro_torch.distributed.sharding import gather_layout
+    return layout_to_numpy(gather_layout(param_layout(model)))
 
 
 def _layer(tree: dict, i: int) -> dict:
@@ -166,7 +177,8 @@ def _layer(tree: dict, i: int) -> dict:
 # ------------------------------------------------------------------ forward
 
 def _embed(model: EncDec, tokens: torch.Tensor) -> torch.Tensor:
-    return model.embed[tokens].to(dt(model.cfg.compute_dtype))
+    return lookup(model.embed, tokens, model_ctx(model)).to(
+        dt(model.cfg.compute_dtype))
 
 
 def _layers(fn, h, layers, cfg: EncDecCfg, *args):
@@ -179,49 +191,72 @@ def _layers(fn, h, layers, cfg: EncDecCfg, *args):
     return h
 
 
-def _enc_layer(h, p: EncBlock, cfg: EncDecCfg, positions):
-    mc = cfg.mc
-    x = rms_norm(h, p.norm1, cfg.norm_eps)
+def _gam(ctx, sp: bool):
+    """A norm's gamma as the norm sees it: through ``copy_to`` where the
+    stream is sequence-sharded (its gradient is then a partial sum)."""
+    return (lambda t: C.copy_to(t, ctx.tp_group)) if sp else (lambda t: t)
+
+
+def _enc_layer(h, p: EncBlock, cfg: EncDecCfg, positions, ctx=None,
+               sp=False):
+    mc, gam = cfg.mc, _gam(ctx, sp)
+    kw = {} if ctx is None else {"ctx": ctx, "sp": sp}
+    x = rms_norm(h, gam(p.norm1), cfg.norm_eps)
     h = h + attention(x, p.attn, _BLK, mc, positions=positions,
-                      causal=False)
-    x = rms_norm(h, p.norm2, cfg.norm_eps)
-    return h + mlp(x, p.mlp, mc)
+                      causal=False, **kw)
+    x = rms_norm(h, gam(p.norm2), cfg.norm_eps)
+    return h + mlp(x, p.mlp, mc, **kw)
 
 
-def _dec_layer(h, p: DecBlock, cfg: EncDecCfg, positions, enc_out):
-    mc = cfg.mc
-    x = rms_norm(h, p.norm1, cfg.norm_eps)
-    h = h + attention(x, p.attn, _BLK, mc, positions=positions)
-    x = rms_norm(h, p.norm_x, cfg.norm_eps)
+def _dec_layer(h, p: DecBlock, cfg: EncDecCfg, positions, enc_out,
+               ctx=None, sp=False):
+    mc, gam = cfg.mc, _gam(ctx, sp)
+    kw = {} if ctx is None else {"ctx": ctx, "sp": sp}
+    x = rms_norm(h, gam(p.norm1), cfg.norm_eps)
+    h = h + attention(x, p.attn, _BLK, mc, positions=positions, **kw)
+    x = rms_norm(h, gam(p.norm_x), cfg.norm_eps)
     h = h + attention(x, p.xattn, _BLK, mc, positions=positions,
-                      causal=False, xkv=enc_out)
-    x = rms_norm(h, p.norm2, cfg.norm_eps)
-    return h + mlp(x, p.mlp, mc)
+                      causal=False, xkv=enc_out, **kw)
+    x = rms_norm(h, gam(p.norm2), cfg.norm_eps)
+    return h + mlp(x, p.mlp, mc, **kw)
+
+
+def _stream(model: EncDec, fn, h, layers, gamma, *args):
+    """``h`` through ``layers`` and the final norm ``gamma``, the stream
+    sequence-sharded over a model group where the flags and its length
+    allow -> (hidden states, sequence-sharded?)."""
+    cfg, ctx = model.cfg, model_ctx(model)
+    h, sp = residual_in(h, ctx)
+    h = _layers(fn, h, layers, cfg, *args, ctx, sp)
+    return rms_norm(h, _gam(ctx, sp)(gamma), cfg.norm_eps), sp
 
 
 def encode(model: EncDec, frames: torch.Tensor) -> torch.Tensor:
     """frames: (B, n_frames, d) precomputed embeddings (frontend stub)."""
-    cfg = model.cfg
-    h = frames.to(dt(cfg.compute_dtype))
+    h = frames.to(dt(model.cfg.compute_dtype))
     positions = torch.arange(h.shape[1], device=h.device)
-    h = _layers(_enc_layer, h, model.enc, cfg, positions)
-    return rms_norm(h, model.enc_norm, cfg.norm_eps)
+    h, sp = _stream(model, _enc_layer, h, model.enc, model.enc_norm,
+                    positions)
+    return C.gather_from(h, 1, model_ctx(model).tp_group) if sp else h
+
+
+def _decode_train(model: EncDec, enc_out, tokens):
+    h = _embed(model, tokens)
+    positions = torch.arange(h.shape[1], device=h.device)
+    return _stream(model, _dec_layer, h, model.dec, model.dec_norm,
+                   positions, enc_out)
 
 
 def decode_train(model: EncDec, enc_out: torch.Tensor,
                  tokens: torch.Tensor) -> torch.Tensor:
     """The decoder over a whole token sequence -> final hidden states."""
-    cfg = model.cfg
-    h = _embed(model, tokens)
-    positions = torch.arange(h.shape[1], device=h.device)
-    h = _layers(_dec_layer, h, model.dec, cfg, positions, enc_out)
-    return rms_norm(h, model.dec_norm, cfg.norm_eps)
+    h, sp = _decode_train(model, enc_out, tokens)
+    return C.gather_from(h, 1, model_ctx(model).tp_group) if sp else h
 
 
 def logits_from_h(model: EncDec, h: torch.Tensor) -> torch.Tensor:
-    """float32 logits against the tied embedding."""
-    B, S, d = h.shape
-    return matmul_f32(h.reshape(B * S, d), model.embed.t()).reshape(B, S, -1)
+    """float32 logits against the tied embedding (every column)."""
+    return gather_vocab(model, vocab_logits(model, model.embed.t(), h))
 
 
 def loss_fn(model: EncDec, batch: dict, *, z_weight: float = 1e-4,
@@ -229,10 +264,12 @@ def loss_fn(model: EncDec, batch: dict, *, z_weight: float = 1e-4,
     """batch: {"frontend_embeds" (B, n_frames, d), "tokens" (B, S),
     "labels" (B, S)[, "weights"]} -> (total loss, {"loss", "z_loss"}).
     A data-parallel ``group`` as in ``lm.loss_fn``."""
+    ctx = model_ctx(model)
     enc_out = encode(model, batch["frontend_embeds"])
-    h = decode_train(model, enc_out, batch["tokens"])
-    loss, z_loss = sharded_xent(logits_from_h(model, h), batch["labels"],
-                                batch.get("weights"), group)
+    h, sp = _decode_train(model, enc_out, batch["tokens"])
+    loss, z_loss = sharded_xent(
+        vocab_logits(model, model.embed.t(), h, sp=sp), batch["labels"],
+        batch.get("weights"), group, None if ctx is None else ctx.tp_group)
     total = loss + z_weight * z_loss
     if group is not None:
         loss = all_reduce_(loss.detach().clone(), group)
@@ -243,10 +280,12 @@ def loss_fn(model: EncDec, batch: dict, *, z_weight: float = 1e-4,
 # ----------------------------------------------------------------- decoding
 
 def init_cache(cfg: EncDecCfg, B: int, max_len: int,
-               device: "str | torch.device" = "cuda") -> list[dict]:
-    """Per decoder layer: self-attention K/V over ``max_len`` slots and the
-    cross-attention K/V of the ``n_frames`` encoder frames."""
-    return _cache(cfg, B, max_len, resolve_device(device))
+               device: "str | torch.device" = "cuda", ctx=None
+               ) -> list[dict]:
+    """Per decoder layer: self-attention K/V over ``max_len`` slots (this
+    rank's share with a model group in ``ctx``) and the cross-attention
+    K/V of the ``n_frames`` encoder frames."""
+    return _cache(cfg, B, max_len, resolve_device(device), ctx)
 
 
 def abstract_cache(cfg: EncDecCfg, B: int, max_len: int) -> list[dict]:
@@ -254,9 +293,11 @@ def abstract_cache(cfg: EncDecCfg, B: int, max_len: int) -> list[dict]:
     return _cache(cfg, B, max_len, torch.device("meta"))
 
 
-def _cache(cfg: EncDecCfg, B: int, max_len: int, dev) -> list[dict]:
+def _cache(cfg: EncDecCfg, B: int, max_len: int, dev, ctx=None
+           ) -> list[dict]:
     dtype = dt(cfg.param_dtype)
-    kv = (B, max_len, cfg.n_kv_heads, cfg.head_dim)
+    n = 1 if ctx is None or ctx.tp_group is None else ctx.tp_size
+    kv = (B, slots(_BLK, max_len, n), cfg.n_kv_heads, cfg.head_dim)
     xv = (B, cfg.n_frames, cfg.n_kv_heads, cfg.head_dim)
     z = lambda shape: torch.zeros(shape, dtype=dtype, device=dev)
     return [{"k": z(kv), "v": z(kv), "xk": z(xv), "xv": z(xv)}
@@ -278,11 +319,17 @@ def cache_spec(cfg: EncDecCfg, ctx) -> list[dict]:
 
 def precompute_cross_cache(model: EncDec, enc_out: torch.Tensor,
                            cache: list[dict]) -> list[dict]:
-    """Fill each layer's cross-attention K/V from the encoder output."""
+    """Fill each layer's cross-attention K/V from the encoder output
+    (every head: gathered over a model group)."""
+    ctx = model_ctx(model)
+    g = None if ctx is None else ctx.tp_group
+    dim = 2 if g is None or model.cfg.n_kv_heads % ctx.tp_size == 0 else 3
     out = []
     for p, c in zip(model.dec, cache):
-        xk = torch.einsum("bsd,dhk->bshk", enc_out, p.xattn.wk)
-        xv = torch.einsum("bsd,dhk->bshk", enc_out, p.xattn.wv)
+        xk = C.gather_from(torch.einsum("bsd,dhk->bshk", enc_out,
+                                        p.xattn.wk), dim, g)
+        xv = C.gather_from(torch.einsum("bsd,dhk->bshk", enc_out,
+                                        p.xattn.wv), dim, g)
         out.append({**c, "xk": xk.to(c["xk"].dtype),
                     "xv": xv.to(c["xv"].dtype)})
     return out
@@ -293,19 +340,21 @@ def decode_step(model: EncDec, tokens: torch.Tensor, cache: list[dict],
     """One decoder token against the self-attention cache (updated in
     place) and the precomputed cross K/V.  Returns (logits (B, V),
     cache)."""
-    cfg = model.cfg
+    cfg, ctx = model.cfg, model_ctx(model)
     mc = cfg.mc
+    kw = {} if ctx is None else {"ctx": ctx}
     h = _embed(model, tokens)
     for p, c in zip(model.dec, cache):
         x = rms_norm(h, p.norm1, cfg.norm_eps)
         y, _, _ = attention_decode(x, p.attn, _BLK, mc, cache_k=c["k"],
-                                   cache_v=c["v"], pos=pos)
+                                   cache_v=c["v"], pos=pos, **kw)
         h = h + y
         x = rms_norm(h, p.norm_x, cfg.norm_eps)
         y, _, _ = attention_decode(x, p.xattn, _BLK, mc, cache_k=c["xk"],
-                                   cache_v=c["xv"], pos=pos, cross=True)
+                                   cache_v=c["xv"], pos=pos, cross=True,
+                                   **kw)
         h = h + y
         x = rms_norm(h, p.norm2, cfg.norm_eps)
-        h = h + mlp(x, p.mlp, mc)
+        h = h + mlp(x, p.mlp, mc, **kw)
     h = rms_norm(h, model.dec_norm, cfg.norm_eps)
     return logits_from_h(model, h)[:, 0], cache

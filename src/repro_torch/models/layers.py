@@ -5,8 +5,30 @@ layouts (``wq`` is (d, H, hd), ``wo`` (H, hd, d), the MLP ``wi``/``wg``/
 ``wo``), and the computation is a function of (activations, module), with
 the JAX package's names: :func:`rms_norm`, :func:`rope`, :func:`softcap`,
 :func:`attention`, :func:`attention_decode`, :func:`mlp`,
-:func:`ssd_mixer`, :func:`rglru_mixer`.  There is one card and no mesh,
-so nothing here constrains a sharding.
+:func:`ssd_mixer`, :func:`rglru_mixer`.  Nothing here constrains a
+sharding: over a model group each function runs its collectives itself.
+
+**Tensor parallelism.**  Every function takes ``ctx``, a
+``distributed.sharding.ShardCtx`` whose ``tp_group`` is the model group
+of a model placed by ``sharding.shard_params`` (``None``, or a context
+without a group: the one-device path, unchanged), and ``sp``: the
+residual stream arrives and leaves sequence-sharded (Megatron-SP,
+``ShardCtx.seq_sharded``).  Each function is one Megatron region: its
+input enters through ``collectives.copy_to`` (``all_gather`` over the
+sequence under ``sp``), its row-parallel output leaves through ``psum``
+(``reduce_scatter``).  Attention shards its heads when the head count
+divides the group (branch a), gathers K and V over head_dim when only
+the KV head count does not (branch b: the reference's head_dim-sharded
+``wk``/``wv``), and runs context-parallel otherwise (branch c: queries
+sequence-sharded through an all-to-all, K and V gathered, masks and
+RoPE at the queries' global positions).  Replicated leaves used on this
+rank's heads or channels (``q_gamma``, SSD's ``in_bc``, ``in_dt``,
+``conv_w``, ``A_log``, ``D``, ``dt_bias``) pass through ``copy_to`` at
+their use, so that every leaf's gradient is whole on every rank.  Decode
+reads a cache whose slots are split over the group (flash-decoding):
+each rank attends over its slots, and the shards meet in one max and two
+sum all-reduces, weighted so that one rank computes the bits of the path
+without a group.
 
 The float32 places of the reference are kept: attention scores are
 float32 products of the (possibly bfloat16) operands, and ``rms_norm``,
@@ -31,6 +53,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from repro_torch.distributed import collectives as C
 from repro_torch.models.common import BlockCfg, ModelCfg, RGLRUCfg, SSDCfg
 
 # --------------------------------------------------------------------------
@@ -186,6 +209,45 @@ def matmul_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 
 # --------------------------------------------------------------------------
+# Tensor-parallel regions
+# --------------------------------------------------------------------------
+
+def model_ctx(model):
+    """The context ``sharding.shard_params`` recorded on ``model`` when it
+    has a model group, else None (the path without collectives)."""
+    ctx = getattr(model, "shard_ctx", None)
+    return ctx if ctx is not None and ctx.tp_group is not None else None
+
+
+def _group(ctx):
+    return None if ctx is None else ctx.tp_group
+
+
+def _enter(x: torch.Tensor, g, sp: bool) -> torch.Tensor:
+    """The block input into this rank's region: the replicated residual
+    through ``copy_to``, the sequence-sharded one gathered."""
+    return C.all_gather(x, 1, g) if sp else C.copy_to(x, g)
+
+
+def _leave(y: torch.Tensor, g, sp: bool) -> torch.Tensor:
+    """The ranks' partial outputs summed (and sequence-sharded)."""
+    return C.reduce_scatter(y, 1, g) if sp else C.psum(y, g)
+
+
+def _local_groups(t: torch.Tensor, dim: int, first: int, count: int,
+                  per: int) -> torch.Tensor:
+    """The entries along ``dim`` that ``count`` consecutive heads from
+    ``first`` read when ``per`` heads share one (GQA's KV heads, SSD's
+    B/C groups): whole groups, one group, or one entry a head."""
+    if count % per == 0:
+        return t.narrow(dim, first // per, count // per)
+    if per % count == 0:
+        return t.narrow(dim, first // per, 1)
+    idx = torch.arange(first, first + count, device=t.device) // per
+    return t.index_select(dim, idx)
+
+
+# --------------------------------------------------------------------------
 # Norms and positional embeddings
 # --------------------------------------------------------------------------
 
@@ -193,6 +255,18 @@ def rms_norm(x: torch.Tensor, gamma: torch.Tensor, eps: float
              ) -> torch.Tensor:
     xf = x.float()
     var = xf.square().mean(-1, keepdim=True)
+    out = xf * torch.rsqrt(var + eps) * (1.0 + gamma.float())
+    return out.to(x.dtype)
+
+
+def _rms_norm_tp(x: torch.Tensor, gamma: torch.Tensor, eps: float, g
+                 ) -> torch.Tensor:
+    """:func:`rms_norm` of a tensor whose last dim is split over ``g``
+    (``gamma`` this rank's block): the mean of squares is the mean of the
+    ranks' means (equal blocks)."""
+    xf = x.float()
+    var = C.copy_to(C.psum(xf.square().mean(-1, keepdim=True), g), g) \
+        * (1.0 / C.group_size(g))
     out = xf * torch.rsqrt(var + eps) * (1.0 + gamma.float())
     return out.to(x.dtype)
 
@@ -322,35 +396,72 @@ def score_cols(skv: int) -> int:
     return 1024 if skv > 4096 and skv % 1024 == 0 else skv
 
 
+def _attend(q, k, v, q_pos, kv_pos, blk: BlockCfg, cfg: ModelCfg,
+            causal: bool):
+    if score_cols(k.shape[1]) != k.shape[1]:
+        return _chunked_sdpa(q, k, v, q_pos, kv_pos, blk.window, cfg,
+                             causal=causal)
+    bias = _mask_bias(q_pos, kv_pos, blk.window, causal=causal)
+    return _sdpa(q, k, v, bias, cfg)
+
+
 def attention(x: torch.Tensor, p: Attention, blk: BlockCfg, cfg: ModelCfg,
               *, positions: torch.Tensor, causal: bool = True,
-              xkv: Optional[torch.Tensor] = None, return_kv: bool = False):
+              xkv: Optional[torch.Tensor] = None, return_kv: bool = False,
+              ctx=None, sp: bool = False):
     """Full-sequence attention (prefill).  ``xkv`` switches to
     cross-attention (no RoPE).  ``return_kv`` also returns the rotary-
-    embedded (k, v) for the prefill cache; window blocks keep the last
-    ``window`` positions."""
-    kv_src = x if xkv is None else xkv
-    q = torch.einsum("bsd,dhk->bshk", x, p.wq)
+    embedded (k, v) for the prefill cache, every head; window blocks
+    keep the last ``window`` positions.  ``ctx``, ``sp``: tensor
+    parallelism (module docstring)."""
+    g = _group(ctx)
+    n, r = C.group_size(g), C.group_rank(g)
+    H, K = cfg.n_heads, cfg.n_kv_heads
+    head_tp, kv_tp = H % n == 0, K % n == 0
+    xs = _enter(x, g, sp)
+    # cross-attention: one node for the K and V projections' reads (their
+    # cotangents meet there first, with or without a group)
+    kv_src = xs if xkv is None else C.copy_to(xkv.view_as(xkv), g)
+    q = torch.einsum("bsd,dhk->bshk", xs, p.wq)
     k = torch.einsum("bsd,dhk->bshk", kv_src, p.wk)
     v = torch.einsum("bsd,dhk->bshk", kv_src, p.wv)
-    if cfg.qk_norm:
-        q = rms_norm(q, p.q_gamma, cfg.norm_eps)
-        k = rms_norm(k, p.k_gamma, cfg.norm_eps)
     kv_pos = positions if xkv is None else torch.arange(
         kv_src.shape[1], device=x.device)
+    S = q.shape[1]
+    local = True                # the gammas meet this rank's heads / rows
+    if head_tp:                 # (a), and (b) with K / V over head_dim
+        q_pos = positions
+        if not kv_tp:
+            k, v = C.all_gather(k, 3, g), C.all_gather(v, 3, g)
+    elif S % n == 0:            # (c) context parallel
+        q = C.all_to_all_dims(q, 1, 3, g)
+        k, v = C.all_gather(k, 3, g), C.all_gather(v, 3, g)
+        q_pos = positions.narrow(0, r * (S // n), S // n)
+    else:                       # (c) on a sequence the group does not divide
+        q, k, v = (C.gather_from(t, 3, g) for t in (q, k, v))
+        q_pos, local = positions, False
+    if cfg.qk_norm:
+        gam = (lambda t: C.copy_to(t, g)) if local else (lambda t: t)
+        q = rms_norm(q, gam(p.q_gamma), cfg.norm_eps)
+        k = rms_norm(k, gam(p.k_gamma), cfg.norm_eps)
     if blk.kind == "attn" and xkv is None:
-        q = rope(q, positions, cfg.rope_theta)
+        q = rope(q, q_pos, cfg.rope_theta)
         k = rope(k, kv_pos, cfg.rope_theta)
 
-    Skv = k.shape[1]
-    if score_cols(Skv) != Skv:
-        out = _chunked_sdpa(q, k, v, positions, kv_pos, blk.window, cfg,
-                            causal=causal)
+    if head_tp and not kv_tp:
+        Hl = H // n
+        kl = _local_groups(k, 2, r * Hl, Hl, H // K)
+        vl = _local_groups(v, 2, r * Hl, Hl, H // K)
     else:
-        bias = _mask_bias(positions, kv_pos, blk.window, causal=causal)
-        out = _sdpa(q, k, v, bias, cfg)
-    y = torch.einsum("bshk,hkd->bsd", out, p.wo)
+        kl, vl = k, v
+    out = _attend(q, kl, vl, q_pos, kv_pos, blk, cfg, causal)
+    if not head_tp:
+        out = (C.all_to_all_dims(out, 3, 1, g) if local
+               else C.scatter_to(out, 3, g))
+    y = _leave(torch.einsum("bshk,hkd->bsd", out, p.wo), g, sp)
     if return_kv:
+        if head_tp and kv_tp:
+            k, v = C.gather_from(k, 2, g), C.gather_from(v, 2, g)
         if blk.window is not None and k.shape[1] > blk.window:
             k, v = k[:, -blk.window:], v[:, -blk.window:]
         return y, (k, v)
@@ -359,24 +470,36 @@ def attention(x: torch.Tensor, p: Attention, blk: BlockCfg, cfg: ModelCfg,
 
 def attention_decode(x: torch.Tensor, p: Attention, blk: BlockCfg,
                      cfg: ModelCfg, *, cache_k: torch.Tensor,
-                     cache_v: torch.Tensor, pos: int, cross: bool = False):
+                     cache_v: torch.Tensor, pos: int, cross: bool = False,
+                     ctx=None, sp: bool = False):
     """One-token decode against a (B, W, K, hd) cache.  x: (B, 1, d).
 
     Self-attention writes the new K/V at slot ``pos`` (``pos % W`` for a
     window block's ring) in place; a window block attends to the slots
     whose position ``kv_pos`` has ``0 <= pos - kv_pos < window``.
     ``cross`` attends to every slot of a precomputed encoder K/V.
-    Returns (y, cache_k, cache_v)."""
-    W = cache_k.shape[1]
-    q = torch.einsum("bsd,dhk->bshk", x, p.wq)
+    Returns (y, cache_k, cache_v).  With a model group in ``ctx`` every
+    rank builds the whole query (and new K/V); the self-attention cache
+    holds this rank's ``W / n`` slots of a ring of ``W``
+    (``lm.init_cache``), attended and merged (module docstring); a
+    cross-attention cache is whole on every rank."""
+    g = _group(ctx)
+    n, r = C.group_size(g), C.group_rank(g)
+    H, K = cfg.n_heads, cfg.n_kv_heads
+    head_tp, kv_tp = H % n == 0, K % n == 0
+    xs = _enter(x, g, sp)
+    q = C.gather_from(torch.einsum("bsd,dhk->bshk", xs, p.wq),
+                      2 if head_tp else 3, g)
     if cfg.qk_norm:
         q = rms_norm(q, p.q_gamma, cfg.norm_eps)
-    idx = torch.arange(W, device=x.device)
+    Wl = cache_k.shape[1]
+    idx = torch.arange(Wl, device=x.device)
     if cross:
-        valid = torch.ones(W, dtype=torch.bool, device=x.device)
+        valid = torch.ones(Wl, dtype=torch.bool, device=x.device)
     else:
-        k_new = torch.einsum("bsd,dhk->bshk", x, p.wk)
-        v_new = torch.einsum("bsd,dhk->bshk", x, p.wv)
+        kd = 2 if head_tp and kv_tp else 3
+        k_new = C.gather_from(torch.einsum("bsd,dhk->bshk", xs, p.wk), kd, g)
+        v_new = C.gather_from(torch.einsum("bsd,dhk->bshk", xs, p.wv), kd, g)
         if cfg.qk_norm:
             k_new = rms_norm(k_new, p.k_gamma, cfg.norm_eps)
         if blk.kind == "attn":
@@ -384,9 +507,13 @@ def attention_decode(x: torch.Tensor, p: Attention, blk: BlockCfg,
             where = torch.full((1,), pos, device=x.device)
             q = rope(q, where, cfg.rope_theta)
             k_new = rope(k_new, where, cfg.rope_theta)
+        W = Wl * n              # the ring: this rank holds [r*Wl, (r+1)*Wl)
         slot = pos % W if blk.window is not None else pos
-        cache_k[:, slot] = k_new[:, 0].to(cache_k.dtype)
-        cache_v[:, slot] = v_new[:, 0].to(cache_v.dtype)
+        if g is None or slot // Wl == r:
+            cache_k[:, slot % Wl] = k_new[:, 0].to(cache_k.dtype)
+            cache_v[:, slot % Wl] = v_new[:, 0].to(cache_v.dtype)
+        if g is not None:
+            idx = idx + r * Wl
         if blk.window is not None:
             # slot s holds the largest position p <= pos with p % W == s
             back = (pos - idx) % W
@@ -394,15 +521,26 @@ def attention_decode(x: torch.Tensor, p: Attention, blk: BlockCfg,
         else:
             valid = idx <= pos
 
-    B, _, H, hd = q.shape
-    K = cache_k.shape[2]
-    qg = q.reshape(B, K, H // K, hd)
+    B, _, _, hd = q.shape
+    qg = q.reshape(B, cache_k.shape[2], H // cache_k.shape[2], hd)
     s = _scores(qg, cache_k, "bkgh,bskh->bkgs", hd)
     s = softcap(s, cfg.attn_softcap)
     s = s.masked_fill(~valid, -1e30)
     w = torch.softmax(s, dim=-1)
     out = torch.einsum("bkgs,bskh->bkgh", w.to(cache_v.dtype), cache_v)
-    y = torch.einsum("bshk,hkd->bsd", out.reshape(B, 1, H, hd), p.wo)
+    if g is not None and not cross:
+        # flash-decoding: this rank's softmax weighted by its share of the
+        # whole normaliser, exp(lse_r - lse) (1 on one rank, exactly)
+        lse = torch.logsumexp(s, dim=-1)
+        top = C.pmax(lse, g)
+        lse_all = torch.log(C.psum(torch.exp(lse - top), g)) + top
+        c = torch.exp(lse - lse_all)
+        out = C.psum(c[..., None] * out.float(), g).to(cache_v.dtype)
+    out = out.reshape(B, 1, H, hd)
+    if g is not None:
+        out = (out.narrow(2, r * (H // n), H // n) if head_tp
+               else out.narrow(3, r * (hd // n), hd // n))
+    y = _leave(torch.einsum("bshk,hkd->bsd", out, p.wo), g, sp)
     return y, cache_k, cache_v
 
 
@@ -418,10 +556,16 @@ class MLP(Params):
         self.weight("wo", (d_ff, d), d_ff)
 
 
-def mlp(x: torch.Tensor, p: MLP, cfg: ModelCfg) -> torch.Tensor:
+def mlp(x: torch.Tensor, p: MLP, cfg: ModelCfg, *, ctx=None,
+        sp: bool = False) -> torch.Tensor:
+    """Gated MLP; column then row parallel over a model group."""
+    grp = _group(ctx)
+    if grp is not None:
+        x = _enter(x, grp, sp)
     h = x @ p.wi
     g = x @ p.wg
-    return (ACTS[cfg.act_fn](g) * h) @ p.wo
+    y = (ACTS[cfg.act_fn](g) * h) @ p.wo
+    return y if grp is None else _leave(y, grp, sp)
 
 
 # --------------------------------------------------------------------------
@@ -506,28 +650,54 @@ def _ssd_chunk_scan(xh, a_log_dt, Bm, Cm, chunk: int, init_state=None):
 
 
 def ssd_mixer(x, p: SSD, s: SSDCfg, cfg: ModelCfg, *, conv_state=None,
-              ssm_state=None, decode: bool = False):
-    """Mamba-2 block.  Returns (out, new conv state, new SSM state)."""
-    B, S, _ = x.shape
-    H = s.d_inner // s.head_dim
-    xz = x @ p.in_xz
-    bc = x @ p.in_bc
-    dtv = (x @ p.in_dt).float()
-    xi, z = xz.chunk(2, dim=-1)
-    conv_out, new_conv_state = _causal_conv(torch.cat([xi, bc], dim=-1),
-                                            p.conv_w, conv_state)
-    conv_out = F.silu(conv_out)
-    xi = conv_out[..., :s.d_inner]
-    Bm, Cm = conv_out[..., s.d_inner:].reshape(
-        B, -1, 2 * s.n_groups, s.d_state).chunk(2, dim=2)
+              ssm_state=None, decode: bool = False, ctx=None,
+              sp: bool = False):
+    """Mamba-2 block.  Returns (out, new conv state, new SSM state).
 
-    dtv = F.softplus(dtv + p.dt_bias)
-    a_log_dt = dtv * -torch.exp(p.A_log)                 # (B,S,H) log decay
-    xi_h = xi.reshape(B, -1, H, s.head_dim).float()
+    Over a model group each rank runs its block of heads (``x`` and ``z``
+    channels of the fused ``in_xz``) with every B/C channel: its conv
+    state holds its ``x`` channels then the B/C channels, its SSM state
+    its heads."""
+    g = _group(ctx)
+    B = x.shape[0]
+    H = s.d_inner // s.head_dim
+    n, r = C.group_size(g), C.group_rank(g)
+    di, Hl = s.d_inner // n, H // n
+    if g is not None:
+        x = _enter(x, g, sp)
+    S = x.shape[1]
+    # replicated leaves read on this rank's heads: whole gradients
+    rep_ = (lambda t: t) if g is None else (lambda t: C.copy_to(t, g))
+    xz = x @ p.in_xz
+    bc = x @ rep_(p.in_bc)
+    dtv = (x @ rep_(p.in_dt)).float()
+    xi, z = xz.chunk(2, dim=-1)
+    conv_w, dt_bias, A_log, D = p.conv_w, p.dt_bias, p.A_log, p.D
+    if g is not None:
+        conv_w = rep_(conv_w)
+        conv_w = torch.cat([conv_w[:, r * di:(r + 1) * di],
+                            conv_w[:, s.d_inner:]], dim=1)
+        dtv = dtv[..., r * Hl:(r + 1) * Hl]
+        dt_bias, A_log, D = (rep_(t)[r * Hl:(r + 1) * Hl]
+                             for t in (dt_bias, A_log, D))
+    conv_out, new_conv_state = _causal_conv(torch.cat([xi, bc], dim=-1),
+                                            conv_w, conv_state)
+    conv_out = F.silu(conv_out)
+    xi = conv_out[..., :di]
+    Bm, Cm = conv_out[..., di:].reshape(
+        B, -1, 2 * s.n_groups, s.d_state).chunk(2, dim=2)
+    if g is not None:
+        per = H // s.n_groups
+        Bm = _local_groups(Bm, 2, r * Hl, Hl, per)
+        Cm = _local_groups(Cm, 2, r * Hl, Hl, per)
+
+    dtv = F.softplus(dtv + dt_bias)
+    a_log_dt = dtv * -torch.exp(A_log)                   # (B,S,H) log decay
+    xi_h = xi.reshape(B, -1, Hl, s.head_dim).float()
     xh = xi_h * dtv[..., None]
 
     if decode:
-        rep = H // s.n_groups
+        rep = Hl // Bm.shape[2]
         a = torch.exp(a_log_dt)[:, 0]                    # (B,H)
         st = ssm_state * a[..., None, None] + torch.einsum(
             "bhp,bhn->bhpn", xh[:, 0],
@@ -541,11 +711,14 @@ def ssd_mixer(x, p: SSD, s: SSDCfg, cfg: ModelCfg, *, conv_state=None,
                                            Cm.float(), chunk,
                                            init_state=ssm_state)
 
-    y = y + xi_h * p.D[:, None]                          # skip (D term)
-    y = y.reshape(B, -1, s.d_inner).to(x.dtype)
+    y = y + xi_h * D[:, None]                            # skip (D term)
+    y = y.reshape(B, -1, di).to(x.dtype)
     y = y * F.silu(z)
-    y = rms_norm(y, p.norm_g, cfg.norm_eps)
-    return y @ p.out, new_conv_state, new_ssm_state
+    if g is None:
+        y = rms_norm(y, p.norm_g, cfg.norm_eps)
+        return y @ p.out, new_conv_state, new_ssm_state
+    y = _rms_norm_tp(y, p.norm_g, cfg.norm_eps, g)
+    return _leave(y @ p.out, g, sp), new_conv_state, new_ssm_state
 
 
 # --------------------------------------------------------------------------
@@ -581,14 +754,23 @@ def _linear_scan(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 
 def rglru_mixer(x, p: RGLRU, r: RGLRUCfg, cfg: ModelCfg, *, conv_state=None,
-                h_state=None, decode: bool = False):
+                h_state=None, decode: bool = False, ctx=None,
+                sp: bool = False):
     """Real-gated LRU: h_t = a_t*h_{t-1} + sqrt(1-a_t^2)*(i_t * x_t).
-    Returns (out, new conv state, new h)."""
+    Returns (out, new conv state, new h).  Over a model group each rank
+    runs its block of channels; the gates' projections read every
+    channel of the conv output, gathered."""
+    g = _group(ctx)
+    if g is not None:
+        x = _enter(x, g, sp)
     xb, gate_y = (x @ p.in_xy).chunk(2, dim=-1)
     xc, new_conv_state = _causal_conv(xb, p.conv_w, conv_state)
 
-    rg = torch.sigmoid((xc @ p.w_r).float())
-    ig = torch.sigmoid((xc @ p.w_i).float())
+    # one node for the gates' reads of xc (a no-op view without a group),
+    # so that their gradients meet before the gated path's in both paths
+    xc_all = xc.view_as(xc) if g is None else C.all_gather(xc, 2, g)
+    rg = torch.sigmoid((xc_all @ p.w_r).float())
+    ig = torch.sigmoid((xc_all @ p.w_i).float())
     log_a = r.c_exponent * rg * F.logsigmoid(p.a_param)  # (B,S,d_rnn)
     a = torch.exp(log_a)
     gated = torch.sqrt(torch.clamp(1.0 - torch.exp(2.0 * log_a), min=1e-12)) \
@@ -604,5 +786,5 @@ def rglru_mixer(x, p: RGLRU, r: RGLRUCfg, cfg: ModelCfg, *, conv_state=None,
         hs = _linear_scan(a, gated)
         new_h = hs[:, -1]
 
-    y = hs.to(x.dtype) * F.gelu(gate_y, approximate="tanh")
-    return y @ p.out, new_conv_state, new_h
+    y = (hs.to(x.dtype) * F.gelu(gate_y, approximate="tanh")) @ p.out
+    return (y if g is None else _leave(y, g, sp)), new_conv_state, new_h

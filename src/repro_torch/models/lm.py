@@ -22,6 +22,21 @@ Entry points, with the reference's names:
 A block's decode cache is ``{"k", "v"}`` (B, W, K, hd) for attention,
 ``{"conv", "state"}`` for SSD and ``{"conv", "h"}`` for RG-LRU.
 
+Tensor parallelism: a model placed by ``sharding.shard_params`` runs
+every function above over its model group.  The vocabulary is split:
+the embedding looks up this rank's rows (other ids give zeros) and sums
+over the group; the logits are this rank's columns, and
+:func:`sharded_xent` reduces over them with one max and two sums;
+:func:`logits_from_h`, :func:`prefill` and :func:`decode_step` return
+every column.  Under ``PerfFlags.sp_residual`` (``ShardCtx.seq_sharded``)
+the residual stream between blocks holds this rank's block of positions
+(Megatron-SP), and the norms applied to it pass their gammas through
+``copy_to``.  :func:`init_cache` with the context lays out this rank's
+shard of the cache: attention slots split over the group (``ceil(W / n)``
+each, a ring of ``n`` times that), the recurrent states' channels or
+heads.  :func:`params_to_numpy` gathers the blocks to the reference's
+tree on every rank.
+
 With ``cfg.remat == "block"`` a forward that records gradients
 recomputes each repeat of the ``pattern`` in the backward
 (``torch.utils.checkpoint`` of its blocks together), as the reference's
@@ -46,8 +61,9 @@ from repro_torch.models.layers import (MLP, RGLRU, SSD, Attention, Params,
                                        attention, attention_decode, dt,
                                        init_modules, layout_to_numpy,
                                        load_tree, matmul_f32, mlp,
-                                       module_tree, rglru_mixer, rms_norm,
-                                       softcap, ssd_mixer, stacked_layout)
+                                       model_ctx, module_tree, rglru_mixer,
+                                       rms_norm, softcap, ssd_mixer,
+                                       stacked_layout)
 
 AUX_SUM = ("moe_lb_loss", "moe_z_loss", "dropped_frac")
 AUX_MAX = ("max_expert_load",)
@@ -159,39 +175,54 @@ def param_layout(model: LM) -> dict:
 def params_to_numpy(model: LM) -> dict:
     """The inverse of :func:`params_from_numpy`: the reference's tree,
     pattern leaves stacked on the leading repeat axis, as float32 numpy
-    arrays (bfloat16 leaves widened exactly)."""
-    return layout_to_numpy(param_layout(model))
+    arrays (bfloat16 leaves widened exactly).  Leaves split over ranks
+    are gathered whole (every rank calls it)."""
+    from repro_torch.distributed.sharding import gather_layout
+    return layout_to_numpy(gather_layout(param_layout(model)))
 
 
 # --------------------------------------------------------------------------
 # Decode cache
 # --------------------------------------------------------------------------
 
+def slots(blk: BlockCfg, max_len: int, n: int = 1) -> int:
+    """An attention block's decode slots on each of ``n`` ranks: the
+    ring of ``min(window, max_len)`` slots of a window block, or
+    ``max_len``, rounded up to a multiple of ``n`` and split.  A ring of
+    at least ``window`` slots under the mask ``0 <= pos - kv_pos <
+    window`` attends to the same positions whatever its size."""
+    W = min(blk.window, max_len) if blk.window else max_len
+    return -(-W // n)
+
+
 def _block_cache(blk: BlockCfg, cfg: ModelCfg, B: int, max_len: int,
-                 dtype, device) -> dict:
+                 dtype, device, n: int = 1) -> dict:
     z = lambda *shape, dtype=dtype: torch.zeros(shape, dtype=dtype,
                                                 device=device)
     if blk.kind == "attn":
-        W = min(blk.window, max_len) if blk.window else max_len
+        W = slots(blk, max_len, n)
         return {"k": z(B, W, cfg.n_kv_heads, cfg.head_dim),
                 "v": z(B, W, cfg.n_kv_heads, cfg.head_dim)}
     if blk.kind == "ssd":
         s = blk.ssd
         H = s.d_inner // s.head_dim
-        conv_ch = s.d_inner + 2 * s.n_groups * s.d_state
+        conv_ch = s.d_inner // n + 2 * s.n_groups * s.d_state
         return {"conv": z(B, s.d_conv - 1, conv_ch),
-                "state": z(B, H, s.head_dim, s.d_state,
+                "state": z(B, H // n, s.head_dim, s.d_state,
                            dtype=torch.float32)}
     if blk.kind == "rglru":
         r = blk.rglru
-        return {"conv": z(B, r.d_conv - 1, r.d_rnn),
-                "h": z(B, r.d_rnn, dtype=torch.float32)}
+        return {"conv": z(B, r.d_conv - 1, r.d_rnn // n),
+                "h": z(B, r.d_rnn // n, dtype=torch.float32)}
     raise ValueError(blk.kind)
 
 
 def init_cache(cfg: ModelCfg, B: int, max_len: int,
-               device: "str | torch.device" = "cuda") -> list[dict]:
-    return _cache(cfg, B, max_len, resolve_device(device))
+               device: "str | torch.device" = "cuda", ctx=None
+               ) -> list[dict]:
+    """The decode cache; with a model group in ``ctx``, this rank's shard
+    of it (module docstring)."""
+    return _cache(cfg, B, max_len, resolve_device(device), ctx)
 
 
 def abstract_cache(cfg: ModelCfg, B: int, max_len: int) -> list[dict]:
@@ -199,8 +230,10 @@ def abstract_cache(cfg: ModelCfg, B: int, max_len: int) -> list[dict]:
     return _cache(cfg, B, max_len, torch.device("meta"))
 
 
-def _cache(cfg: ModelCfg, B: int, max_len: int, device) -> list[dict]:
-    return [_block_cache(b, cfg, B, max_len, dt(cfg.param_dtype), device)
+def _cache(cfg: ModelCfg, B: int, max_len: int, device, ctx=None
+           ) -> list[dict]:
+    n = 1 if ctx is None or ctx.tp_group is None else ctx.tp_size
+    return [_block_cache(b, cfg, B, max_len, dt(cfg.param_dtype), device, n)
             for b in cfg.all_blocks()]
 
 
@@ -249,52 +282,66 @@ def _merge_aux(acc: dict, new: dict) -> dict:
 
 def apply_block(h, p: Block, blk: BlockCfg, cfg: ModelCfg, *,
                 positions=None, cache=None, pos=None, decode: bool = False,
-                collect_cache: bool = False):
+                collect_cache: bool = False, ctx=None, sp: bool = False):
     """One residual block.  Returns (h, new_cache, aux).
 
     ``collect_cache`` (prefill) emits the decode cache of a full-sequence
-    pass (attention K/V, SSD conv + state, RG-LRU conv + h)."""
+    pass (attention K/V, SSD conv + state, RG-LRU conv + h).  ``ctx``,
+    ``sp``: tensor parallelism, ``h`` sequence-sharded under ``sp``
+    (module docstring)."""
     aux: dict = {}
-    x = rms_norm(h, p.norm1, cfg.norm_eps)
+    g = None if ctx is None else ctx.tp_group
+    # under sp a norm sees this rank's positions: its gamma's gradient is
+    # a partial sum
+    gam = (lambda t: C.copy_to(t, g)) if sp else (lambda t: t)
+    kw = {} if ctx is None else {"ctx": ctx, "sp": sp}
+    x = rms_norm(h, gam(p.norm1), cfg.norm_eps)
     new_cache = cache
     if blk.kind == "attn":
         if decode:
             y, ck, cv = attention_decode(x, p.attn, blk, cfg,
                                          cache_k=cache["k"],
-                                         cache_v=cache["v"], pos=pos)
+                                         cache_v=cache["v"], pos=pos, **kw)
             new_cache = {"k": ck, "v": cv}
         elif collect_cache:
             y, (ck, cv) = attention(x, p.attn, blk, cfg,
-                                    positions=positions, return_kv=True)
+                                    positions=positions, return_kv=True,
+                                    **kw)
             new_cache = {"k": ck, "v": cv}
         else:
-            y = attention(x, p.attn, blk, cfg, positions=positions)
+            y = attention(x, p.attn, blk, cfg, positions=positions, **kw)
     elif blk.kind == "ssd":
         y, conv, state = ssd_mixer(
             x, p.ssd, blk.ssd, cfg, decode=decode,
             conv_state=None if cache is None else cache["conv"],
-            ssm_state=None if cache is None else cache["state"])
+            ssm_state=None if cache is None else cache["state"], **kw)
         if cache is not None or collect_cache:
             new_cache = {"conv": conv, "state": state}
     else:
         y, conv, hst = rglru_mixer(
             x, p.rglru, blk.rglru, cfg, decode=decode,
             conv_state=None if cache is None else cache["conv"],
-            h_state=None if cache is None else cache["h"])
+            h_state=None if cache is None else cache["h"], **kw)
         if cache is not None or collect_cache:
             new_cache = {"conv": conv, "h": hst}
     if blk.post_norms:
-        y = rms_norm(y, p.norm1_post, cfg.norm_eps)
+        y = rms_norm(y, gam(p.norm1_post), cfg.norm_eps)
     h = h + y
 
     if blk.moe is not None or blk.d_ff:
-        x = rms_norm(h, p.norm2, cfg.norm_eps)
+        x = rms_norm(h, gam(p.norm2), cfg.norm_eps)
         if blk.moe is not None:
-            y, aux = moe_lib.moe(x, p.moe, blk.moe, cfg, decode=decode)
+            # routing reads every position: the block is replicated
+            if sp:
+                x = C.gather_from(x, 1, g)
+            y, aux = moe_lib.moe(x, p.moe, blk.moe, cfg, decode=decode,
+                                 ctx=ctx)
+            if sp:
+                y = C.scatter_to(y, 1, g)
         else:
-            y = mlp(x, p.mlp, cfg)
+            y = mlp(x, p.mlp, cfg, **kw)
         if blk.post_norms:
-            y = rms_norm(y, p.norm2_post, cfg.norm_eps)
+            y = rms_norm(y, gam(p.norm2_post), cfg.norm_eps)
         h = h + y
     return h, new_cache, aux
 
@@ -303,10 +350,25 @@ def apply_block(h, p: Block, blk: BlockCfg, cfg: ModelCfg, *,
 # Forward, prefill, decode
 # --------------------------------------------------------------------------
 
+def lookup(embed: torch.Tensor, tokens: torch.Tensor, ctx=None):
+    """Rows of ``embed`` for ``tokens``; with a model group in ``ctx``,
+    ``embed`` holds this rank's block of rows, other ids look up zeros,
+    and the ranks' rows are summed."""
+    g = None if ctx is None else ctx.tp_group
+    if g is None:
+        return embed[tokens]
+    n_loc = embed.shape[0]
+    local = tokens - ctx.tp_rank * n_loc
+    inside = (local >= 0) & (local < n_loc)
+    rows = embed[local.clamp(0, n_loc - 1)]
+    return C.psum(torch.where(inside[..., None], rows, 0.0), g)
+
+
 def embed_tokens(model: LM, tokens: torch.Tensor,
                  frontend_embeds: Optional[torch.Tensor] = None):
     cfg = model.cfg
-    h = model.embed[tokens].to(dt(cfg.compute_dtype))
+    h = lookup(model.embed, tokens, model_ctx(model)).to(
+        dt(cfg.compute_dtype))
     if cfg.emb_scale:
         # sqrt(d) in float32, then in the compute dtype (a host scalar)
         h = h * torch.sqrt(torch.tensor(float(cfg.d_model))).to(h.dtype)
@@ -319,47 +381,117 @@ def _blocks(model: LM):
     return zip(model.blocks, model.cfg.all_blocks())
 
 
-def _apply_blocks(h, aux: dict, blocks, cfg: ModelCfg, positions):
+def _apply_blocks(h, aux: dict, blocks, cfg: ModelCfg, positions, ctx, sp):
     for p, blk in blocks:
-        h, _, a = apply_block(h, p, blk, cfg, positions=positions)
+        h, _, a = apply_block(h, p, blk, cfg, positions=positions, ctx=ctx,
+                              sp=sp)
         aux = _merge_aux(aux, a)
     return h, aux
 
 
-def forward(model: LM, tokens: torch.Tensor,
-            frontend_embeds: Optional[torch.Tensor] = None):
-    """Full-sequence forward -> (final hidden states, aux)."""
-    cfg = model.cfg
+def residual_in(h: torch.Tensor, ctx):
+    """(the residual stream, whether it is sequence-sharded)."""
+    if ctx is not None and ctx.seq_sharded(h.shape[1]):
+        return C.scatter_to(h, 1, ctx.tp_group), True
+    return h, False
+
+
+def _final_norm(h, gamma, cfg, ctx, sp: bool):
+    return rms_norm(h, C.copy_to(gamma, ctx.tp_group) if sp else gamma,
+                    cfg.norm_eps)
+
+
+def _forward(model: LM, tokens: torch.Tensor, frontend_embeds=None):
+    """(final hidden states, aux, sequence-sharded?)."""
+    cfg, ctx = model.cfg, model_ctx(model)
     h = embed_tokens(model, tokens, frontend_embeds)
     positions = torch.arange(h.shape[1], device=h.device)
+    h, sp = residual_in(h, ctx)
     aux = _zero_aux(h.device)
     blocks = list(_blocks(model))
     P, J = len(cfg.prefix), len(cfg.pattern)
-    h, aux = _apply_blocks(h, aux, blocks[:P], cfg, positions)
+    h, aux = _apply_blocks(h, aux, blocks[:P], cfg, positions, ctx, sp)
     # the reference checkpoints its scan body, one repeat of the pattern
     remat = cfg.remat == "block" and torch.is_grad_enabled()
     for r in range(cfg.n_repeats):
         group = blocks[P + r * J:P + (r + 1) * J]
         if remat:
             h, aux = checkpoint(_apply_blocks, h, aux, group, cfg,
-                                positions, use_reentrant=False)
+                                positions, ctx, sp, use_reentrant=False)
         else:
-            h, aux = _apply_blocks(h, aux, group, cfg, positions)
+            h, aux = _apply_blocks(h, aux, group, cfg, positions, ctx, sp)
     h, aux = _apply_blocks(h, aux, blocks[P + cfg.n_repeats * J:], cfg,
-                           positions)
-    return rms_norm(h, model.final_norm, cfg.norm_eps), aux
+                           positions, ctx, sp)
+    return _final_norm(h, model.final_norm, cfg, ctx, sp), aux, sp
+
+
+def forward(model: LM, tokens: torch.Tensor,
+            frontend_embeds: Optional[torch.Tensor] = None):
+    """Full-sequence forward -> (final hidden states, aux)."""
+    h, aux, sp = _forward(model, tokens, frontend_embeds)
+    if sp:
+        h = C.gather_from(h, 1, model_ctx(model).tp_group)
+    return h, aux
+
+
+def vocab_logits(model, w: torch.Tensor, h: torch.Tensor, softcap_=None,
+                 sp: bool = False) -> torch.Tensor:
+    """float32 ``h @ w``: with a model group, ``w`` holds this rank's
+    columns and so do the logits; ``h`` (sequence-sharded under ``sp``)
+    enters the group's region."""
+    ctx = model_ctx(model)
+    if ctx is not None:
+        g = ctx.tp_group
+        h = C.all_gather(h, 1, g) if sp else C.copy_to(h, g)
+    B, S, d = h.shape
+    logits = matmul_f32(h.reshape(B * S, d), w).reshape(B, S, -1)
+    return softcap(logits, softcap_)
+
+
+def _unembed(model: LM) -> torch.Tensor:
+    return model.embed.t() if model.cfg.tie_embeddings else model.unembed
+
+
+def gather_vocab(model, logits: torch.Tensor) -> torch.Tensor:
+    """Every rank's columns of vocab-split ``logits`` (the logits as they
+    are without a model group)."""
+    ctx = model_ctx(model)
+    return logits if ctx is None else C.gather_from(logits, -1,
+                                                    ctx.tp_group)
 
 
 def logits_from_h(model: LM, h: torch.Tensor) -> torch.Tensor:
-    cfg = model.cfg
-    w = model.embed.t() if cfg.tie_embeddings else model.unembed
-    B, S, d = h.shape
-    logits = matmul_f32(h.reshape(B * S, d), w).reshape(B, S, -1)
-    return softcap(logits, cfg.final_softcap)
+    """float32 logits of every vocabulary column for hidden states ``h``
+    (whole on every rank)."""
+    return gather_vocab(model, vocab_logits(model, _unembed(model), h,
+                                            model.cfg.final_softcap))
+
+
+class _VocabLSE(torch.autograd.Function):
+    """``logsumexp`` over logits whose last dim is split over a group:
+    the max and the sum of exponentials meet in all-reduces.  It computes
+    ``torch.logsumexp``'s own steps (max, masked where infinite; the sum
+    of ``exp(x - max)``; log plus max) and its backward ``g * exp(x -
+    lse)``, so that one rank gives its bits."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        m = C.pmax(x.amax(-1, keepdim=True), group)
+        m = m.masked_fill(m.abs() == float("inf"), 0.0)
+        total = C.psum((x - m).exp().sum(-1), group)
+        lse = total.log() + m[..., 0]
+        ctx.save_for_backward(x, lse)
+        return lse
+
+    @staticmethod
+    def backward(ctx, g):
+        x, lse = ctx.saved_tensors
+        return g[..., None] * (x - lse[..., None]).exp(), None
 
 
 def sharded_xent(logits: torch.Tensor, labels: torch.Tensor,
-                 weights: Optional[torch.Tensor] = None, group=None):
+                 weights: Optional[torch.Tensor] = None, group=None,
+                 tp_group=None):
     """(mean cross entropy, mean squared log-normaliser) of float32
     ``logits`` (B, S, V) against ``labels`` (B, S), weighted.  The label's
     log-likelihood is a gather where the reference sums a one-hot product:
@@ -372,14 +504,24 @@ def sharded_xent(logits: torch.Tensor, labels: torch.Tensor,
     With a data-parallel ``group`` the rows are this rank's share of the
     global batch and the means are the global batch's: the weight sum is
     summed over the group, and each returned value is this rank's term of
-    the global mean (the terms of all ranks sum to it)."""
+    the global mean (the terms of all ranks sum to it).
+
+    With a model group ``tp_group`` the logits are this rank's block of
+    the vocabulary (columns ``[rank * V_loc, (rank + 1) * V_loc)``): the
+    log-normaliser meets in a max and a sum over the group, and each
+    rank gathers the labels that fall in its block (others, and labels
+    outside [0, V), add 0) before one more sum."""
     logits = logits.float()
     V = logits.shape[-1]
-    lse = torch.logsumexp(logits, dim=-1)
     labels = labels.long()
+    if tp_group is None:
+        lse = torch.logsumexp(logits, dim=-1)
+    else:
+        lse = _VocabLSE.apply(logits, tp_group)
+        labels = labels - C.group_rank(tp_group) * V
     inside = (labels >= 0) & (labels < V)
     ll = logits.gather(-1, labels.clamp(0, V - 1)[..., None])[..., 0]
-    nll = lse - torch.where(inside, ll, 0.0)
+    nll = lse - C.psum(torch.where(inside, ll, 0.0), tp_group)
     if weights is None:
         weights = torch.ones_like(nll)
     denom = torch.clamp(C.all_reduce_(weights.sum(), group), min=1.0)
@@ -400,11 +542,12 @@ def loss_fn(model: LM, batch: dict, *, z_weight: float = 1e-4, group=None):
     group, are the global objective's (the MoE aux terms are replicated
     values whose collectives pass cotangents through,
     ``collectives.psum``)."""
-    cfg = model.cfg
-    h, aux = forward(model, batch["tokens"], batch.get("frontend_embeds"))
-    logits = logits_from_h(model, h)
+    cfg, ctx = model.cfg, model_ctx(model)
+    h, aux, sp = _forward(model, batch["tokens"],
+                          batch.get("frontend_embeds"))
+    logits = vocab_logits(model, _unembed(model), h, cfg.final_softcap, sp)
     loss, z_loss = sharded_xent(logits, batch["labels"], batch.get("weights"),
-                                group)
+                                group, None if ctx is None else ctx.tp_group)
     total = loss + z_weight * z_loss
     m = next((b.moe for b in cfg.all_blocks() if b.moe is not None), None)
     if m is not None:
@@ -422,15 +565,18 @@ def prefill(model: LM, tokens: torch.Tensor,
     cache has ``init_cache``'s layout at max_len == S (window blocks keep
     the last ``window`` positions); the serving engine places it into its
     decode buffers."""
-    cfg = model.cfg
+    cfg, ctx = model.cfg, model_ctx(model)
     h = embed_tokens(model, tokens, frontend_embeds)
     positions = torch.arange(h.shape[1], device=h.device)
+    h, sp = residual_in(h, ctx)
     cache: list[Any] = []
     for p, blk in _blocks(model):
         h, c, _ = apply_block(h, p, blk, cfg, positions=positions,
-                              collect_cache=True)
+                              collect_cache=True, ctx=ctx, sp=sp)
         cache.append(c)
-    h = rms_norm(h, model.final_norm, cfg.norm_eps)
+    h = _final_norm(h, model.final_norm, cfg, ctx, sp)
+    if sp:
+        h = C.gather_from(h, 1, ctx.tp_group)
     return logits_from_h(model, h[:, -1:])[:, 0], cache
 
 
@@ -438,11 +584,15 @@ def decode_step(model: LM, tokens: torch.Tensor, cache: list, pos: int):
     """One-token decode.  tokens: (B, 1); ``pos`` the index of the token
     (the cache holds positions before it).  Attention caches are updated
     in place.  Returns (logits (B, V), cache)."""
-    cfg = model.cfg
+    cfg, ctx = model.cfg, model_ctx(model)
     h = embed_tokens(model, tokens)
+    h, sp = residual_in(h, ctx)
     new_cache = []
     for (p, blk), c in zip(_blocks(model), cache):
-        h, c, _ = apply_block(h, p, blk, cfg, cache=c, pos=pos, decode=True)
+        h, c, _ = apply_block(h, p, blk, cfg, cache=c, pos=pos, decode=True,
+                              ctx=ctx, sp=sp)
         new_cache.append(c)
-    h = rms_norm(h, model.final_norm, cfg.norm_eps)
+    h = _final_norm(h, model.final_norm, cfg, ctx, sp)
+    if sp:
+        h = C.gather_from(h, 1, ctx.tp_group)
     return logits_from_h(model, h)[:, 0], new_cache

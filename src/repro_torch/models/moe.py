@@ -16,8 +16,17 @@ Then the dispatch buffer goes to the experts' owners by one
 ``all_to_all`` and comes back the same way, ``counts`` are summed and
 ``mean_prob``, ``z_loss`` and ``dropped_frac`` averaged over the group.
 Without a group the block holds every expert and runs no collective.
-The reference's ``sp_dispatch`` and tensor-parallel (``tp > 1``)
-branches are not ported.
+
+Tensor parallelism (the reference's ``tp`` axis): on a model placed by
+``sharding.shard_params`` each rank holds its block of every expert's
+(and the shared experts') feed-forward dim; routing is replicated, the
+expert FFN is one Megatron region (``copy_to`` in, ``psum`` out).  With
+``sp_dispatch`` (``PerfFlags.moe_sp_dispatch``) each rank ships its
+``d / tp`` slice of every routed token through the all-to-all, gathers
+``d`` for the FFN, reduce-scatters its output back to its slice, and the
+combined rows are gathered over ``d`` at the end; the gate weights meet
+the slices through ``copy_to``.  Without a model group ``sp_dispatch``
+slices nothing (the reference's ``tp = 1``).
 """
 
 from __future__ import annotations
@@ -91,13 +100,15 @@ def shard_experts(model, group) -> int:
 
 
 def moe(x: torch.Tensor, p: MoE, m: MoECfg, cfg: ModelCfg, *,
-        decode: bool = False, sp_dispatch: bool = False):
+        decode: bool = False, sp_dispatch: bool | None = None, ctx=None):
     """MoE block.  x: (B, S, d) (this rank's rows under expert
-    parallelism).  Returns (y, aux dict of 0-d tensors)."""
-    if sp_dispatch:
-        raise NotImplementedError("sp_dispatch slices tokens over the "
-                                  "model axis: tensor parallelism is not "
-                                  "ported")
+    parallelism; every position, replicated over a model group in
+    ``ctx``).  ``sp_dispatch`` defaults to ``ctx``'s flag.  Returns (y,
+    aux dict of 0-d tensors)."""
+    tp = None if ctx is None else ctx.tp_group
+    if sp_dispatch is None:
+        sp_dispatch = ctx is not None and ctx.flags.moe_sp_dispatch
+    sp_dispatch = sp_dispatch and tp is not None
     group = getattr(p, "ep_group", None)
     ep = C.group_size(group)
     B, S, d = x.shape
@@ -138,31 +149,41 @@ def moe(x: torch.Tensor, p: MoE, m: MoECfg, cfg: ModelCfg, *,
            "max_expert_load": counts.max(), "mean_expert_load": counts.mean(),
            "dropped_frac": C.pmean(1.0 - keep.float().mean(), group)}
 
-    send = xf.new_zeros((E * C3 + 1, d))
-    send[slot] = xf[tok]
+    # each rank of a model group ships its d-slice of a token (sp_dispatch)
+    payload = C.scatter_to(xf, 1, tp) if sp_dispatch else xf
+    dd = payload.shape[1]
+    send = payload.new_zeros((E * C3 + 1, dd))
+    send[slot] = payload[tok]
     if group is None:
-        xe = send[:-1].reshape(E, C3, d)
+        xe = send[:-1].reshape(E, C3, dd)
     else:
         # (ep_dest, E_loc, C3) blocks out; (ep_src, E_loc, C3) blocks in
         recv = C.all_to_all(send[:-1], group)
-        xe = recv.reshape(ep, E_loc, C3, d).transpose(0, 1) \
-                 .reshape(E_loc, ep * C3, d)
+        xe = recv.reshape(ep, E_loc, C3, dd).transpose(0, 1) \
+                 .reshape(E_loc, ep * C3, dd)
+    xe = C.all_gather(xe, 2, tp) if sp_dispatch else C.copy_to(xe, tp)
 
-    # ---- expert FFN --------------------------------------------------------
+    # ---- expert FFN (its ff dim split over a model group) -----------------
     h = torch.einsum("ecd,edf->ecf", xe, p.wi)
     g = torch.einsum("ecd,edf->ecf", xe, p.wg)
     ye = torch.einsum("ecf,efd->ecd", act(g) * h, p.wo)
+    ye = C.reduce_scatter(ye, 2, tp) if sp_dispatch else C.psum(ye, tp)
 
     # ---- return path -------------------------------------------------------
     if group is not None:
-        ye = C.all_to_all(ye.reshape(E_loc, ep, C3, d).transpose(0, 1)
-                          .reshape(E * C3, d), group)
-    back = torch.cat([ye.reshape(E * C3, d), ye.new_zeros((1, d))])
-    gate_sorted = gate.reshape(T * k)[order]
-    contrib = back[slot] * (gate_sorted * keep)[:, None].to(back.dtype)
-    y = back.new_zeros((T, d)).index_add(0, tok, contrib)
+        ye = C.all_to_all(ye.reshape(E_loc, ep, C3, dd).transpose(0, 1)
+                          .reshape(E * C3, dd), group)
+    back = torch.cat([ye.reshape(E * C3, dd), ye.new_zeros((1, dd))])
+    gate_sorted = gate.reshape(T * k)[order] * keep
+    if sp_dispatch:
+        gate_sorted = C.copy_to(gate_sorted, tp)
+    contrib = back[slot] * gate_sorted[:, None].to(back.dtype)
+    y = back.new_zeros((T, dd)).index_add(0, tok, contrib)
+    if sp_dispatch:
+        y = C.gather_from(y, 1, tp)
 
     # ---- shared (always-on) experts ---------------------------------------
     if m.n_shared_experts:
-        y = y + (act(xf @ p.s_wg) * (xf @ p.s_wi)) @ p.s_wo
+        xs = C.copy_to(xf, tp)
+        y = y + C.psum((act(xs @ p.s_wg) * (xs @ p.s_wi)) @ p.s_wo, tp)
     return y.reshape(B, S, d).to(x.dtype), aux

@@ -8,9 +8,10 @@
 * asynchronous: :func:`save_async` copies the state to the host, then
   writes the same files from a thread while training goes on;
 * elastic: ``restore(..., shardings=)`` places each leaf on a target
-  device, so a checkpoint written at one world size resumes at another
-  (every leaf is whole: data-parallel ranks replicate the state, and
-  expert-sharded leaves are gathered before a save).
+  device and, for a leaf split over ranks, keeps this rank's block, so a
+  checkpoint written on one mesh resumes on another (every leaf is
+  saved whole: data-parallel ranks replicate the state, and expert- and
+  tensor-parallel blocks are gathered before a save).
 
 The layout is the JAX package's, so a checkpoint written by either package
 restores in the other.  A state nests dicts, lists and tuples of numpy
@@ -68,8 +69,11 @@ def _flatten_targets(shardings, like, prefix: tuple = ()):
         return out
     if like is None:
         return []
+    if isinstance(shardings, tuple):
+        device, splits = shardings
+        return [("/".join(prefix), (torch.device(device), splits))]
     return [("/".join(prefix),
-             None if shardings is None else torch.device(shardings))]
+             None if shardings is None else (torch.device(shardings), ()))]
 
 
 def _unflatten(like, leaves):
@@ -193,7 +197,9 @@ def restore(ckpt_dir: str, like_state, *, shardings=None,
     leaf its device).  ``shardings``: a matching tree of target devices
     (None leaves keep the like-leaf's), the placement on the current
     mesh — elastic reshard on load; on a data-parallel mesh every leaf is
-    replicated, so a target is this rank's device.  Returns (state, step,
+    replicated, so a target is this rank's device.  A target may also be
+    ``(device, splits)``: the leaf is cut to this rank's block
+    (``distributed.sharding.slice_leaf``).  Returns (state, step,
     extra)."""
     step = step if step is not None else latest_step(ckpt_dir)
     if step is None:
@@ -211,7 +217,11 @@ def restore(ckpt_dir: str, like_state, *, shardings=None,
                      if a.dtype == np.dtype("V2") else torch.from_numpy(a))
                 dtype = (like.dtype if isinstance(like, torch.Tensor)
                          else t.dtype)
-                device = target if target is not None else like.device
+                device, splits = target if target is not None else (
+                    like.device, ())
+                if splits:
+                    from repro_torch.distributed.sharding import slice_leaf
+                    t = slice_leaf(t, splits)
                 out.append(t.to(device=device, dtype=dtype))
             else:
                 dt = np.asarray(like).dtype

@@ -23,18 +23,24 @@ Checkpoints have the reference's layout (``params``, ``opt``, ``step``,
 ``err`` with ``compress_grads``; ``data_step`` in ``meta.json``), so a
 run checkpointed by either package resumes in the other.
 
-Data parallelism: on a ``(data, 1)`` mesh (``launch.mesh.make_mesh`` over
-the process group) every rank holds the same parameters and takes rows
-``[r * B / n, (r + 1) * B / n)`` of each global batch.  The exact step is
+Data and tensor parallelism: on a ``(data, model)`` mesh
+(``launch.mesh.make_mesh`` over the process group) the ranks of a data
+row hold the same parameters and take rows ``[r * B / n, (r + 1) * B /
+n)`` of each global batch (``r`` the data coordinate); along the model
+axis each rank holds its block of every split leaf
+(``sharding.shard_params``, tensor parallelism) and all see the same
+rows.  The exact step is
 the reference's GSPMD step: the loss and gradients of the global batch
 (``step.make_train_step`` with the data group), with MoE experts sharded
 over the group (``moe.shard_experts``).  With ``compress_grads`` each rank
 takes its local loss and gradients, the gradients meet in the int8
 compressed mean and the metrics in a mean (the reference's
 ``make_dp_compressed_step``).  A fault hook must raise on every rank at
-the same step, so that all ranks restore together; only rank 0 writes
-checkpoints, and every rank waits for the write.  A ``"model"`` axis
-above 1 (tensor parallelism) raises.
+the same step, so that all ranks restore together.  A checkpoint holds
+every leaf whole in the reference's layout: split leaves (and their
+optimizer state) are gathered, rank 0 writes, and every rank waits for
+the write; a restore slices each leaf for the current mesh, so a run
+resumes on another ``(data, model)`` shape (elastic).
 """
 
 from __future__ import annotations
@@ -53,7 +59,6 @@ from repro_torch.launch.mesh import mesh_of
 from repro_torch.models import encdec, lm
 from repro_torch.models import moe as moe_lib
 from repro_torch.models.encdec import EncDecCfg
-from repro_torch.models.layers import map_layout
 from repro_torch.train import checkpoint as ckpt_lib
 from repro_torch.train import step as step_lib
 from repro_torch.train.optim import Optimizer
@@ -103,6 +108,7 @@ def make_dp_compressed_step(model, optimizer: Optimizer, group=None
         raise ValueError("the compressed step runs each replica's local "
                          "math: experts must not be sharded")
     inv_n = 1.0 / collectives.group_size(group)
+    kw = step_lib.split_kw(model)
 
     def mean_of(g, e):
         mean, new_err = collectives.compressed_psum_mean(g, e, group)
@@ -120,7 +126,7 @@ def make_dp_compressed_step(model, optimizer: Optimizer, group=None
             metrics = {k: collectives.all_reduce_(v.clone(), group) * inv_n
                        for k, v in metrics.items()}
         new_params, new_opt = optimizer.update(
-            g_mean, state["opt"], params, state["step"])
+            g_mean, state["opt"], params, state["step"], **kw)
         return ({"params": new_params, "opt": new_opt, "err": state["err"],
                  "step": state["step"] + 1}, metrics)
     return step
@@ -131,8 +137,8 @@ class Trainer:
     ``cfg`` from ``init_params(cfg, tcfg.seed, device)`` (or resumes).
     ``mesh`` is None, a ``launch.mesh.Mesh`` or a mesh shape such as the
     launcher's ``--mesh-shape`` (laid out over the process group): a
-    ``(data, 1)`` mesh trains data-parallel (module docstring).  Runs on
-    the card unless ``device="cpu"``."""
+    ``(data, model)`` mesh trains data- and tensor-parallel (module
+    docstring).  Runs on the card unless ``device="cpu"``."""
 
     def __init__(self, cfg, mesh, optimizer: Optimizer, data,
                  tcfg: TrainerConfig, *, device: "str | torch.device" =
@@ -154,10 +160,12 @@ class Trainer:
         cfg, tcfg, group = self.cfg, self.tcfg, self.group
         lib = encdec if isinstance(cfg, EncDecCfg) else lm
         self.model = lib.init_params(cfg, tcfg.seed, self.device)
-        if group is not None:
+        if dist.is_initialized() and dist.get_world_size() > 1:
             self._check_replicated()
-            if not tcfg.compress_grads:
-                moe_lib.shard_experts(self.model, group)
+        if self.ctx.tp_group is not None:
+            sharding.shard_params(self.model, self.ctx)
+        if group is not None and not tcfg.compress_grads:
+            moe_lib.shard_experts(self.model, group)
         self.state = step_lib.init_state(self.model, self.opt)
         if tcfg.compress_grads:
             self.state["err"] = collectives.init_error_feedback(
@@ -168,12 +176,16 @@ class Trainer:
             self.step_fn = step_lib.make_train_step(
                 self.model, self.opt,
                 num_microbatches=tcfg.num_microbatches, group=group)
-        # the stacked leaves' expert axis, where experts are sharded
-        self._ep_axis = map_layout(
-            lambda x: (1 if isinstance(x, tuple) else 0)
-            if getattr(x[0] if isinstance(x, tuple) else x, "ep_group",
-                       None) is not None else None,
-            lib.param_layout(self.model))
+        # each state leaf's splits over ranks (gathered for a checkpoint),
+        # None when every rank holds every leaf whole
+        splits = step_lib.leaf_splits(self.model)
+        self._splits = None
+        if step_lib.any_split(splits):
+            self._splits = {"params": splits, "step": (),
+                            "opt": self.opt.state_shards(
+                                self.state["params"], splits)}
+            if "err" in self.state:
+                self._splits["err"] = splits
         start = 0
         self.data_step = 0
         if tcfg.resume and tcfg.ckpt_dir and \
@@ -184,52 +196,41 @@ class Trainer:
 
     def _check_replicated(self):
         """Every rank drew the same parameters (the same seed): the
-        float64 sum of every leaf is equal across the group."""
+        float64 sum of every leaf is equal across the world."""
+        world = dist.group.WORLD
         sums = torch.stack([p.detach().double().sum()
                             for p in self.model.parameters()])
-        hi = collectives.all_reduce_(sums.clone(), self.group,
-                                     dist.ReduceOp.MAX)
-        lo = collectives.all_reduce_(sums.clone(), self.group,
-                                     dist.ReduceOp.MIN)
+        hi = collectives.all_reduce_(sums.clone(), world, dist.ReduceOp.MAX)
+        lo = collectives.all_reduce_(sums.clone(), world, dist.ReduceOp.MIN)
         if not torch.equal(hi, lo):
             raise RuntimeError("the ranks' initial parameters differ")
 
+    @property
+    def lead(self) -> bool:
+        """This rank logs and writes checkpoints: the first of its data
+        group and of its model group."""
+        return self.rank == 0 and self.ctx.tp_rank == 0
+
     def _log(self, msg: str):
-        if self.rank == 0:
+        if self.lead:
             print(msg)
 
-    def _map_ep(self, fn, state: dict) -> dict:
-        """``fn(leaf, expert axis)`` over the parameters and the AdamW
-        state trees of ``state`` (the axis None where not sharded)."""
-        axes = self._ep_axis
-        out = dict(state)
-        out["params"] = tree_map(fn, state["params"], axes)
-        out["opt"] = {k: tree_map(fn, v, axes)
-                      for k, v in state["opt"].items()}
-        return out
-
     def _whole_state(self) -> dict:
-        """The state with expert-sharded leaves gathered over the group."""
-        if not any(a is not None for a in tree_leaves(self._ep_axis)):
+        """The state with every split leaf gathered (every rank calls
+        it)."""
+        if self._splits is None:
             return self.state
-        return self._map_ep(
-            lambda t, ax: t if ax is None else collectives.gather_islands(
-                t, group=self.group, axis=ax, tiled=True), self.state)
+        return tree_map(sharding.gather_leaf, self.state, self._splits)
 
     def _restore(self) -> int:
         """Load the latest checkpoint into the state's tensors (through
-        the host, so the device never holds two copies; expert-sharded
-        leaves take this rank's block) -> its step."""
+        the host, so the device never holds two copies; a split leaf
+        takes this rank's block) -> its step."""
         like = tree_map(lambda t: torch.empty((), dtype=t.dtype), self.state)
-        saved, step, extra = ckpt_lib.restore(self.tcfg.ckpt_dir, like)
-
-        def block(t, ax):
-            if ax is None:
-                return t
-            e = t.shape[ax] // self.n_dp
-            return t.narrow(ax, self.rank * e, e)
-        if any(a is not None for a in tree_leaves(self._ep_axis)):
-            saved = self._map_ep(block, saved)
+        shardings = (None if self._splits is None else
+                     tree_map(lambda _, sp: ("cpu", sp), like, self._splits))
+        saved, step, extra = ckpt_lib.restore(self.tcfg.ckpt_dir, like,
+                                              shardings=shardings)
         with torch.no_grad():
             tree_map(lambda dst, src: dst.copy_(src), self.state, saved)
         self.data_step = extra.get("data_step", step)
@@ -237,12 +238,13 @@ class Trainer:
 
     def _save(self, step: int):
         state = self._whole_state()
-        if self.rank == 0:
+        if self.lead:
             ckpt_lib.save(self.tcfg.ckpt_dir, step, state,
                           extra={"data_step": self.data_step},
                           keep=self.tcfg.keep)
-        if self.group is not None:
-            dist.barrier(group=self.group)
+        if dist.is_initialized() and (self.group is not None
+                                      or self.ctx.tp_group is not None):
+            dist.barrier()
 
     def _put_batch(self, batch_np: dict) -> dict:
         """This rank's rows of the global batch on the device."""

@@ -20,6 +20,15 @@ over the group.  Experts sharded by ``moe.shard_experts`` get their whole
 gradient through the MoE block's ``all_to_all`` and are not reduced; the
 clipping norm sums their squares over the group.  With ``M > 1``
 microbatch ``i`` is each rank's ``i``-th slice of its rows.
+
+With tensor parallelism (a model placed by ``sharding.shard_params``)
+every rank of the model group computes the same loss, and every leaf's
+gradient is whole on each rank: this rank's block of a split leaf, all
+of a replicated one (the layers' ``copy_to`` sums the partial terms).
+So the data group's sum is the only reduction; the optimizer sees
+:func:`leaf_splits` (the clipping norm sums a split leaf's squares over
+its groups, Adafactor reduces over them).
+
 :func:`state_spec_tree` gives the training state's sharding specs as data
 (``distributed.sharding``).
 """
@@ -32,14 +41,13 @@ import torch
 
 import torch.distributed as dist
 
-from repro_torch.distributed import collectives as C
 from repro_torch.distributed import sharding
 from repro_torch.models import encdec, lm
 from repro_torch.models.encdec import EncDec, EncDecCfg
 from repro_torch.models.layers import dt, map_layout
 from repro_torch.train.optim import Optimizer
 from repro_torch.train.schedules import f32_reciprocal
-from repro_torch.tree import tree_leaves, tree_map
+from repro_torch.tree import tree_map
 
 
 def _lib(model):
@@ -102,6 +110,26 @@ def expert_sharded(model) -> dict:
     return map_layout(one, _lib(model).param_layout(model))
 
 
+def leaf_splits(model) -> dict:
+    """The parameter tree's ``sharding.Split`` tuple of each leaf (empty
+    for a leaf every rank holds whole), dims in the tree's stacked
+    layout."""
+    return sharding.layout_splits(_lib(model).param_layout(model))
+
+
+def split_kw(model) -> dict:
+    """``{"shards": leaf_splits(model)}`` when a leaf is split over ranks,
+    else ``{}``: the optimizers' keyword."""
+    splits = leaf_splits(model)
+    return {"shards": splits} if any_split(splits) else {}
+
+
+def any_split(splits) -> bool:
+    if isinstance(splits, dict):
+        return any(any_split(v) for v in splits.values())
+    return bool(splits)
+
+
 def reduce_grads(grads, sharded, group):
     """The gradients with the replicated leaves summed over ``group``;
     expert-sharded leaves are whole already.  (A gradient may come out of
@@ -116,23 +144,6 @@ def reduce_grads(grads, sharded, group):
             dist.all_reduce(g, group=group)
         return g
     return tree_map(one, grads, sharded)
-
-
-def sharded_norm(sharded, group):
-    """The clipping norm of a gradient tree whose ``sharded`` leaves are
-    blocks of a leaf over ``group``: their squared sums are summed over
-    the group, then every leaf's is added in tree order."""
-    def norm(grads):
-        sq = tree_map(lambda g: g.float().square().sum(), grads)
-        flags = tree_leaves(sharded)
-        leaves = tree_leaves(sq)
-        part = [x for x, f in zip(leaves, flags) if f]
-        if part:
-            summed = iter(C.all_reduce_(torch.stack(part), group).unbind())
-            leaves = [next(summed) if f else x
-                      for x, f in zip(leaves, flags)]
-        return torch.sqrt(sum(leaves))
-    return norm
 
 
 def microbatches(batch: dict, M: int):
@@ -158,8 +169,7 @@ def train_step_parts(model, optimizer: Optimizer, *,
     params = param_tree(model)
     M = num_microbatches
     sharded = expert_sharded(model)
-    kw = ({"norm_fn": sharded_norm(sharded, group)}
-          if any(tree_leaves(sharded)) else {})
+    kw = split_kw(model)
 
     def _update(state, grads, metrics):
         grads = reduce_grads(grads, sharded, group)
@@ -267,7 +277,8 @@ def init_state(model, optimizer: Optimizer) -> dict:
     from ``init_params(cfg, seed, device)`` or ``params_from_numpy``."""
     params = param_tree(model)
     device = next(model.parameters()).device
-    return {"params": params, "opt": optimizer.init(params),
+    return {"params": params, "opt": optimizer.init(params,
+                                                    **split_kw(model)),
             "step": torch.zeros((), dtype=torch.int32, device=device)}
 
 

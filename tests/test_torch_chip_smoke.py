@@ -337,3 +337,41 @@ def test_data_parallel_phases_pass_over_a_one_rank_group(tmp_path, capsys):
     assert not c["held_to_phase_s_snapshots"]
     assert d["restore_bit_identical_to_sync_save"]
     assert len(d["step_s_during_write"]) + len(d["step_s_after_write"]) == 3
+
+
+def test_tensor_parallel_phases_pass_over_a_one_rank_group(tmp_path, capsys):
+    """Phase (J) on the CPU over a one-rank gloo group, with the smoke
+    configs in place of the full ones: the engine over the model group
+    serves phase (x)'s tokens (stood in for by the same launcher's engine
+    without a group), the launcher's trainer on a (1, 1) mesh is
+    bit-identical to the one without a group, the collectives of a decode
+    step and a train step equal the count derived from the code, and the
+    PerfFlags and the other block kinds hold."""
+    from repro_torch.launch import serve
+    smoke = _chip_smoke()
+    serve_args = dict(batch=2, prompt_len=12, new_tokens=4)
+    _, eng, prompts = serve.build(serve.parse_args(
+        ["--arch", smoke.SERVE_ARCH, "--batch", "2", "--prompt-len", "12",
+         "--new-tokens", "4", "--device", "cpu", "--smoke"]))
+    serve_x = {"tokens": eng.generate(prompts), "decode_ms": 1.0}
+    smoke.tensor_parallel_phases(
+        device="cpu", card="cpu", ckpt_root=tmp_path / "tp",
+        serve_x=serve_x, full=False, serve_args=serve_args,
+        train=dict(batch=2, seq=32, lr=1e-2), steps=2)
+    lines = [json.loads(l) for l in capsys.readouterr().out.splitlines()
+             if l.startswith("{")]
+    assert [l["phase"] for l in lines] == [
+        "tp_serve", "tp_train", "tp_collectives", "tp_flags"]
+    a, b, c, d = lines
+    assert a["backend"] == "gloo" and a["tokens_equal_phase_x"]
+    assert b["loss_and_params_bit_identical_to_no_group"]
+    assert len(b["losses"]) == 2
+    # gemma2-smoke: 4 blocks, all repeated under remat
+    assert c["expected_from_code"] == {
+        "decode": {"psum": 17, "gather_from": 13, "pmax": 4},
+        "train": {"psum": 19, "pmax": 1, "copy_to.grad": 9}}
+    assert c["measured"] == c["expected_from_code"]
+    assert [r["config"] for r in d["full_width_bit_identical"]] == [
+        "gemma2-smoke", "olmoe-smoke"]
+    assert [r["config"] for r in d["smoke_card_vs_host"]] == [
+        "olmoe-smoke", "mamba2-smoke", "rg-smoke"]

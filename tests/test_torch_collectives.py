@@ -113,8 +113,25 @@ def test_make_mesh_over_ranks(tmp_path):
         assert res["ctx_dp_size"] == res["ctx_dp_group_size"] == 2
         refused = res["refused"]
         assert "has 2" in refused["(1, 1)"]
-        assert "model axis" in refused["(2, 2)"]
+        assert "needs 4 ranks" in refused["(2, 2)"]
         assert "has 2" in refused["(4, 1)"]
+
+
+def test_tensor_parallel_meshes_over_four_ranks(tmp_path):
+    """(2, 2) and (1, 4) over 4 ranks: rank ``d * m + j`` sits at data
+    coordinate ``d`` and model coordinate ``j``; each axis has a group of
+    its size, and the context's data and model groups are those."""
+    out = run_ranks("mesh", 4, base=tmp_path)
+    for r, res in enumerate(out):
+        for shape in ((2, 2), (1, 4)):
+            got = res["tp"][str(shape)]
+            d, m = shape
+            assert got["sizes"] == {"data": d, "model": m}
+            assert got["coords"] == {"data": r // m, "model": r % m}
+            assert (got["data_group_size"], got["model_group_size"]) \
+                == (d, m)
+            assert (got["ctx_dp_group_size"], got["ctx_tp_group_size"],
+                    got["ctx_tp_rank"]) == (d, m, r % m)
 
 
 def test_one_device_mesh_needs_no_group():
@@ -125,7 +142,7 @@ def test_one_device_mesh_needs_no_group():
     assert mesh_of(None) is None and mesh_of(m) is m
     with pytest.raises(ValueError, match="needs 2 ranks"):
         make_mesh((2, 1), ("data", "model"))
-    with pytest.raises(ValueError, match="model axis"):
+    with pytest.raises(ValueError, match="needs 4 ranks"):
         make_mesh((1, 4), ("data", "model"))
 
 

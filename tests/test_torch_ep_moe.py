@@ -79,15 +79,22 @@ def test_one_rank_group_is_bit_identical(ref_loss, tmp_path):
 
 
 def test_sp_dispatch_is_not_ported():
+    """``sp_dispatch`` slices the payload over the model group; without
+    one (the reference's ``tp = 1``) it slices nothing: the bits of the
+    call without it.  Over model groups it is held in
+    ``tests/test_torch_tp_train.py``."""
     from repro_torch.configs import registry
     from repro_torch.models import lm, moe
     cfg = registry.get("olmoe-1b-7b").smoke()
     model = lm.init_params(cfg, 0, "cpu")
     blk = next(b for b in cfg.all_blocks() if b.moe is not None)
     p = next(m for m in model.modules() if isinstance(m, moe.MoE))
-    with pytest.raises(NotImplementedError, match="tensor parallelism"):
-        moe.moe(torch.zeros(1, 2, cfg.d_model), p, blk.moe, cfg,
-                sp_dispatch=True)
+    x = torch.randn(1, 6, cfg.d_model, generator=torch.Generator()
+                    .manual_seed(0))
+    y, aux = moe.moe(x, p, blk.moe, cfg, sp_dispatch=True)
+    y0, aux0 = moe.moe(x, p, blk.moe, cfg)
+    assert torch.equal(y, y0)
+    assert all(torch.equal(aux[k], aux0[k]) for k in aux0)
 
 
 @pytest.fixture(scope="module")
