@@ -244,9 +244,14 @@ Phases, each printing one JSON line:
                   <g, d> along seeded random directions d (N(0, 0.02^2)
                   per entry: over all leaves, then the embedding, the
                   attention, the MLP and the norm leaves alone) against
-                  the central difference of the loss (Richardson-
-                  extrapolated from eps and eps / 2, eps chosen so the
-                  loss moves by 1e-3), within ``GRAD_CHECK_RTOL``.
+                  the central difference of the loss, within
+                  ``GRAD_CHECK_RTOL``.  The difference is Richardson-
+                  extrapolated from steps h and h / 2, over h = eps /
+                  2**k, k = 0 to 6, eps the step at which the loss moves
+                  by 1e-3 at first order; of those, the estimate that
+                  agrees best with the one at the next larger step
+                  (Ridders' choice: between truncation at large steps
+                  and the float32 loss's roundoff at small ones).
   (C) lm_train_families — the nine decoder-only smoke configs and
                   whisper's ``encdec.loss_fn``, float32, on the card and
                   on the host from the same weights: loss, metrics and
@@ -356,6 +361,18 @@ Phases, each printing one JSON line:
                   mamba2's and recurrentgemma's smoke configs on the card
                   over the group, with and without the flags, against the
                   host.  No ported kernel may launch.
+  (K) init      — the LM weights from the JAX package's key: full-width
+                  gemma2-2b in bf16 drawn from ``PRNGKey(0)`` on the card
+                  (``lm.init_params``: the reference's ``truncated_normal``
+                  on the port's threefry, in chunks), its seconds and peak
+                  bytes beside the model's own; the host draws again every
+                  leaf of the first pattern repeat and of the last block,
+                  and the first and last 2**22 elements of ``embed`` from
+                  their offsets: bit for bit.  The same for olmoe-1b-7b at
+                  phase (E)'s 6 of 16 layers, holding every block's
+                  float32 router and the ends of ``embed`` and
+                  ``unembed``.  Phases (x), (A), (I) and (J) start from
+                  these weights.  No ported kernel may launch.
 
 Then a ``{"kernels": [...]}`` line, the card's name and power limit as
 nvidia-smi reports them, and a last line ``{"ok": true, "device": ...}``.
@@ -428,7 +445,7 @@ LM_ARCH = "gemma2-2b"
 LM_TRAIN = dict(steps=8, batch=2, seq=1024, lr=1e-3)         # (A)
 LM_TRACE_STEPS = 2                    # (A): steps under the profiler
 GRAD_CHECK = dict(batch=1, seq=512, seed=0, scale=0.02,      # (B)
-                  loss_change=1e-3)
+                  loss_change=1e-3, halvings=6)
 RESUME = dict(steps=12, kill=8, fault=6, ckpt_every=4)       # (D)
 BOUND_MOE_REPEATS = 6                 # (E): olmoe's 16 layers cut to fit
 BOUND_STEPS = 5                       # (E): timed steps after a warm-up
@@ -451,6 +468,10 @@ ASYNC_CKPT = dict(save_at=4, steps=8)  # (I.d): steps before and after
 # phase (J): tensor parallelism over a one-rank model group
 TP_STEPS = 2                          # (J.b): steps of phase (A)'s cell
 TP_SMOKE = ("olmoe-1b-7b", "mamba2-1.3b", "recurrentgemma-2b")   # (J.d)
+# phase (K): the weights from the reference's key, card against host
+INIT_SEED = 0                         # (K): PRNGKey(0), as (x), (A), (I), (J)
+INIT_EDGE = 1 << 22                   # (K): embed elements held at each end
+INIT_PEAK_LIMIT = 20e9                # (K): bytes allocated by one init
 
 # stated tolerances
 GRAD_CHECK_RTOL = 1e-2                # (B) <g, d> vs the central difference
@@ -2048,14 +2069,20 @@ def lm_train_phases(*, device, card: str, ckpt_root, full: bool = True,
                   for (k, g), (_, d) in zip(paths(grads), paths(direction))
                   if pick(k))
         eps = grad_check["loss_change"] / max(abs(dot), 1e-30)
+        steps = [eps / 2 ** k for k in range(grad_check["halvings"] + 1)]
         central = [(loss_at(h, pick) - loss_at(-h, pick)) / (2 * h)
-                   for h in (eps, eps / 2)]
-        # Richardson: the central difference's eps^2 term cancels
-        fd = (4 * central[1] - central[0]) / 3
+                   for h in steps]
+        # Richardson: each pair's h^2 term cancels; Ridders: take the
+        # estimate closest to its neighbour at the larger step
+        rich = [(4 * b - a) / 3 for a, b in zip(central, central[1:])]
+        k = min(range(1, len(rich)),
+                key=lambda i: abs(rich[i] - rich[i - 1]))
+        fd = rich[k]
         rel = abs(fd - dot) / max(abs(dot), 1e-30)
         checks[name] = {"directional_derivative": dot,
                         "central_difference": fd, "eps": eps,
-                        "central_at_eps_and_half": central,
+                        "step": steps[k], "steps": steps,
+                        "central": central, "richardson": rich,
                         "rel_err": rel}
         require(rel <= GRAD_CHECK_RTOL,
                 f"(B) {name}: <g, d> {dot} vs central difference {fd} "
@@ -3370,6 +3397,132 @@ def tensor_parallel_phases(*, device, card: str, ckpt_root, serve_x: dict,
             f"{launches}")
 
 
+def init_phase(*, device, card: str, full: bool = True,
+               edge: int = INIT_EDGE) -> dict:
+    """Phase (K): the LM weights from the reference's key on the card, held
+    to the host's draw (see the module docstring).  ``full=False`` (the
+    tests' rehearsal on the CPU) draws the smoke configs, the host standing
+    in for the card.  Returns the emitted record."""
+    import dataclasses
+
+    import torch
+    from repro_torch.configs import registry
+    from repro_torch.core import prng
+    from repro_torch.core.hlo_cost import ported_kernels
+    from repro_torch.device import resolve_device
+    from repro_torch.models import lm
+    from repro_torch.models.layers import INIT_CHUNK, _init
+
+    dev = resolve_device(device)
+    on_card = dev.type == "cuda"
+    counted = ported_kernels()
+    for fn in counted.values():
+        fn.launches = 0
+    key = prng.PRNGKey(INIT_SEED)
+
+    def bits(t):
+        t = t.detach().cpu().contiguous()
+        return t.view(torch.int16 if t.element_size() == 2 else torch.int32)
+
+    def draw(cfg, whole) -> dict:
+        """``cfg``'s weights from ``key`` on the card, timed and peaked;
+        then the host draws the leaves ``whole(block, path)`` selects
+        whole, and the first and last ``edge`` elements of the model's own
+        leaves (``embed``, ``unembed``) from their offsets."""
+        if on_card:
+            torch.cuda.synchronize()
+            held = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        model = lm.init_params(cfg, key, device)
+        if on_card:
+            torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        model_bytes = sum(p.numel() * p.element_size()
+                          for p in model.parameters())
+        peak = (torch.cuda.max_memory_allocated() - held if on_card
+                else "not measured")
+        t0 = time.perf_counter()
+        leaves = elements = 0
+        for i, (m, kg) in enumerate(lm.draw_order(model, key)):
+            blk = i - 1                     # the model's own leaves first
+            for path, leaf, fan_in in m.weights():
+                k = kg()
+                flat = leaf.view(-1)
+                if blk < 0:
+                    spans = sorted({0, max(flat.numel() - edge, 0)})
+                elif whole(blk, path):
+                    spans = [0]
+                else:
+                    continue
+                for s in spans:
+                    n = flat.numel() if blk >= 0 else min(edge,
+                                                          flat.numel() - s)
+                    host = torch.empty(n, dtype=leaf.dtype)
+                    _init(host, k, fan_in, s)
+                    require(torch.equal(bits(flat[s:s + n]), bits(host)),
+                            f"(K) {cfg.name} {'' if blk < 0 else blk} "
+                            f"{path}[{s}:{s + n}]: the card's draw differs "
+                            f"from the host's")
+                    leaves, elements = leaves + 1, elements + n
+        row = {"config": cfg.name, "param_dtype": cfg.param_dtype,
+               "n_repeats": cfg.n_repeats, "parameters": sum(
+                   p.numel() for p in model.parameters()),
+               "init_s": init_s, "model_bytes": model_bytes,
+               "peak_bytes_less_held": peak,
+               "peak_over_model_bytes": (peak / model_bytes if on_card
+                                         else "not measured"),
+               "host_checked": {"leaf_spans": leaves, "elements": elements,
+                                "host_s": time.perf_counter() - t0}}
+        del model
+        if on_card:
+            torch.cuda.empty_cache()
+            require(peak < INIT_PEAK_LIMIT,
+                    f"(K) {cfg.name}: init peak {peak} bytes")
+        return row
+
+    t_phase = time.perf_counter()
+    # one chunk's draw alone: its peak is what INIT_CHUNK trades for speed
+    if on_card:
+        torch.cuda.synchronize()
+        held = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    n = INIT_CHUNK if full else edge
+    draw_chunk = prng.truncated_normal(key, -2.0, 2.0, (n,), dev)
+    if on_card:
+        torch.cuda.synchronize()
+    chunk = {"elements": n, "s": time.perf_counter() - t0}
+    if on_card:
+        peak = torch.cuda.max_memory_allocated() - held
+        chunk.update(peak_bytes_less_held=peak,
+                     peak_bytes_per_element=peak / n)
+    del draw_chunk
+    gentry, oentry = registry.get(LM_ARCH), registry.get("olmoe-1b-7b")
+    gcfg = gentry.config if full else gentry.smoke()
+    ocfg = oentry.config if full else oentry.smoke()
+    if full:
+        ocfg = dataclasses.replace(ocfg, n_repeats=BOUND_MOE_REPEATS)
+    P, J = len(gcfg.prefix), len(gcfg.pattern)
+    last = len(gcfg.all_blocks()) - 1
+    rows = [draw(gcfg, lambda b, path: P <= b < P + J or b == last),
+            draw(ocfg, lambda b, path: path.endswith("router"))]
+    launches = {k: fn.launches for k, fn in counted.items()}
+    require(not any(launches.values()),
+            f"(K) the init launched a ported kernel: {launches}")
+    rec = {"phase": "init", "card": card, "seed": INIT_SEED,
+           "chunk": chunk, "edge_elements": edge,
+           "checked": {"gemma2": "every leaf of the first pattern repeat "
+                                 "and of the last block, embed's ends",
+                       "olmoe": "every block's float32 router, embed's "
+                                "and unembed's ends"},
+           "configs": rows, "ported_kernel_launches": launches,
+           "peak_limit_bytes": INIT_PEAK_LIMIT,
+           "phase_wall_s": time.perf_counter() - t_phase}
+    emit(rec)
+    return rec
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -4515,6 +4668,10 @@ def main() -> int:
     tensor_parallel_phases(device=DEVICE, card=card,
                            ckpt_root=build.BUILD_DIR / "ckpt" / "tp",
                            serve_x=serve_x)
+
+    # ------------------ (K) the weights from the reference's key
+    torch.cuda.empty_cache()
+    init_phase(device=DEVICE, card=card)
 
     emit({"kernels": [mm, wc, fa, em1, sdk]})
     print(card, flush=True)

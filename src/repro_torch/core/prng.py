@@ -15,7 +15,9 @@ reference runs on):
   under ``1.0``'s exponent, minus ``1.0``) and float32 :func:`normal`
   (the trainer's weight init; see there for how close it comes);
 * float32 :func:`uniform_f32` on ``[minval, maxval)``, :func:`gumbel` and
-  :func:`categorical` (the serving engine's temperature sampling).
+  :func:`categorical` (the serving engine's temperature sampling);
+* float32 :func:`truncated_normal` (the LM stack's weight init) through
+  XLA's float32 ``erf`` (:func:`_erf`) and ``erf_inv``.
 
 Torch's unsigned types support few operations, so every 32-bit word is
 carried in ``int64`` holding a value in ``[0, 2**32)``: additions are
@@ -26,7 +28,10 @@ integers, and only the bulk draws run on the requested device, so the
 host and the card draw the same bits.
 
 :func:`draw_streams` hashes many (key, count) streams in one pass, so a
-generation's draws cost one threefry pass on the card.
+generation's draws cost one threefry pass on the card.  The element draws
+take a ``start``: they return elements ``[start, start + prod(shape))``
+of the flat draw (the threefry of the flat iota does not depend on the
+shape), so a large leaf is drawn in chunks with the one-pass draw's bits.
 """
 
 from __future__ import annotations
@@ -43,24 +48,29 @@ _ONE_BITS = 0x3FF0000000000000          # float64 1.0
 _INT32_MIN, _INT32_MAX = -2 ** 31, 2 ** 31 - 1
 
 
-def _rotl(v: torch.Tensor, r: int) -> torch.Tensor:
-    return ((v << r) | (v >> (32 - r))) & MASK
-
-
 def threefry2x32(k1, k2, x1, x2):
     """The threefry2x32 hash of count words ``(x1, x2)`` under key words
     ``(k1, k2)``: 20 rounds with a key injection after every four, as
     JAX's unrolled lowering.  Arguments are ``int64`` tensors (or Python
     ints) holding uint32 values; they broadcast together."""
     ks = (k1, k2, k1 ^ k2 ^ _PARITY)
+    # y0 and y1 are new tensors (or ints) of one shape: the rounds update
+    # them in place (on the host each new large tensor costs page faults)
     y0 = (x1 + ks[0]) & MASK
     y1 = (x2 + ks[1]) & MASK
     for i in range(5):
         for r in _ROTATIONS[i % 2]:
-            y0 = (y0 + y1) & MASK
-            y1 = _rotl(y1, r) ^ y0
-        y0 = (y0 + ks[(i + 1) % 3]) & MASK
-        y1 = (y1 + ks[(i + 2) % 3] + (i + 1)) & MASK
+            y0 += y1
+            y0 &= MASK
+            hi = y1 << r
+            y1 >>= 32 - r
+            y1 |= hi
+            y1 &= MASK
+            y1 ^= y0
+        y0 += ks[(i + 1) % 3]
+        y0 &= MASK
+        y1 += ks[(i + 2) % 3] + (i + 1)
+        y1 &= MASK
     return y0, y1
 
 
@@ -103,21 +113,29 @@ def fold_in(key, data: int) -> torch.Tensor:
     return torch.tensor(fold_in_words(key, data), dtype=torch.int64)
 
 
-def draw_streams(keys, sizes, device=None):
+def draw_streams(keys, sizes, device=None, start: int = 0):
     """Hash ``len(sizes)`` streams in one pass: stream ``s`` is the
     partitionable threefry of ``keys[s]`` (a ``(n, 2)`` tensor or a list
-    of pairs) over the iota of ``sizes[s]``.  Returns the flat ``(bits1,
-    bits2)`` words of all streams, stream after stream, on ``device``."""
+    of pairs) over the iota ``[start, start + sizes[s])``.  Returns the
+    flat ``(bits1, bits2)`` words of all streams, stream after stream, on
+    ``device``."""
     device = torch.device(device or "cpu")
     sizes = [int(n) for n in sizes]
     total = sum(sizes)
-    kd = torch.as_tensor(keys, dtype=torch.int64).reshape(-1, 2).to(device)
+    kd = torch.as_tensor(keys, dtype=torch.int64).reshape(-1, 2)
+    if len(sizes) == 1:         # one key: its words broadcast as scalars
+        idx = torch.arange(start, start + total, dtype=torch.int64,
+                           device=device)
+        k1, k2 = kd[0].tolist()
+        return threefry2x32(k1, k2, idx >> 32, idx & MASK)
+    kd = kd.to(device)
     counts = torch.tensor(sizes, dtype=torch.int64, device=device)
-    start = torch.cumsum(counts, 0) - counts
+    first = torch.cumsum(counts, 0) - counts
     sid = torch.repeat_interleave(
         torch.arange(len(sizes), device=device), counts,
         output_size=total)
-    idx = torch.arange(total, dtype=torch.int64, device=device) - start[sid]
+    idx = torch.arange(total, dtype=torch.int64, device=device) \
+        - first[sid] + int(start)
     return threefry2x32(kd[sid, 0], kd[sid, 1], idx >> 32, idx & MASK)
 
 
@@ -165,11 +183,13 @@ def _randint_from(higher, lower, minval: int, maxval: int):
     return (v - 2 ** 31).to(torch.int32)
 
 
-def random_bits(key: torch.Tensor, bit_width: int, shape, device=None):
+def random_bits(key: torch.Tensor, bit_width: int, shape, device=None,
+                start: int = 0):
     """``jax.random.bits``-style raw draws: 32-bit ones as int64 values in
-    [0, 2**32), 64-bit ones as the int64 with the draw's bit pattern."""
+    [0, 2**32), 64-bit ones as the int64 with the draw's bit pattern
+    (elements from flat index ``start`` on)."""
     shape = tuple(int(s) for s in shape)
-    b1, b2 = draw_streams([_words(key)], [math.prod(shape)], device)
+    b1, b2 = draw_streams([_words(key)], [math.prod(shape)], device, start)
     if bit_width == 32:
         return (b1 ^ b2).reshape(shape)
     if bit_width == 64:
@@ -225,14 +245,15 @@ def _f32(v: float, like: torch.Tensor) -> torch.Tensor:
 
 def _fma(a, b, c) -> torch.Tensor:
     """float32 ``a * b + c`` as XLA contracts it into one FMA: the product
-    exact in float64, the sum rounded to float32 (through float64)."""
-    return (a.double() * b.double() + c.double()).float()
+    exact in float64, the sum rounded to float32 (through float64).  An
+    operand may come in float64 already (a float32 value widened once)."""
+    return torch.addcmul(c.double(), a.double(), b.double()).float()
 
 
 def _poly(x: torch.Tensor, coeffs) -> torch.Tensor:
-    p = torch.zeros_like(x)
+    p, xd = torch.zeros_like(x), x.double()
     for c in coeffs:
-        p = _fma(p, x, _f32(c, x))
+        p = _fma(p, xd, _f32(c, x))
     return p
 
 
@@ -248,14 +269,14 @@ def _log_cephes(x: torch.Tensor) -> torch.Tensor:
     e = e - low.float()
     x = (m - 1.0) + torch.where(low, m, torch.zeros_like(m))
     x2 = x * x
-    x3 = x2 * x
+    xd, x3 = x.double(), (x2 * x).double()
     p = _LOG_P
-    y = _fma(x, _f32(p[0], x), _f32(p[1], x))
-    y1 = _fma(x, _f32(p[3], x), _f32(p[4], x))
-    y2 = _fma(x, _f32(p[6], x), _f32(p[7], x))
-    y = _fma(y, x, _f32(p[2], x))
-    y1 = _fma(y1, x, _f32(p[5], x))
-    y2 = _fma(y2, x, _f32(p[8], x))
+    y = _fma(xd, _f32(p[0], x), _f32(p[1], x))
+    y1 = _fma(xd, _f32(p[3], x), _f32(p[4], x))
+    y2 = _fma(xd, _f32(p[6], x), _f32(p[7], x))
+    y = _fma(y, xd, _f32(p[2], x))
+    y1 = _fma(y1, xd, _f32(p[5], x))
+    y2 = _fma(y2, xd, _f32(p[8], x))
     y = _fma(y, x3, y1)
     y = _fma(y, x3, y2)
     y = _fma(y, x3, _f32(_LOG_Q1, x) * e)
@@ -278,11 +299,12 @@ def _erf_inv(x: torch.Tensor) -> torch.Tensor:
     # float32 sqrt on CUDA is not correctly rounded; the float64 root,
     # rounded once to float32, is (on every device)
     w = torch.where(lt, w - 2.5, torch.sqrt(w.double()).float() - 3.0)
-    coeff = lambda i: torch.where(lt, _f32(_ERFINV_W_LT_5[i], x),
-                                  _f32(_ERFINV_W_GE_5[i], x))
+    wd = w.double()
+    coeff = lambda i: torch.where(lt, _f32(_ERFINV_W_LT_5[i], x).double(),
+                                  _f32(_ERFINV_W_GE_5[i], x).double())
     p = coeff(0)
     for i in range(1, len(_ERFINV_W_LT_5)):
-        p = _fma(p, w, coeff(i))
+        p = _fma(p, wd, coeff(i))
     return torch.where(x.abs() == 1.0,
                        x * torch.finfo(torch.float32).max, p * x)
 
@@ -310,15 +332,67 @@ def normal(key: torch.Tensor, shape, device=None) -> torch.Tensor:
     return _f32(float(np.float32(np.sqrt(2.0))), u) * _erf_inv(u)
 
 
+# --------------------------------------------------- float32 truncated normal
+# XLA's float32 ``Erf`` as its CPU backend emits it: ``x`` clamped to
+# [-3.7439213, 3.7439213], then an odd rational in ``x``, numerator and
+# denominator each a Horner chain of FMAs in ``x * x`` (float32
+# constants, highest degree first).
+_ERF_CLAMP = 3.7439212799072266
+_ERF_ALPHA = (0.00022905065270606428, 0.0034082909114658833,
+              0.050955694168806076, 0.18520832061767578, 1.1283791065216064)
+_ERF_BETA = (-1.1791603071742429e-07, 2.354796561121475e-05,
+             0.0010179625824093819, 0.01407046988606453,
+             0.11098504811525345, 0.4974692463874817, 1.0)
+_SQRT2_F32 = float(np.float32(np.sqrt(2.0)))
+# XLA compiles ``x / sqrt2`` as a product with the float32 reciprocal
+_RSQRT2_F32 = float(np.float32(1.0) / np.float32(np.sqrt(2.0)))
+
+
+def _erf(x: torch.Tensor) -> torch.Tensor:
+    """XLA's float32 ``erf``, its FMAs contracted."""
+    x = torch.clamp(x, -_ERF_CLAMP, _ERF_CLAMP)
+    x2 = x * x
+    p = _fma(x2, _f32(_ERF_ALPHA[0], x), _f32(_ERF_ALPHA[1], x))
+    for c in _ERF_ALPHA[2:]:
+        p = _fma(p, x2, _f32(c, x))
+    q = _fma(x2, _f32(_ERF_BETA[0], x), _f32(_ERF_BETA[1], x))
+    for c in _ERF_BETA[2:]:
+        q = _fma(q, x2, _f32(c, x))
+    return (x * p) / q
+
+
+def _nextafter_f32(v: float, toward: float) -> float:
+    return float(np.nextafter(np.float32(v), np.float32(toward)))
+
+
+def truncated_normal(key, lower: float, upper: float, shape, device=None,
+                     start: int = 0) -> torch.Tensor:
+    """``jax.random.truncated_normal(key, lower, upper, shape)`` in float32
+    (elements from flat index ``start`` on), step by step as JAX computes
+    it: ``a = erf(lower / sqrt2)``, ``b = erf(upper / sqrt2)`` in float32,
+    ``u`` uniform on ``[a, b)``, ``sqrt2 * erf_inv(u)``, clamped to
+    ``(nextafter(lower, inf), nextafter(upper, -inf))``.  Every step is a
+    correctly rounded float32 or float64 operation, so the card draws the
+    host's bits."""
+    lo, hi = float(np.float32(lower)), float(np.float32(upper))
+    bounds = torch.tensor([lo, hi], dtype=torch.float32)
+    a, b = _erf(bounds * _f32(_RSQRT2_F32, bounds)).tolist()
+    u = uniform_f32(key, shape, a, b, device, start)
+    out = _f32(_SQRT2_F32, u) * _erf_inv(u)
+    return torch.clamp(out, _nextafter_f32(lo, np.inf),
+                       _nextafter_f32(hi, -np.inf))
+
+
 # ------------------------------------------------- float32 uniform, Gumbel
 def uniform_f32(key: torch.Tensor, shape, minval: float = 0.0,
-                maxval: float = 1.0, device=None) -> torch.Tensor:
+                maxval: float = 1.0, device=None,
+                start: int = 0) -> torch.Tensor:
     """``jax.random.uniform(key, shape, jnp.float32, minval, maxval)``: 23
     random mantissa bits under ``1.0``'s exponent, minus 1, scaled and
     shifted with XLA's fused multiply-add, then clamped below at
-    ``minval``."""
+    ``minval`` (elements from flat index ``start`` on)."""
     shape = tuple(int(s) for s in shape)
-    bits = random_bits(key, 32, shape, device)
+    bits = random_bits(key, 32, shape, device, start)
     f = ((bits >> 9) | 0x3F800000).to(torch.int32).view(torch.float32) - 1.0
     lo, hi = _f32(minval, f), _f32(maxval, f)
     return torch.maximum(lo, _fma(f, hi - lo, lo))

@@ -3,8 +3,10 @@
   PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma2-2b \\
       --batch 4 --prompt-len 32 --new-tokens 16 [--smoke] [--device cpu]
 
-Weights come from ``init_params(cfg, seed, device)``; prompts are drawn
-from ``np.random.default_rng(seed)``.  Runs on the card unless
+Weights come from ``init_params(cfg, prng.PRNGKey(seed), device)``, the
+JAX package's weights for the same ``--seed``; prompts are drawn from
+``np.random.default_rng(seed)``, as the JAX package's launcher draws
+them.  Runs on the card unless
 ``--device cpu``.
 """
 
@@ -16,6 +18,7 @@ import time
 import numpy as np
 
 from repro_torch.configs import registry
+from repro_torch.core import prng
 from repro_torch.models import lm
 from repro_torch.serve.engine import Engine, ServeConfig
 
@@ -39,7 +42,7 @@ def build(args: argparse.Namespace):
     if entry.is_encdec:
         raise SystemExit("enc-dec serving: see examples/serve_batched.py")
     cfg = entry.smoke() if args.smoke else entry.config
-    model = lm.init_params(cfg, args.seed, args.device)
+    model = lm.init_params(cfg, prng.PRNGKey(args.seed), args.device)
     eng = Engine(cfg, model,
                  ServeConfig(max_new_tokens=args.new_tokens,
                              temperature=args.temperature, seed=args.seed),

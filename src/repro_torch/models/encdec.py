@@ -35,12 +35,13 @@ import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.core import prng
 from repro_torch.device import resolve_device
 from repro_torch.distributed import collectives as C
 from repro_torch.distributed.collectives import all_reduce_
 from repro_torch.models.common import BlockCfg, ModelCfg
-from repro_torch.models.layers import (MLP, Attention, Params, attention,
-                                       attention_decode, dt, init_modules,
+from repro_torch.models.layers import (MLP, Attention, KeyGen, Params,
+                                       attention, attention_decode, dt,
                                        layout_to_numpy, load_tree, mlp,
                                        model_ctx, rms_norm, stacked_layout)
 from repro_torch.models.lm import (gather_vocab, lookup, residual_in,
@@ -110,6 +111,12 @@ class DecBlock(EncBlock):
         self.const("norm_x", torch.zeros(cfg.d_model))
         self.xattn = Attention(cfg.mc, dtype, device)
 
+    def weights(self):
+        """The reference's call order: ``attn``, ``xattn``, ``mlp``."""
+        for cname in ("attn", "xattn", "mlp"):
+            for name, t, fan_in in getattr(self, cname).weights():
+                yield f"{cname}.{name}", t, fan_in
+
 
 class EncDec(Params):
     def __init__(self, cfg: EncDecCfg, device):
@@ -125,12 +132,21 @@ class EncDec(Params):
         self.const("dec_norm", torch.zeros(cfg.d_model))
 
 
-def init_params(cfg: EncDecCfg, seed: int = 0,
+def init_params(cfg: EncDecCfg, key=0,
                 device: "str | torch.device" = "cuda") -> EncDec:
-    """An :class:`EncDec` with the reference's shapes and scales, drawn
-    from a ``torch.Generator`` seeded with ``seed``."""
+    """An :class:`EncDec` with the reference's ``init_params(cfg, key)``
+    weights, bit for bit (``key`` a ``prng.PRNGKey``, or an ``int`` read
+    as one): ``embed`` from the top :class:`KeyGen`, then encoder block
+    ``i`` from ``KeyGen(split(kg(), n_enc_layers)[i])``, then the decoder
+    blocks likewise from the next key."""
     dev = resolve_device(device)
-    return init_modules(EncDec(cfg, dev), seed, dev)
+    model = EncDec(cfg, dev)
+    kg = KeyGen(key)
+    model.reset_parameters(kg)
+    for stack in (model.enc, model.dec):
+        for blk, k in zip(stack, prng.split_words(kg(), len(stack))):
+            blk.reset_parameters(KeyGen(k))
+    return model
 
 
 def abstract_params(cfg: EncDecCfg) -> EncDec:

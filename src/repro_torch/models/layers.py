@@ -53,6 +53,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from repro_torch.core import prng
 from repro_torch.distributed import collectives as C
 from repro_torch.models.common import BlockCfg, ModelCfg, RGLRUCfg, SSDCfg
 
@@ -68,13 +69,41 @@ def dt(name: str) -> torch.dtype:
     return _DTYPES[name]
 
 
-def _init(t: torch.Tensor, fan_in: int, gen: torch.Generator) -> None:
-    """Fill ``t`` with the reference's init: a standard normal truncated to
-    [-2, 2], drawn in float32, times ``1 / sqrt(fan_in)``, then cast (the
-    distribution of ``jax.random.truncated_normal``, not its bits)."""
-    draw = torch.empty(t.shape, dtype=torch.float32, device=t.device)
-    nn.init.trunc_normal_(draw, 0.0, 1.0, -2.0, 2.0, generator=gen)
-    t.copy_(draw.mul_(1.0 / math.sqrt(max(fan_in, 1))))
+# leaves are drawn in chunks of this many elements: one chunk's draw
+# peaks at 94 bytes an element on an H100 (chip_smoke.py, phase K)
+INIT_CHUNK = 1 << 24
+
+
+class KeyGen:
+    """The reference's per-leaf key derivation: the n-th call returns
+    ``fold_in(key, n)``, n from 1 (as key words).  ``key`` is a
+    ``prng.PRNGKey``; an ``int`` is read as ``prng.PRNGKey(key)``."""
+
+    def __init__(self, key):
+        self.key = prng._words(prng.PRNGKey(key) if isinstance(key, int)
+                               else key)
+        self.n = 0
+
+    def __call__(self) -> tuple[int, int]:
+        self.n += 1
+        return prng.fold_in_words(self.key, self.n)
+
+
+@torch.no_grad()
+def _init(t: torch.Tensor, key, fan_in: int, start: int = 0) -> None:
+    """Fill ``t`` with the reference's ``_init``: ``truncated_normal(key,
+    -2, 2)`` in float32 times the float32 rounding of ``1 /
+    sqrt(fan_in)``, rounded once to ``t``'s dtype.  ``t`` takes the flat
+    draw's elements from ``start`` on (a slice of a larger leaf), drawn
+    ``INIT_CHUNK`` elements at a time on ``t``'s device."""
+    scale = torch.tensor(1.0 / math.sqrt(max(fan_in, 1)),
+                         dtype=torch.float32, device=t.device)
+    flat = t.view(-1)
+    for s in range(0, flat.numel(), INIT_CHUNK):
+        n = min(INIT_CHUNK, flat.numel() - s)
+        draw = prng.truncated_normal(key, -2.0, 2.0, (n,), t.device,
+                                     start + s)
+        flat[s:s + n] = (draw * scale).to(t.dtype)
 
 
 class Params(nn.Module):
@@ -99,20 +128,23 @@ class Params(nn.Module):
             torch.as_tensor(value, dtype=dtype or self._dtype).to(
                 self._device), requires_grad=False))
 
-    @torch.no_grad()
-    def reset_parameters(self, gen: torch.Generator) -> None:
+    def weights(self):
+        """``(path, tensor, fan_in)`` of the weights in the reference's
+        call order: this container's, in the order they were declared,
+        then its child containers' in theirs.  Constant leaves are not
+        weights."""
         for name, fan_in in self._fan_in.items():
-            _init(getattr(self, name), fan_in, gen)
+            yield name, getattr(self, name), fan_in
+        for cname, child in self.named_children():
+            if isinstance(child, Params):
+                for name, t, fan_in in child.weights():
+                    yield f"{cname}.{name}", t, fan_in
 
-
-def init_modules(model: nn.Module, seed: int, device) -> nn.Module:
-    """Draw every weight of ``model`` from one ``torch.Generator`` on
-    ``device`` seeded with ``seed`` (module order, then field order)."""
-    gen = torch.Generator(device=device).manual_seed(seed)
-    for m in model.modules():
-        if isinstance(m, Params):
-            m.reset_parameters(gen)
-    return model
+    def reset_parameters(self, kg: KeyGen) -> None:
+        """Draw the weights in :meth:`weights` order, one key of ``kg``
+        each."""
+        for _, t, fan_in in self.weights():
+            _init(t, kg(), fan_in)
 
 
 @torch.no_grad()

@@ -7,7 +7,8 @@ order: ``prefix``, ``n_repeats`` times ``pattern``, ``suffix`` (the JAX
 package stacks the repeats on a leading axis and scans over it).
 
 Entry points, with the reference's names:
-  init_params(cfg, seed, device) / params_from_numpy(cfg, tree, device)
+  init_params(cfg, key, device) / params_from_numpy(cfg, tree, device)
+  draw_order(model, key)                -> the reference's key schedule
   params_to_numpy(model) / param_layout(model)  -> the reference's tree
   init_cache(cfg, B, max_len, device)   -> one cache dict per block
   cache_spec(cfg, ctx)                  -> its sharding specs, per block
@@ -53,13 +54,14 @@ import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.core import prng
 from repro_torch.device import resolve_device
 from repro_torch.distributed import collectives as C
 from repro_torch.models import moe as moe_lib
 from repro_torch.models.common import BlockCfg, ModelCfg
-from repro_torch.models.layers import (MLP, RGLRU, SSD, Attention, Params,
-                                       attention, attention_decode, dt,
-                                       init_modules, layout_to_numpy,
+from repro_torch.models.layers import (MLP, RGLRU, SSD, Attention, KeyGen,
+                                       Params, attention, attention_decode,
+                                       dt, layout_to_numpy,
                                        load_tree, matmul_f32, mlp,
                                        model_ctx, module_tree, rglru_mixer,
                                        rms_norm, softcap, ssd_mixer,
@@ -113,13 +115,41 @@ class LM(Params):
                                     for b in cfg.all_blocks())
 
 
-def init_params(cfg: ModelCfg, seed: int = 0,
+def draw_order(model: LM, key):
+    """The reference's key schedule for ``model``'s weights: ``(module,
+    KeyGen)`` pairs in draw order.  ``model`` itself first (``embed``,
+    then ``unembed`` if untied) and the prefix blocks from the top
+    :class:`KeyGen` of ``key``; pattern block ``j`` of repeat ``r`` from
+    ``KeyGen(split(kg(), n_repeats)[r])`` (the reference's ``vmap`` over
+    the split keys); then the suffix blocks from the top ``KeyGen``.  A
+    module's ``reset_parameters`` takes one key of its ``KeyGen`` per
+    weight."""
+    cfg = model.cfg
+    kg = KeyGen(key)
+    yield model, kg
+    blocks = iter(model.blocks)
+    for _ in cfg.prefix:
+        yield next(blocks), kg
+    if cfg.n_repeats:
+        for k in prng.split_words(kg(), cfg.n_repeats):
+            kg_r = KeyGen(k)
+            for _ in cfg.pattern:
+                yield next(blocks), kg_r
+    for _ in cfg.suffix:
+        yield next(blocks), kg
+
+
+def init_params(cfg: ModelCfg, key=0,
                 device: "str | torch.device" = "cuda") -> LM:
-    """An :class:`LM` with the reference's shapes, dtypes, scales and
-    constant leaves, its weights drawn from a ``torch.Generator`` seeded
-    with ``seed`` (not ``jax.random``'s bits)."""
+    """An :class:`LM` with the reference's ``init_params(cfg, key)``
+    weights, bit for bit, drawn on ``device`` in :func:`draw_order`.
+    ``key`` is a ``prng.PRNGKey``; an ``int`` is read as
+    ``prng.PRNGKey(key)``."""
     dev = resolve_device(device)
-    return init_modules(LM(cfg, dev), seed, dev)
+    model = LM(cfg, dev)
+    for module, kg in draw_order(model, key):
+        module.reset_parameters(kg)
+    return model
 
 
 def abstract_params(cfg: ModelCfg) -> LM:

@@ -59,6 +59,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from repro_torch.core import prng
 from repro_torch.device import resolve_device
 from repro_torch.kernels.flash_attn.ops import flash_attention
 from repro_torch.kernels.flash_attn.ref import flash_attention_ref
@@ -520,15 +521,13 @@ def attention_probe(spec: AttnSpec, *, seed: int = 0,
     tensors on ``device`` (on the CPU the wrapper itself runs the plain
     version, through its padding).
 
-    q, k and v are standard normal draws from a ``torch.Generator`` seeded
-    with ``seed`` on ``device``.  They are not the JAX package's
-    ``jax.random`` bits and need not be: the probe's contract is the kernel
-    against its plain version at the lowered shape."""
+    q, k and v are the JAX package's probe inputs: float32 standard
+    normal draws (``prng.normal``, on ``device``) from the three keys of
+    ``split(PRNGKey(seed), 3)``."""
     dev = resolve_device(device)
-    gen = torch.Generator(device=dev).manual_seed(seed)
-    draw = lambda heads: torch.randn(
-        (1, spec.seq, heads, spec.head_dim), generator=gen,
-        dtype=torch.float32, device=dev)
-    q, k, v = draw(spec.heads), draw(spec.kv_heads), draw(spec.kv_heads)
+    keys = prng.split_words(prng.PRNGKey(seed), 3)
+    q, k, v = (prng.normal(key, (1, spec.seq, heads, spec.head_dim), dev)
+               for key, heads in zip(keys, (spec.heads, spec.kv_heads,
+                                            spec.kv_heads)))
     kw = dict(causal=spec.causal, window=spec.window, softcap=spec.softcap)
     return flash_attention(q, k, v, **kw), flash_attention_ref(q, k, v, **kw)

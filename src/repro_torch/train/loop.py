@@ -53,6 +53,7 @@ from typing import Callable, Optional
 import torch
 import torch.distributed as dist
 
+from repro_torch.core import prng
 from repro_torch.device import resolve_device
 from repro_torch.distributed import collectives, sharding
 from repro_torch.launch.mesh import mesh_of
@@ -134,7 +135,8 @@ def make_dp_compressed_step(model, optimizer: Optimizer, group=None
 
 class Trainer:
     """``Trainer(cfg, mesh, optimizer, data, tcfg, device=...)`` trains
-    ``cfg`` from ``init_params(cfg, tcfg.seed, device)`` (or resumes).
+    ``cfg`` from ``init_params(cfg, prng.PRNGKey(tcfg.seed), device)``,
+    the reference's weights for that seed (or resumes).
     ``mesh`` is None, a ``launch.mesh.Mesh`` or a mesh shape such as the
     launcher's ``--mesh-shape`` (laid out over the process group): a
     ``(data, model)`` mesh trains data- and tensor-parallel (module
@@ -159,7 +161,8 @@ class Trainer:
     def _build(self):
         cfg, tcfg, group = self.cfg, self.tcfg, self.group
         lib = encdec if isinstance(cfg, EncDecCfg) else lm
-        self.model = lib.init_params(cfg, tcfg.seed, self.device)
+        self.model = lib.init_params(cfg, prng.PRNGKey(tcfg.seed),
+                                     self.device)
         if dist.is_initialized() and dist.get_world_size() > 1:
             self._check_replicated()
         if self.ctx.tp_group is not None:

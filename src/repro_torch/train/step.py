@@ -274,7 +274,8 @@ def init_state(model, optimizer: Optimizer) -> dict:
     """``{"params": param_tree(model), "opt": optimizer.init(params),
     "step": 0}``, the step a 0-d int32 tensor on the model's device.
     The reference draws the parameters here from a key; the port's come
-    from ``init_params(cfg, seed, device)`` or ``params_from_numpy``."""
+    from ``init_params(cfg, key, device)`` (the same bits from the same
+    key) or ``params_from_numpy``."""
     params = param_tree(model)
     device = next(model.parameters()).device
     return {"params": params, "opt": optimizer.init(params,

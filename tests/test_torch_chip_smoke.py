@@ -184,7 +184,8 @@ def test_lm_train_phases_pass_on_smoke_configs(tmp_path, capsys):
                           train=dict(steps=4, batch=2, seq=32, lr=1e-2),
                           trace_steps=1,
                           grad_check=dict(batch=1, seq=16, seed=0,
-                                          scale=0.02, loss_change=1e-3))
+                                          scale=0.02, loss_change=1e-3,
+                                          halvings=6))
     lines = [json.loads(l) for l in capsys.readouterr().out.splitlines()
              if l.startswith("{")]
     assert [l["phase"] for l in lines] == [
@@ -375,3 +376,38 @@ def test_tensor_parallel_phases_pass_over_a_one_rank_group(tmp_path, capsys):
         "gemma2-smoke", "olmoe-smoke"]
     assert [r["config"] for r in d["smoke_card_vs_host"]] == [
         "olmoe-smoke", "mamba2-smoke", "rg-smoke"]
+
+
+def test_init_phase_passes_on_smoke_configs(capsys, monkeypatch):
+    """Phase (K) on the CPU with the smoke configs (the host standing in
+    for the card): every leaf of gemma2's first pattern repeat and last
+    block, and olmoe's routers, drawn again whole in the reference's key
+    order, the model's own leaves at both ends from their offsets; a
+    draw that differs in one element fails the phase."""
+    import pytest
+    import torch
+    from repro_torch.models import lm
+    smoke = _chip_smoke()
+    rec = smoke.init_phase(device="cpu", card="cpu", full=False, edge=1000)
+    line = json.loads(capsys.readouterr().out.splitlines()[-1])
+    assert line == json.loads(json.dumps(rec)) and line["phase"] == "init"
+    g, o = line["configs"]
+    assert (g["config"], o["config"]) == ("gemma2-smoke", "olmoe-smoke")
+    # gemma2-smoke: 2 x 2 blocks of 7 weights; blocks 0, 1 and 3 whole,
+    # the tied embed's two ends
+    assert g["host_checked"]["leaf_spans"] == 3 * 7 + 2
+    # olmoe-smoke: 2 blocks, one router each; embed's and unembed's ends
+    assert o["host_checked"]["leaf_spans"] == 2 + 2 * 2
+    assert line["ported_kernel_launches"] == {
+        k: 0 for k in ("event_matmul2", "window_cumsum", "flash_attn",
+                       "event_matmul", "sigma_delta")}
+
+    def off_by_one(cfg, key, device):
+        model = init(cfg, key, device)
+        with torch.no_grad():
+            model.blocks[-1].mlp.wo.view(-1)[5] += 1
+        return model
+    init = lm.init_params
+    monkeypatch.setattr(lm, "init_params", off_by_one)
+    with pytest.raises(RuntimeError, match=r"\(K\) gemma2-smoke 3 mlp.wo"):
+        smoke.init_phase(device="cpu", card="cpu", full=False, edge=1000)

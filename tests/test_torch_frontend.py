@@ -234,6 +234,21 @@ def test_attention_probe_and_verified_compile(ref):
     assert torch.equal(a, b)
 
 
+def test_attention_probe_is_the_reference_probe(ref):
+    """The probe draws the JAX package's q, k and v (``prng.normal`` from
+    ``split(PRNGKey(seed), 3)``), so its outputs are the reference
+    probe's: the wrapper's within flash's 2e-4 of the Pallas kernel's
+    (interpret mode), the plain version's of the oracle's."""
+    for arch in ("gemma2-2b", "whisper-base", "kimi-k2-1t-a32b"):
+        for spec in compile_network(arch, **CPU).attn_specs:
+            out, plain = attention_probe(spec, seed=5, **CPU)
+            pallas, oracle = ref.frontend.attention_probe(spec, seed=5)
+            np.testing.assert_allclose(out.numpy(), pallas, rtol=2e-4,
+                                       atol=2e-4)
+            np.testing.assert_allclose(plain.numpy(), oracle, rtol=2e-4,
+                                       atol=2e-4)
+
+
 def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
     spec = compile_network("gemma2-2b", **CPU).attn_specs[0]
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)

@@ -5,9 +5,10 @@ The JAX package's device search draws everything from ``jax.random`` with
 JAX's partitionable threefry layout.  The port's draws must be the same
 bits: keys, splits and fold-ins, 32- and 64-bit raw draws, int32
 ``randint`` and float64 ``uniform``, the serving engine's float32
-``uniform_f32`` (with a range), ``gumbel`` and ``categorical``, and the
-device search's own ``generation_draws`` and ``island_keys``, over a grid
-of shapes.
+``uniform_f32`` (with a range), ``gumbel`` and ``categorical``, the model
+init's ``truncated_normal`` and XLA's float32 ``erf`` under it, draws
+made in chunks from an offset, and the device search's own
+``generation_draws`` and ``island_keys``, over a grid of shapes.
 """
 
 import jax
@@ -145,6 +146,77 @@ def test_streams_in_one_pass_equal_streams_alone():
         assert np.array_equal(b1[pos:pos + n].numpy(), a1.numpy())
         assert np.array_equal(b2[pos:pos + n].numpy(), a2.numpy())
         pos += n
+
+
+def test_erf_matches_xla_bit_for_bit():
+    """XLA's float32 ``erf`` on a grid through its clamp at +-3.74 and on
+    the bounds ``truncated_normal`` feeds it (``b / sqrt2`` as XLA
+    computes it: a product with the float32 reciprocal)."""
+    bounds = np.float32([-3.0, -2.0, -1.0, 1.0, 2.0, 3.0])
+    rsqrt2 = np.float32(1.0) / np.float32(np.sqrt(2.0))
+    x = np.concatenate([np.linspace(-5, 5, 100_001, dtype=np.float32),
+                        bounds * rsqrt2, bounds / np.float32(np.sqrt(2.0)),
+                        np.float32([0.0, -0.0, 1e-30, -1e-30])])
+    want = np.asarray(jax.lax.erf(jnp.asarray(x)))
+    got = prng._erf(torch.from_numpy(x)).numpy()
+    np.testing.assert_array_equal(got.view(np.int32), want.view(np.int32))
+
+
+@pytest.mark.parametrize("lo,hi", [(-2.0, 2.0), (-1.0, 3.0)])
+@pytest.mark.parametrize("shape", [(1,), (37, 11), (512, 1024)])
+def test_truncated_normal_matches_jax(shape, lo, hi):
+    """Seeds 0 to 2 on the fold-in key the model init draws its first leaf
+    from; (-1, 3) reaches ``erf_inv``'s far branch (``-log1p(-u*u) >=
+    5``)."""
+    for seed in range(3):
+        k = jax.random.fold_in(jax.random.PRNGKey(seed), 1)
+        want = np.asarray(jax.random.truncated_normal(k, lo, hi, shape,
+                                                      jnp.float32))
+        got = prng.truncated_normal(prng.fold_in(prng.PRNGKey(seed), 1),
+                                    lo, hi, shape).numpy()
+        assert got.shape == shape and got.dtype == np.float32
+        np.testing.assert_array_equal(got.view(np.int32),
+                                      want.view(np.int32))
+        assert ((got > lo) & (got < hi)).all()
+
+
+def _as_bits(t: torch.Tensor) -> torch.Tensor:
+    return t.view({torch.int64: torch.int64, torch.float32: torch.int32,
+                   torch.bfloat16: torch.int16}[t.dtype])
+
+
+def test_chunked_draws_equal_the_one_pass_draw(monkeypatch):
+    """Elements ``[start, start + n)`` of a draw, chunk after chunk (the
+    last chunk shorter), are the one-pass draw's; so is a model leaf
+    filled ``INIT_CHUNK`` elements at a time, or from an offset."""
+    from repro_torch.models import layers
+    key, n = prng.fold_in(prng.PRNGKey(4), 2), 1000
+    draws = (lambda shape, start: prng.random_bits(key, 32, shape, None,
+                                                   start),
+             lambda shape, start: prng.random_bits(key, 64, shape, None,
+                                                   start),
+             lambda shape, start: prng.uniform_f32(key, shape, -0.5, 2.0,
+                                                   None, start),
+             lambda shape, start: prng.truncated_normal(key, -2.0, 2.0,
+                                                        shape, None, start))
+    for draw in draws:
+        parts = torch.cat([draw((min(96, n - s),), s)
+                           for s in range(0, n, 96)])
+        assert torch.equal(_as_bits(parts), _as_bits(draw((n,), 0)))
+    b1, b2 = prng.draw_streams([prng._words(key)] * 2, [5, 7], start=30)
+    w1, w2 = prng.draw_streams([prng._words(key)], [40])
+    assert torch.equal(b1, torch.cat([w1[30:35], w1[30:37]]))
+    assert torch.equal(b2, torch.cat([w2[30:35], w2[30:37]]))
+    for dtype in (torch.float32, torch.bfloat16):
+        one, chunked = (torch.empty((25, 40), dtype=dtype) for _ in "ab")
+        tail = torch.empty(100, dtype=dtype)
+        layers._init(one, key, 40)
+        monkeypatch.setattr(layers, "INIT_CHUNK", 96)
+        layers._init(chunked, key, 40)
+        layers._init(tail, key, 40, start=900)
+        monkeypatch.undo()
+        assert torch.equal(_as_bits(chunked), _as_bits(one))
+        assert torch.equal(_as_bits(tail), _as_bits(one.view(-1)[900:]))
 
 
 def _draws_equal(got: dict, want: dict) -> None:
