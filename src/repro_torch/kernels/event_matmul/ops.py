@@ -25,6 +25,7 @@ import functools
 import torch
 import torch.nn.functional as F
 
+from repro_torch import trace
 from repro_torch.kernels import build
 from repro_torch.kernels.event_matmul.ref import (block_activity_ref,
                                                   event_matmul2_ref,
@@ -145,7 +146,7 @@ class KernelWeights:
     both built only for CUDA weights.  ``w`` and ``w_occ`` are kept for the
     plain version on the CPU."""
 
-    __slots__ = ("w", "w_occ", "wt", "occ")
+    __slots__ = ("w", "w_occ", "wt", "occ", "_occ_rows")
 
     def __init__(self, w: torch.Tensor, w_occ: torch.Tensor | None = None):
         kb, nb = -(-w.shape[0] // KERNEL_TILE), -(-w.shape[1] // KERNEL_TILE)
@@ -153,11 +154,20 @@ class KernelWeights:
             raise ValueError(f"occupancy {tuple(w_occ.shape)} does not fit "
                              f"weights {tuple(w.shape)}")
         self.w, self.w_occ = w, w_occ
-        self.wt = self.occ = None
+        self.wt = self.occ = self._occ_rows = None
         if w.device.type == "cuda":
             self.wt = kernel_layout(w)
             if w_occ is not None:
                 self.occ = w_occ.to(torch.uint8).contiguous()
+
+    def occ_rows(self) -> torch.Tensor:
+        """(Kb,) int64 occupied n tiles in each k row of ``occ``, built at
+        first use: an (Mb, Kb) activity map times it, summed, is the joint
+        kernel's live (m-block, n-tile, k-tile) triples, ``cnt`` of
+        :func:`_compact_indices_joint` summed."""
+        if self._occ_rows is None:
+            self._occ_rows = self.occ.sum(dim=1, dtype=torch.int64)
+        return self._occ_rows
 
 
 def kernel_splits(tiles: int, kb: int, sms: int) -> int:
@@ -183,7 +193,8 @@ def bind_launch(x: torch.Tensor, kw: KernelWeights,
     ``launch()``, called with the device current, runs the kernel on the
     current stream into ``out``, the padded (Mp, Np) product whose first
     (M, N) entries are the result, and returns the status code; it neither
-    checks nor counts the launch."""
+    checks nor counts the launch; ``launch.active`` is the activity
+    map."""
     if x.dtype not in KERNEL_KINDS or kw.wt is None or (
             kw.wt.dtype != x.dtype):
         raise TypeError(f"the kernel takes float32, bfloat16 or int8 CUDA "
@@ -221,7 +232,7 @@ def bind_launch(x: torch.Tensor, kw: KernelWeights,
             xp.data_ptr(), kw.wt.data_ptr(), active.data_ptr(),
             kw.occ.data_ptr(), out.data_ptr(), pp, M, mp, nb, kb, splits,
             kind, stream)
-    launch.splits = splits
+    launch.splits, launch.active = splits, active
     return launch, out
 
 
@@ -229,14 +240,23 @@ def _launch(x: torch.Tensor, kw: KernelWeights,
             threshold: float) -> torch.Tensor:
     """Launch the kernel on CUDA ``x`` and count it: ``event_matmul2``'s
     count for the joint kernel, ``event_matmul``'s for the 1-D one.
-    Returns the (M, N) product."""
-    launch, out = bind_launch(x, kw, threshold)
-    with torch.cuda.device(x.device):
-        err = launch()
-    name, fn = (("event_matmul", event_matmul) if kw.occ is None
-                else ("event_matmul2", event_matmul2))
-    build.check(err, name)
-    fn.launches += 1
+    While a trace records, the joint kernel's live and total tile
+    triples go to the counts ``event_matmul2.live_tiles`` and
+    ``event_matmul2.tiles``.  Returns the (M, N) product."""
+    with trace.span("event_matmul.bind"):
+        launch, out = bind_launch(x, kw, threshold)
+    if kw.occ is not None and trace.enabled():
+        mb, kb = launch.active.shape
+        trace.count("event_matmul2.live_tiles",
+                    (launch.active, kw.occ_rows()))
+        trace.count("event_matmul2.tiles", mb * kw.occ.shape[1] * kb)
+    with trace.span("event_matmul.launch"):
+        with torch.cuda.device(x.device):
+            err = launch()
+        name, fn = (("event_matmul", event_matmul) if kw.occ is None
+                    else ("event_matmul2", event_matmul2))
+        build.check(err, name)
+        fn.launches += 1
     return out[:x.shape[0], :kw.w.shape[1]]
 
 

@@ -36,6 +36,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from repro_torch import trace
 from repro_torch.kernels.event_matmul.ops import (KERNEL_TILE, KernelWeights,
                                                   event_matmul2,
                                                   event_matmul_packed,
@@ -165,7 +166,9 @@ def derived_from_weights(layer, key: str, builder):
     on a miss."""
     slot = layer.__dict__.get(key)
     if slot is None or slot[0] is not layer.weights:
-        slot = (layer.weights, builder(layer))
+        with trace.span("compute.pack"):
+            trace.count("compute.packs", 1)
+            slot = (layer.weights, builder(layer))
         layer.__dict__[key] = slot
     return slot[1]
 
@@ -212,9 +215,11 @@ class _WeightBlocks:
         at first use, then cached with this structure, i.e. once per
         layer."""
         if self._kernel is None:
-            self._kernel = (
-                KernelWeights(self.w.to(torch.float32), self.occ),
-                KernelWeights((self.w != 0).to(torch.int8), self.occ))
+            with trace.span("compute.pack"):
+                trace.count("compute.packs", 1)
+                self._kernel = (
+                    KernelWeights(self.w.to(torch.float32), self.occ),
+                    KernelWeights((self.w != 0).to(torch.int8), self.occ))
         return self._kernel
 
 

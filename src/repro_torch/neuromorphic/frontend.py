@@ -59,6 +59,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from repro_torch import trace
 from repro_torch.core import prng
 from repro_torch.device import resolve_device
 from repro_torch.kernels.flash_attn.ops import flash_attention
@@ -441,23 +442,24 @@ def _resolve_densities(act_density, n_layers: int) -> list[float | None]:
 
 def _build_layer(spec: LayerSpec, rng: np.random.Generator,
                  act_density: float | None, dev: torch.device) -> SimLayer:
-    mask = _structure_mask(spec)
-    # weight magnitudes bounded away from zero so nnz (hence every counter)
-    # is exactly the structural count; scale keeps the forced-active
-    # message magnitudes stable across deep stacks
-    scale = 0.5 / np.sqrt(max(1.0, spec.nnz / spec.width))
-    vals = rng.normal(0.0, 1.0, (spec.fanin, spec.width))
-    w = np.where(vals >= 0, 1.0, -1.0) * (0.5 + np.abs(vals)) * scale
-    w = (w * mask).astype(np.float32)
-    gate = _structure_gate(spec)
-    if act_density is not None:
-        live = np.nonzero(gate)[0] if gate is not None \
-            else np.arange(spec.width)
-        keep = int(round(act_density * live.size))
-        g = np.zeros(spec.width, np.float32)
-        if keep > 0:
-            g[rng.choice(live, size=keep, replace=False)] = 1.0
-        gate = g
+    with trace.span("frontend.draw", layer=spec.name):
+        mask = _structure_mask(spec)
+        # weight magnitudes bounded away from zero so nnz (hence every
+        # counter) is exactly the structural count; scale keeps the
+        # forced-active message magnitudes stable across deep stacks
+        scale = 0.5 / np.sqrt(max(1.0, spec.nnz / spec.width))
+        vals = rng.normal(0.0, 1.0, (spec.fanin, spec.width))
+        w = np.where(vals >= 0, 1.0, -1.0) * (0.5 + np.abs(vals)) * scale
+        w = (w * mask).astype(np.float32)
+        gate = _structure_gate(spec)
+        if act_density is not None:
+            live = np.nonzero(gate)[0] if gate is not None \
+                else np.arange(spec.width)
+            keep = int(round(act_density * live.size))
+            g = np.zeros(spec.width, np.float32)
+            if keep > 0:
+                g[rng.choice(live, size=keep, replace=False)] = 1.0
+            gate = g
     sd = spec.neuron_model == "sd_relu"
     return SimLayer(
         name=spec.name, kind="fc", weights=torch.from_numpy(w).to(dev),

@@ -36,6 +36,7 @@ from typing import Any, Mapping, Sequence
 import numpy as np
 import torch
 
+from repro_torch import trace
 from repro_torch.device import resolve_device
 from repro_torch.neuromorphic import compute as _compute
 
@@ -228,36 +229,39 @@ class SimLayer:
         exactly.  Equivalent to T calls of :meth:`step` (bit-identical
         counters; the delta accumulator matches bit for bit when it starts
         at zero, which :meth:`SimNetwork.init_accs` guarantees)."""
-        cc = _compute.get_compute(compute)
-        x_in = x_in.to(torch.float32)
-        if x_in.ndim != 2:
-            raise ValueError(
-                f"step_batch needs (T, n_in), got {tuple(x_in.shape)}")
+        with trace.span("network.layer", layer=self.name):
+            cc = _compute.get_compute(compute)
+            x_in = x_in.to(torch.float32)
+            if x_in.ndim != 2:
+                raise ValueError(
+                    f"step_batch needs (T, n_in), got {tuple(x_in.shape)}")
 
-        act_mask = (x_in != 0).to(torch.float32)   # events on the wire
-        msgs_in = act_mask.sum(dim=1)               # (T,)
+            act_mask = (x_in != 0).to(torch.float32)   # events on the wire
+            msgs_in = act_mask.sum(dim=1)               # (T,)
 
-        if in_acc is not None:
-            pre, macs, fetches_dense, new_acc = cc.delta_forward(
-                self, x_in, in_acc, act_mask, msgs_in)
-        else:
-            new_acc = None
-            pre, macs, fetches_dense = cc.forward(self, x_in, act_mask,
-                                                  msgs_in)
+            with trace.span("compute.forward"):
+                if in_acc is not None:
+                    pre, macs, fetches_dense, new_acc = cc.delta_forward(
+                        self, x_in, in_acc, act_mask, msgs_in)
+                else:
+                    new_acc = None
+                    pre, macs, fetches_dense = cc.forward(
+                        self, x_in, act_mask, msgs_in)
 
-        if self.bias is not None:
-            pre = pre + self.bias
+            if self.bias is not None:
+                pre = pre + self.bias
 
-        y_msgs, state = self._neuron_batch(pre, state)
-        if self.msg_gate is not None:
-            y_msgs = y_msgs * self.msg_gate
-        msgs_out = (y_msgs != 0).to(torch.float32)
+            with trace.span("network.neuron"):
+                y_msgs, state = self._neuron_batch(pre, state)
+            if self.msg_gate is not None:
+                y_msgs = y_msgs * self.msg_gate
+            msgs_out = (y_msgs != 0).to(torch.float32)
 
-        counters = BatchCounters(
-            msgs_in=msgs_in.to(torch.float64), macs=macs,
-            fetches_dense=fetches_dense, msgs_out=msgs_out,
-            acts_evented=(macs > 0).to(torch.float32))
-        return y_msgs, state, counters, new_acc
+            counters = BatchCounters(
+                msgs_in=msgs_in.to(torch.float64), macs=macs,
+                fetches_dense=fetches_dense, msgs_out=msgs_out,
+                acts_evented=(macs > 0).to(torch.float32))
+            return y_msgs, state, counters, new_acc
 
     # ------------------------------------------------------------ neuron fns
     def _neuron(self, pre: torch.Tensor, state: dict
@@ -380,16 +384,17 @@ class SimNetwork:
         """Layer-major run: (T, in_size) inputs -> (T, out) outputs and one
         :class:`BatchCounters` per layer.  Exactly equivalent to
         :meth:`run` but visits each layer once with the full time batch."""
-        cc = _compute.get_compute(compute)
-        states, accs = self.init_states(), self.init_accs()
-        cur = self._inputs(xs)
-        T = cur.shape[0]
-        all_counters: list[BatchCounters] = []
-        for i, layer in enumerate(self.layers):
-            cur, states[i], cnt, accs[i] = layer.step_batch(
-                cur, states[i], accs[i], compute=cc)
-            all_counters.append(cnt)
-        return cur.reshape(T, -1), all_counters
+        with trace.request("network.run_batch"):
+            cc = _compute.get_compute(compute)
+            states, accs = self.init_states(), self.init_accs()
+            cur = self._inputs(xs)
+            T = cur.shape[0]
+            all_counters: list[BatchCounters] = []
+            for i, layer in enumerate(self.layers):
+                cur, states[i], cnt, accs[i] = layer.step_batch(
+                    cur, states[i], accs[i], compute=cc)
+                all_counters.append(cnt)
+            return cur.reshape(T, -1), all_counters
 
 
 # ================================================================ builders
