@@ -26,9 +26,17 @@ Phases, each printing one JSON line:
                   strided conv stack through im2col, and on edge cases
                   (bm = 64 with a threshold); two launches of each of the
                   six instances (1-D and joint, float32 / bfloat16 / int8)
-                  bit for bit, with and without a split k list.
+                  bit for bit, with and without a split k list; a layer's
+                  two products in one library call (the bind kernel, then
+                  each product; values and wire events that differ) at
+                  whisper-base's values map (K = 12,000, copied to a
+                  padded layout), its fc2 (read in place) and ragged
+                  edges: values within ``EM_TOL``, counts, recorded live
+                  tiles and padded copies exact.
   (d) dense     — the same workload through the dense backend.
-  (e) times     — CUDA-event times of each kernel's launch alone (``ms``),
+  (e) times     — CUDA-event times of each kernel's launch alone (``ms``;
+                  for the matmul, its library call: the bind kernel, the
+                  product and its split reduction),
                   of its wrappers (the public one, which lays the weights
                   out per call, and the event backend's on cached
                   weights), of its plain version and of one PyTorch call
@@ -51,7 +59,9 @@ Phases, each printing one JSON line:
                   counter equals 448 * macs_per_token and every counter is
                   bit-identical to a dense run.  One more kernel-mode run
                   is traced as in ``profile``, with the device time of each
-                  kernel family.
+                  kernel family, and one recorded: 24 padded copies a
+                  stream (both products of the 12 values maps of K =
+                  12,000).
   (g) pricing   — four compiled smoke archs (gemma2, mamba2, olmoe, whisper)
                   priced on loihi2_like through kernel mode and dense; the
                   per-layer counters equal ``tests/golden/model_*.json``.
@@ -642,6 +652,7 @@ def flash_ptxas(log: pathlib.Path) -> dict:
 #: Kernel families in a trace, by substrings of their kernels' names: the
 #: block-sparse matmul is its tile body plus the split-sum pass.
 FAMILIES = {"event_matmul": ("event_matmul_kernel", "reduce_splits"),
+            "event_bind": ("event_bind",),
             "flash_attn": ("flash_attn",),
             "window_cumsum": ("window_cumsum",),
             "sigma_delta": ("sigma_delta",)}
@@ -3540,6 +3551,7 @@ def main() -> int:
                      ("TRITON_CACHE_DIR", "triton")):
         os.environ.setdefault(var, str(build.BUILD_DIR / sub))
     import repro_torch.kernels as kernels_api
+    from repro_torch import trace
     from repro_torch.core.floorline import WorkloadPoint, fit_floorline
     from repro_torch.core.guidance import floorline_layer_guidance
     from repro_torch.core.partitioner import (SimEvaluator,
@@ -3547,10 +3559,11 @@ def main() -> int:
     from repro_torch.kernels.event_matmul.ops import (
         KernelWeights, _compact_indices_joint, _pad_to, block_activity,
         event_matmul, event_matmul2, event_matmul_packed, event_matmul_pair,
-        pad_compact, weight_block_occupancy)
+        event_matmul_pair_packed, pad_compact, weight_block_occupancy)
     from repro_torch.kernels.event_matmul.ops import (
         bind_launch as em_bind_launch)
-    from repro_torch.kernels.event_matmul.ref import (event_matmul2_ref,
+    from repro_torch.kernels.event_matmul.ref import (bind_ref,
+                                                      event_matmul2_ref,
                                                       event_matmul_ref)
     from repro_torch.kernels.flash_attn.ops import (bind_launch,
                                                     flash_attention)
@@ -3841,7 +3854,7 @@ def main() -> int:
             xo, wo = ((xs_ != 0).to(dt), (ws_ != 0).to(dt)) \
                 if dt == torch.int8 else (xs_.to(dt), ws_.to(dt))
             for kind, o in (("1-D", None), ("joint", occ_)):
-                launch, out = em_bind_launch(xo, KernelWeights(wo, o))
+                launch, out, _ = em_bind_launch(xo, KernelWeights(wo, o))
                 build.check(launch(), f"{shape} {kind} {dt}")
                 first = out.clone()
                 build.check(launch(), f"{shape} {kind} {dt}")
@@ -3849,10 +3862,51 @@ def main() -> int:
                 exact(out, first, f"{shape} {kind} {dt}: two launches")
                 repeats[f"{shape} {kind} {str(dt)[6:]}"] = launch.splits
                 checks += 1
+    # a layer's two products in one library call (the bind kernel, then
+    # each product): values and wire events that differ (the delta
+    # path's), at whisper-base's values map (K = 8 x 1,500, copied to a
+    # padded layout), its fc2 (read in place) and ragged edges; values
+    # within the float32 tolerance, counts and recorded counters exact
+    pair_copies = {}
+    for M_, K_, N_ in ((448, 12000, 512), (448, 2048, 512), (447, 333, 270),
+                       (1, 27, 130)):
+        xp_ = torch.relu(torch.randn((M_, K_), generator=g))
+        xp_[:, TILE:2 * TILE] = 0.0
+        mp_ = (torch.rand((M_, K_), generator=g) < 0.2).to(torch.float32)
+        wp_ = torch.randn((K_, N_), generator=g) / K_ ** 0.5
+        wp_[:, TILE:2 * TILE] = 0.0
+        occ_ = weight_block_occupancy(wp_)
+        w8_ = (wp_ != 0).to(torch.int8)
+        with trace.recording() as rec_p:
+            y_, macs_ = event_matmul_pair_packed(
+                xp_.to(dev), mp_.to(dev),
+                KernelWeights(wp_.to(dev), occ_.to(dev)),
+                KernelWeights(w8_.to(dev), occ_.to(dev)))
+        b_ = bind_ref(xp_, mp_)
+        what = f"pair call {M_}x{K_}x{N_}"
+        max_err["event_matmul2"] = max(max_err["event_matmul2"], close(
+            y_, event_matmul2_ref(_pad_to(xp_, (TILE, TILE)),
+                                  _pad_to(wp_, (TILE, TILE)), occ_,
+                                  threshold=0.0, bm=TILE, bk=TILE,
+                                  bn=TILE)[:M_, :N_].to(dev),
+            *EM_TOL["float32"], what))
+        exact(macs_, event_matmul2_ref(
+            _pad_to((mp_ != 0).to(torch.int8), (TILE, TILE)),
+            _pad_to(w8_, (TILE, TILE)), occ_, threshold=0.0, bm=TILE,
+            bk=TILE, bn=TILE, out_dtype=torch.float32)[:M_, :N_].to(dev),
+            f"{what} counts")
+        live_ = sum(int(_compact_indices_joint(a, occ_)[1].sum())
+                    for a in (b_.active, b_.mask_active))
+        require(rec_p.count("event_matmul2.live_tiles") == live_
+                and rec_p.count("event_matmul.padded_copies") == b_.copies,
+                f"{what}: recorded live tiles or padded copies")
+        pair_copies[what] = b_.copies
+        checks += 1
     torch.cuda.synchronize()
     emit({"phase": "kernels", "checks": checks, "max_abs_err": max_err,
           "bf16_joint_max_abs_err": bf16_err, "bm64_max_abs_err": bm64,
           "repeat_launches_bit_identical": repeats,
+          "pair_call_padded_copies": pair_copies,
           "tolerances": {"pre": [PRE_RTOL, PRE_ATOL],
                          "window_cumsum": [WIN_RTOL, WIN_ATOL],
                          "bfloat16": list(EM_TOL["bfloat16"]),
@@ -3917,7 +3971,7 @@ def main() -> int:
         if counter:
             x, w = (x != 0).to(torch.int8), (w != 0).to(torch.int8)
         kw = KernelWeights(w, occ)
-        launch, _ = em_bind_launch(x, kw)
+        launch, _, _ = em_bind_launch(x, kw)
         M, N = x.shape[0], w.shape[1]
         row = {"what": what, "layer": name, "M": M, "K": x.shape[1],
                "N": N, "dtype": str(x.dtype)[6:],
@@ -4077,6 +4131,13 @@ def main() -> int:
             exact(getattr(a, f), getattr(b, f), f"{layer.name} {f}")
     profile_w = traced(lambda: cn.net.run_batch(
         xs_w, compute=EventCompute(mode="kernel")))
+    # one library call a layer: only the 12 values maps of K = 8 x 1,500
+    # copy their operands (both products), the other fanins read in place
+    with trace.recording() as rec_copies:
+        cn.net.run_batch(xs_w, compute=EventCompute(mode="kernel"))
+    copies_w = rec_copies.count("event_matmul.padded_copies")
+    require(copies_w == 24, f"whisper-base: {copies_w} padded copies a "
+            f"stream, not 24")
     attn_share = {layer.name: [float(live_tiles(a, b)[0].float().mean())
                                for a, b in ((x, layer.weights),
                                             (m, layer.w_mask))]
@@ -4094,7 +4155,7 @@ def main() -> int:
           "launches": launches_f,
           "counters": "bit-identical to dense; MACs == T * macs_per_token",
           "peak_device_bytes": torch.cuda.max_memory_allocated(),
-          "traced_run_batch": profile_w,
+          "traced_run_batch": profile_w, "padded_copies": copies_w,
           "live_share_value_counter": attn_share})
     del cn, xs_w, rec_w, out_w, cnt_w, cnt_wd
     torch.cuda.empty_cache()
@@ -4466,7 +4527,7 @@ def main() -> int:
         nb = wp.shape[1] // TILE
         live = active[:, None, :].expand(-1, nb, -1)
         bf = x.dtype == torch.bfloat16
-        launch, _ = em_bind_launch(x, KernelWeights(w))
+        launch, _, _ = em_bind_launch(x, KernelWeights(w))
         return {"what": what, "M": x.shape[0], "K": x.shape[1],
                 "N": w.shape[1], "dtype": str(x.dtype).split(".")[-1],
                 "live_tiles": int(active.sum()), "tiles": active.numel(),

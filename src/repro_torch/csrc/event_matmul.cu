@@ -60,7 +60,14 @@
 //   k steps in ascending order into shared memory with a ballot and a
 //   popcount prefix, 32 k tiles per step.
 //
-// Operands arrive zero-padded to 128-tile multiples, 16-byte aligned.
+// The bind (event_bind) runs first, in the same library call as the
+// products it feeds: one pass over a layer's value operand and wire-event
+// mask that writes both activity maps and the int8 counter operand, and a
+// zero-padded copy of an operand only where a product would read past it
+// (K not a multiple of 128, M not of 64, or x not packed and 16-byte
+// aligned); every other operand is read in place.  Rows past M are never
+// read: their 64-row blocks find an empty list.  It replaces the dozen
+// PyTorch ops a layer took to pad, map and cast on the host's side.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -83,24 +90,42 @@ constexpr int kStageBytes = kStageWords * 4;
 constexpr int kChunks = (kRows + kTile) * 8 / kThreads;  // 16 B copies
 
 // kPromote: each stage's sum starts at zero in the tensor core and joins
-// the accumulator through a rounded float32 add
+// the accumulator through a rounded float32 add.  For the bind: Raw is the
+// operand's bits, magnitude(v) its |v| as PyTorch's abs gives it (int8
+// wraps: |-128| = -128), compared(t) the threshold as PyTorch compares a
+// tensor of the kind with a float (in bfloat16 for bfloat16).
 struct F32 {
   using T = float;
   using Acc = float;
   using Out = float;
+  using Raw = uint32_t;
   static constexpr bool kPromote = true;
+  static __device__ float magnitude(Raw v) { return fabsf(__uint_as_float(v)); }
+  static __device__ float compared(float t) { return t; }
 };
 struct BF16 {
   using T = __nv_bfloat16;
   using Acc = float;
   using Out = __nv_bfloat16;
+  using Raw = uint16_t;
   static constexpr bool kPromote = false;
+  static __device__ float magnitude(Raw v) {
+    return fabsf(__uint_as_float(static_cast<uint32_t>(v) << 16));
+  }
+  static __device__ float compared(float t) {
+    return __bfloat162float(__float2bfloat16_rn(t));
+  }
 };
 struct I8 {
   using T = int8_t;
   using Acc = int;
   using Out = float;
+  using Raw = int8_t;
   static constexpr bool kPromote = false;
+  static __device__ float magnitude(Raw v) {
+    return static_cast<float>(static_cast<int8_t>(v < 0 ? -v : v));
+  }
+  static __device__ float compared(float t) { return t; }
 };
 
 __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
@@ -409,53 +434,174 @@ int launch(const void* x, const void* wt, const unsigned char* act,
   return static_cast<int>(cudaGetLastError());
 }
 
-template <bool kPerPair>
-int dispatch(int kind, const void* x, const void* wt,
-             const unsigned char* act, const unsigned char* occ, void* out,
-             float* part, int m_rows, int mp, int nb, int kb, int splits,
-             void* stream) {
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (kind) {
-    case 0:
-      return launch<F32, kPerPair>(x, wt, act, occ, out, part, m_rows, mp,
-                                   nb, kb, splits, s);
-    case 1:
-      return launch<BF16, kPerPair>(x, wt, act, occ, out, part, m_rows, mp,
-                                    nb, kb, splits, s);
-    case 2:
-      return launch<I8, kPerPair>(x, wt, act, occ, out, part, m_rows, mp, nb,
-                                  kb, splits, s);
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
+constexpr int kBindThreads = 512;  // one 128 x 128 tile, 4 rows a pass
+constexpr size_t kCarve = 256;      // alignment of each workspace part
+
+size_t carved(size_t bytes) { return (bytes + kCarve - 1) / kCarve * kCarve; }
+
+// The bind of one call, grid (kb, mp / 128): a block per 128 x 128 tile of
+// the padded grid.  x (m_rows, k) at strides (sx0, sx1) and, for a pair,
+// the float32 event mask m (m_rows, k) at (sm0, sm1); entries past
+// (m_rows, k) read as zeros.  Writes act_x[tile]: some |x| > threshold and
+// no NaN (a NaN makes PyTorch's amax NaN, and NaN > t is false); with
+// xcopy, the tile into the zero-padded (mp, kb*128) copy; with m, the int8
+// operand m8 = (m != 0) (NaN is an event) in its rows below m8_rows of a
+// (., kb*128) layout, and act_m[tile], the OR of the tile's m8.  One pass
+// over both operands; the block's flags meet in three barrier votes.
+// Replaces no TPU kernel: it does the host's former pad, activity map and
+// mask cast on the card.  Bounded by bytes (8 read an element of a pair,
+// 1 to 5 written); a layer of 16 tiles is bounded by latency instead,
+// while the card waits for the host most of the time.
+template <class Kind>
+__global__ void __launch_bounds__(kBindThreads)
+event_bind(const typename Kind::Raw* __restrict__ x, long long sx0,
+           long long sx1, const float* __restrict__ m, long long sm0,
+           long long sm1, int m_rows, int k, float threshold,
+           unsigned char* __restrict__ act_x,
+           unsigned char* __restrict__ act_m,
+           typename Kind::Raw* __restrict__ xcopy, int8_t* __restrict__ m8,
+           int m8_rows) {
+  using Raw = typename Kind::Raw;
+  constexpr int kPass = kBindThreads / kTile;
+  const size_t ld = static_cast<size_t>(gridDim.x) * kTile;
+  const int col = blockIdx.x * kTile + threadIdx.x % kTile;
+  const int row0 = blockIdx.y * kTile + threadIdx.x / kTile;
+  const float thr = Kind::compared(threshold);
+  bool event = false, nan = false, m_event = false;
+#pragma unroll 8
+  for (int i = 0; i < kTile; i += kPass) {
+    const int row = row0 + i;
+    const bool in = row < m_rows && col < k;
+    const Raw v = in ? x[row * sx0 + col * sx1] : Raw(0);
+    const float a = Kind::magnitude(v);
+    event |= a > thr;
+    nan |= a != a;
+    if (xcopy != nullptr) xcopy[row * ld + col] = v;
+    if (m != nullptr) {
+      const bool e = (in ? m[row * sm0 + col * sm1] : 0.0f) != 0.0f;
+      m_event |= e;
+      if (row < m8_rows) m8[row * ld + col] = e;
+    }
   }
+  const bool any_event = __syncthreads_or(event);
+  const bool any_nan = __syncthreads_or(nan);
+  const bool any_m = __syncthreads_or(m_event);
+  if (threadIdx.x == 0) {
+    const size_t tile = static_cast<size_t>(blockIdx.y) * gridDim.x + blockIdx.x;
+    act_x[tile] = any_event && !any_nan;
+    if (act_m != nullptr) act_m[tile] = any_m;
+  }
+}
+
+// One call: the bind, the value product (1-D without occ) and, with m,
+// the int8 counter product (1-D without occ8), each with its reduction.
+// The workspace is carved in the order of the wrapper's sizes: act_x,
+// act_m, the copy of x, m8, the split partials (shared by both products,
+// which run one after the other on the stream).
+template <class Kind>
+int pair(const void* x, long long sx0, long long sx1, const float* m,
+         long long sm0, long long sm1, const void* wt,
+         const unsigned char* occ, const void* wt8,
+         const unsigned char* occ8, void* y, float* macs, void* ws,
+         long long ws_bytes, int m_rows, int k, int nb, int splits,
+         float threshold, int pad_x, int pad_m, cudaStream_t stream) {
+  using Raw = typename Kind::Raw;
+  if (m_rows < 0 || k < 0 || nb <= 0 || splits < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int kb = (k + kTile - 1) / kTile;
+  const int mp = (m_rows + kTile - 1) / kTile * kTile;
+  const size_t np = static_cast<size_t>(nb) * kTile;
+  if (mp == 0) return static_cast<int>(cudaGetLastError());
+  if (kb == 0) {  // an empty contraction: exact zeros
+    cudaError_t err = cudaMemsetAsync(
+        y, 0, mp * np * sizeof(typename Kind::Out), stream);
+    if (err == cudaSuccess && m != nullptr)
+      err = cudaMemsetAsync(macs, 0, mp * np * sizeof(float), stream);
+    return static_cast<int>(err);
+  }
+  const size_t kp = static_cast<size_t>(kb) * kTile;
+  const bool rows_ok = k % kTile == 0 && m_rows % kRows == 0;
+  const bool in_place = rows_ok && sx1 == 1 && sx0 == k &&
+                        reinterpret_cast<uintptr_t>(x) % 16 == 0;
+  if ((!pad_x && !in_place) || (m != nullptr && !pad_m && !rows_ok) ||
+      reinterpret_cast<uintptr_t>(ws) % 16 != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  char* const base = static_cast<char*>(ws);
+  size_t used = 0;
+  auto take = [&](size_t bytes) {
+    char* p = base + used;
+    used += carved(bytes);
+    return p;
+  };
+  const size_t tiles = static_cast<size_t>(mp / kTile) * kb;
+  auto* act_x = reinterpret_cast<unsigned char*>(take(tiles));
+  unsigned char* act_m =
+      m ? reinterpret_cast<unsigned char*>(take(tiles)) : nullptr;
+  Raw* xcopy = pad_x ? reinterpret_cast<Raw*>(take(mp * kp * sizeof(Raw)))
+                     : nullptr;
+  const int m8_rows = pad_m ? mp : m_rows;
+  int8_t* m8 = m ? reinterpret_cast<int8_t*>(take(m8_rows * kp)) : nullptr;
+  float* part = splits > 1 ? reinterpret_cast<float*>(
+                                 take(splits * mp * np * sizeof(float)))
+                           : nullptr;
+  if (used > static_cast<size_t>(ws_bytes))
+    return static_cast<int>(cudaErrorInvalidValue);
+  event_bind<Kind><<<dim3(kb, mp / kTile), kBindThreads, 0, stream>>>(
+      static_cast<const Raw*>(x), sx0, sx1, m, sm0, sm1, m_rows, k,
+      threshold, act_x, act_m, xcopy, m8, m8_rows);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const void* xk = pad_x ? static_cast<const void*>(xcopy) : x;
+  const int rc =
+      occ ? launch<Kind, true>(xk, wt, act_x, occ, y, part, m_rows, mp, nb,
+                                kb, splits, stream)
+          : launch<Kind, false>(xk, wt, act_x, nullptr, y, part, m_rows, mp,
+                                 nb, kb, splits, stream);
+  if (rc != 0 || m == nullptr) return rc;
+  return occ8 ? launch<I8, true>(m8, wt8, act_m, occ8, macs, part, m_rows,
+                                  mp, nb, kb, splits, stream)
+              : launch<I8, false>(m8, wt8, act_m, nullptr, macs, part,
+                                   m_rows, mp, nb, kb, splits, stream);
 }
 
 }  // namespace
 
-// The 1-D product.  x (mp, K) and wt (nb*128, K), the weights transposed
-// (K-major): row-major, of one kind -- 0 float32 (3xTF32), 1 bfloat16,
-// 2 int8 (0/1 masks) -- 16-byte aligned, mp and K = kb*128 multiples of
-// 128.  act (mp/128, kb): 1 where the activation tile holds an event.  out
-// (mp, nb*128): float32, bfloat16, float32.  With splits > 1, part
-// (splits, mp, nb*128) float32 scratch.  m_rows: rows of x that are not
-// padding.  Launches on `stream` and returns the first cudaError_t.
-extern "C" int event_matmul_launch(const void* x, const void* wt,
-                                   const unsigned char* act, void* out,
-                                   float* part, int m_rows, int mp, int nb,
-                                   int kb, int splits, int kind,
-                                   void* stream) {
-  return dispatch<false>(kind, x, wt, act, nullptr, out, part, m_rows, mp, nb,
-                         kb, splits, stream);
-}
-
-// The joint product: as above, and occ (kb, nb): 1 where the weight tile
-// holds a nonzero.
-extern "C" int event_matmul2_launch(const void* x, const void* wt,
-                                    const unsigned char* act,
-                                    const unsigned char* occ, void* out,
-                                    float* part, int m_rows, int mp, int nb,
-                                    int kb, int splits, int kind,
-                                    void* stream) {
-  return dispatch<true>(kind, x, wt, act, occ, out, part, m_rows, mp, nb, kb,
-                        splits, stream);
+// One library call for one layer's products.  The value operand x
+// (m_rows, k) at element strides (sx0, sx1), of one kind -- 0 float32
+// (3xTF32), 1 bfloat16, 2 int8 (0/1 masks) -- with its weights wt
+// (nb*128, kb*128) transposed (K-major) and zero-padded, and occ (kb, nb),
+// 1 where a weight tile holds a nonzero (null: the 1-D product).  For a
+// pair, m (m_rows, k) float32 wire events at (sm0, sm1), counted against
+// the int8 nnz mask wt8 (same layout) and occ8.  y (mp, nb*128) in the
+// kind's output type (float32, bfloat16, float32) and macs (mp, nb*128)
+// float32, mp = m_rows rounded up to 128; their first (m_rows, nb*128)
+// rows are the products.  ws: 16-byte aligned scratch of ws_bytes.  pad_x:
+// copy x into a zero-padded layout (required unless k % 128 == 0, m_rows %
+// 64 == 0 and x is packed row-major and 16-byte aligned); pad_m: the same
+// for the int8 operand.  threshold: an event is |x| > threshold.  Launches
+// the bind, then each product and its split reduction on `stream`, and
+// returns the first cudaError_t.
+extern "C" int event_matmul_pair_launch(
+    const void* x, long long sx0, long long sx1, const float* m,
+    long long sm0, long long sm1, const void* wt, const unsigned char* occ,
+    const void* wt8, const unsigned char* occ8, void* y, float* macs,
+    void* ws, long long ws_bytes, int m_rows, int k, int nb, int splits,
+    int kind, float threshold, int pad_x, int pad_m, void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (kind) {
+    case 0:
+      return pair<F32>(x, sx0, sx1, m, sm0, sm1, wt, occ, wt8, occ8, y, macs,
+                       ws, ws_bytes, m_rows, k, nb, splits, threshold, pad_x,
+                       pad_m, s);
+    case 1:
+      return pair<BF16>(x, sx0, sx1, m, sm0, sm1, wt, occ, wt8, occ8, y, macs,
+                        ws, ws_bytes, m_rows, k, nb, splits, threshold, pad_x,
+                        pad_m, s);
+    case 2:
+      return pair<I8>(x, sx0, sx1, m, sm0, sm1, wt, occ, wt8, occ8, y, macs,
+                      ws, ws_bytes, m_rows, k, nb, splits, threshold, pad_x,
+                      pad_m, s);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
 }

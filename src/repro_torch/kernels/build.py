@@ -35,11 +35,11 @@ _P, _I, _L, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
 #: ``c_void_p``, ints as ``c_int`` or ``c_longlong``, floats as
 #: ``c_float``); every one returns ``cudaError_t``.
 SIGNATURES = {
-    # x, wt, act, out, part, m_rows, mp, nb, kb, splits, kind, stream
-    "event_matmul_launch": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
-    # x, wt, act, occ, out, part, m_rows, mp, nb, kb, splits, kind, stream
-    "event_matmul2_launch": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                             _P],
+    # x, sx0, sx1, m, sm0, sm1, wt, occ, wt8, occ8, y, macs, ws, ws_bytes,
+    # m_rows, k, nb, splits, kind, threshold, pad_x, pad_m, stream
+    "event_matmul_pair_launch": [_P, _L, _L, _P, _L, _L, _P, _P, _P, _P, _P,
+                                 _P, _P, _L, _I, _I, _I, _I, _I, _F, _I, _I,
+                                 _P],
     # a, s, q, s_out, n, theta, bf16, stream
     "sigma_delta_launch": [_P, _P, _P, _P, _L, _F, _I, _P],
     # x, live, out, n_windows, D, window, stream

@@ -7,15 +7,20 @@ for float32 (3xTF32), bfloat16 and int8 0/1-mask operands (exact counts,
 float32 out).  Without a weight-tile occupancy map the product goes
 through the 1-D kernel (one k list per m-block, shared by every n); with
 one, through the joint kernel :func:`event_matmul2` (one k list per
-(m, n) tile pair).  On CUDA the host does one pad and one activity map
-per call; each block of the kernel intersects the activity map with the
-occupancy and compacts its own live list.  The kernel reads the weights
-transposed, (N, K), and zero-padded to 128-tile multiples:
-:class:`KernelWeights`, built per call by the public wrappers and once
-per layer by the event backend.  CUDA tensors launch the kernel or
-raise; CPU tensors run the plain versions in :mod:`.ref`.  The host
-compaction (:func:`pad_compact`, ``_compact_indices*``) serves the
-reference's API and the tests; no CUDA path calls it.
+(m, n) tile pair).  On CUDA every product goes through one library call,
+``event_matmul_pair_launch``: a bind kernel takes the activity map (and,
+for a layer's value and counter pair, the int8 operand ``m != 0`` and its
+map) in one pass, copying an operand to a zero-padded layout only where
+the kernel cannot read it in place, then each product runs; each block
+of the kernel intersects the activity map with the occupancy and
+compacts its own live list.  The host checks shapes and allocates the
+outputs and one workspace.  The kernel reads the weights transposed,
+(N, K), and zero-padded to 128-tile multiples: :class:`KernelWeights`,
+built per call by the public wrappers and once per layer by the event
+backend.  CUDA tensors launch the kernel or raise; CPU tensors run the
+plain versions in :mod:`.ref`.  The host padding, activity map and
+compaction (:func:`pad_compact`, ``_compact_indices*``) serve the CPU
+versions, the reference's API and the tests; no CUDA path calls them.
 """
 
 from __future__ import annotations
@@ -30,6 +35,7 @@ from repro_torch.kernels import build
 from repro_torch.kernels.event_matmul.ref import (block_activity_ref,
                                                   event_matmul2_ref,
                                                   event_matmul_ref,
+                                                  reads_in_place,
                                                   zero_dead_tiles_ref)
 
 #: The tile edge of the CUDA kernel's activity map, k steps and output
@@ -39,6 +45,8 @@ KERNEL_TILE = 128
 KERNEL_ROWS = 64
 #: Most blocks that share one output tile's live list.
 MAX_SPLITS = 8
+#: Alignment of each part of the library call's workspace (bytes).
+WORKSPACE_ALIGN = 256
 #: Operand types the kernel is compiled for: its ``kind`` flag and the
 #: output type.  int8 operands are 0/1 masks; their products are counts.
 KERNEL_KINDS = {torch.float32: (0, torch.float32),
@@ -185,16 +193,24 @@ def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
-def bind_launch(x: torch.Tensor, kw: KernelWeights,
-                threshold: float = 0.0):
-    """Pad CUDA ``x`` to 128-tile multiples, take its (Mb, Kb) activity map
-    and bind one kernel launch to it and ``kw`` (the 1-D kernel when
-    ``kw.occ`` is None, else the joint one).  Returns ``(launch, out)``:
-    ``launch()``, called with the device current, runs the kernel on the
-    current stream into ``out``, the padded (Mp, Np) product whose first
-    (M, N) entries are the result, and returns the status code; it neither
-    checks nor counts the launch; ``launch.active`` is the activity
-    map."""
+def _carved(nbytes: int) -> int:
+    return -(-nbytes // WORKSPACE_ALIGN) * WORKSPACE_ALIGN
+
+
+def bind_launch(x: torch.Tensor, kw: KernelWeights, threshold: float = 0.0,
+                m: torch.Tensor | None = None,
+                kw_mask: KernelWeights | None = None):
+    """Check CUDA ``x`` against ``kw`` and, for a pair, the float32 wire
+    events ``m`` of its shape against the int8 nnz mask ``kw_mask``, and
+    allocate one library call: the padded (Mp, Np) products and one
+    workspace.  Returns ``(launch, y, macs)`` (``macs`` None without
+    ``m``): ``launch()``, called with the device current, runs on the
+    current stream the bind kernel, then the value product (the 1-D kernel
+    when ``kw.occ`` is None, else the joint one) and the counter product
+    ``(m != 0) @ kw_mask``, and returns the status code; it neither checks
+    nor counts.  ``launch.splits``; ``launch.copies``, the operands copied
+    to a zero-padded layout; ``launch.maps()``, the products' (Mb, Kb)
+    activity maps in the workspace, valid once ``launch()`` has run."""
     if x.dtype not in KERNEL_KINDS or kw.wt is None or (
             kw.wt.dtype != x.dtype):
         raise TypeError(f"the kernel takes float32, bfloat16 or int8 CUDA "
@@ -203,61 +219,104 @@ def bind_launch(x: torch.Tensor, kw: KernelWeights,
     if x.device != kw.wt.device:
         raise ValueError("operands on different devices")
     kind, out_dtype = KERNEL_KINDS[x.dtype]
-    xp = _pad_to(x, (KERNEL_TILE, KERNEL_TILE))
-    if xp.shape[1] != kw.wt.shape[1]:
+    M, K = x.shape
+    np_, kp = kw.wt.shape
+    if -(-K // KERNEL_TILE) * KERNEL_TILE != kp:
         raise ValueError(f"contraction mismatch: {tuple(x.shape)} @ "
                          f"{tuple(kw.w.shape)}")
-    # cp.async copies 16 bytes: operands start on a 16-byte boundary
-    xp = xp if xp.data_ptr() % 16 == 0 else xp.clone()
-    active = block_activity_ref(xp, threshold, KERNEL_TILE, KERNEL_TILE)
-    M = x.shape[0]
-    mp, kp = xp.shape
-    np_ = kw.wt.shape[0]
-    nb, kb = np_ // KERNEL_TILE, kp // KERNEL_TILE
+    pad_m = False
+    if m is not None:
+        if m.shape != x.shape or m.dtype != torch.float32 or (
+                m.device != x.device):
+            raise ValueError(f"the event mask must be float32 of the "
+                             f"operand's shape and device, got {m.dtype} "
+                             f"{tuple(m.shape)} on {m.device}")
+        if kw_mask.wt is None or kw_mask.wt.dtype != torch.int8 or (
+                kw_mask.wt.shape != kw.wt.shape):
+            raise TypeError("the counter's weights must be an int8 mask "
+                            "of the value weights' shape")
+        pad_m = bool(K % KERNEL_TILE or M % KERNEL_ROWS)
+    mp = -(-M // KERNEL_TILE) * KERNEL_TILE
+    mb, nb, kb = mp // KERNEL_TILE, np_ // KERNEL_TILE, kp // KERNEL_TILE
     splits = kernel_splits(-(-M // KERNEL_ROWS) * nb, kb,
                            _sm_count(x.device.index or 0))
-    out = torch.empty((mp, np_), dtype=out_dtype, device=x.device)
-    part = (torch.empty((splits, mp, np_), dtype=torch.float32,
-                        device=x.device) if splits > 1 else None)
+    pad_x = not reads_in_place(x, KERNEL_ROWS, KERNEL_TILE)
+    n_maps = 1 if m is None else 2
+    # in the order the library carves them: the activity maps, the copy
+    # of x, the int8 operand, the split partials
+    ws_bytes = (n_maps * _carved(mb * kb)
+                + (_carved(mp * kp * x.element_size()) if pad_x else 0)
+                + (_carved((mp if pad_m else M) * kp) if m is not None
+                   else 0)
+                + (_carved(splits * mp * np_ * 4) if splits > 1 else 0))
+    ws = torch.empty(ws_bytes, dtype=torch.uint8, device=x.device)
+    y = torch.empty((mp, np_), dtype=out_dtype, device=x.device)
+    macs = (None if m is None else
+            torch.empty((mp, np_), dtype=torch.float32, device=x.device))
+    occ = None if kw.occ is None else kw.occ.data_ptr()
+    if m is None:
+        counter = (None, 0, 0)
+        w8 = occ8 = None
+    else:
+        counter = (m.data_ptr(), m.stride(0), m.stride(1))
+        w8 = kw_mask.wt.data_ptr()
+        occ8 = None if kw_mask.occ is None else kw_mask.occ.data_ptr()
+    args = (x.data_ptr(), x.stride(0), x.stride(1), *counter,
+            kw.wt.data_ptr(), occ, w8, occ8, y.data_ptr(),
+            None if macs is None else macs.data_ptr(), ws.data_ptr(),
+            ws_bytes, M, K, nb, splits, kind, threshold, int(pad_x),
+            int(pad_m), torch.cuda.current_stream(x.device).cuda_stream)
     lib = build.load()
-    stream = torch.cuda.current_stream(x.device).cuda_stream
 
-    def launch() -> int:                    # holds the operands alive
-        pp = part.data_ptr() if part is not None else None
-        if kw.occ is None:
-            return lib.event_matmul_launch(
-                xp.data_ptr(), kw.wt.data_ptr(), active.data_ptr(),
-                out.data_ptr(), pp, M, mp, nb, kb, splits, kind, stream)
-        return lib.event_matmul2_launch(
-            xp.data_ptr(), kw.wt.data_ptr(), active.data_ptr(),
-            kw.occ.data_ptr(), out.data_ptr(), pp, M, mp, nb, kb, splits,
-            kind, stream)
-    launch.splits, launch.active = splits, active
-    return launch, out
+    def launch() -> int:
+        return lib.event_matmul_pair_launch(*args)
+
+    def activity_maps() -> list[torch.Tensor]:
+        step = _carved(mb * kb)
+        return [ws[i * step:i * step + mb * kb].view(mb, kb)
+                for i in range(n_maps)]
+    launch.splits, launch.copies = splits, int(pad_x) + int(pad_m)
+    launch.maps = activity_maps
+    launch.operands = (x, m, kw, kw_mask, ws)   # alive until it is called
+    return launch, y, macs
 
 
-def _launch(x: torch.Tensor, kw: KernelWeights,
-            threshold: float) -> torch.Tensor:
-    """Launch the kernel on CUDA ``x`` and count it: ``event_matmul2``'s
-    count for the joint kernel, ``event_matmul``'s for the 1-D one.
-    While a trace records, the joint kernel's live and total tile
-    triples go to the counts ``event_matmul2.live_tiles`` and
-    ``event_matmul2.tiles``.  Returns the (M, N) product."""
+def _launch(x: torch.Tensor, kw: KernelWeights, threshold: float,
+            m: torch.Tensor | None = None,
+            kw_mask: KernelWeights | None = None):
+    """One library call on CUDA ``x`` (:func:`bind_launch`), each product
+    counted: ``event_matmul2``'s count for a joint product,
+    ``event_matmul``'s for a 1-D one.  While a trace records, each joint
+    product's live and total tile triples go to the counts
+    ``event_matmul2.live_tiles`` (a copy of its activity map, queued after
+    the call that writes it) and ``event_matmul2.tiles``, and the operands
+    copied to a padded layout to ``event_matmul.padded_copies``.  Returns
+    the (M, N) product, or with ``m`` the ``(y, macs)`` pair."""
     with trace.span("event_matmul.bind"):
-        launch, out = bind_launch(x, kw, threshold)
-    if kw.occ is not None and trace.enabled():
-        mb, kb = launch.active.shape
-        trace.count("event_matmul2.live_tiles",
-                    (launch.active, kw.occ_rows()))
-        trace.count("event_matmul2.tiles", mb * kw.occ.shape[1] * kb)
+        launch, y, macs = bind_launch(x, kw, threshold, m, kw_mask)
+    products = (kw,) if m is None else (kw, kw_mask)
     with trace.span("event_matmul.launch"):
-        with torch.cuda.device(x.device):
+        if x.device.index == torch.cuda.current_device():
             err = launch()
-        name, fn = (("event_matmul", event_matmul) if kw.occ is None
-                    else ("event_matmul2", event_matmul2))
-        build.check(err, name)
-        fn.launches += 1
-    return out[:x.shape[0], :kw.w.shape[1]]
+        else:
+            with torch.cuda.device(x.device):
+                err = launch()
+        build.check(err, "event_matmul" if kw.occ is None
+                    else "event_matmul2")
+        for k in products:
+            (event_matmul if k.occ is None else event_matmul2).launches += 1
+    if trace.enabled():
+        trace.count("event_matmul.padded_copies", launch.copies)
+        for k, active in zip(products, launch.maps()):
+            if k.occ is not None:
+                mb, kb = active.shape
+                trace.count("event_matmul2.live_tiles",
+                            (active.clone(), k.occ_rows()))
+                trace.count("event_matmul2.tiles", mb * k.occ.shape[1] * kb)
+    M, N = x.shape[0], kw.w.shape[1]
+    if m is None:
+        return y[:M, :N]
+    return y[:M, :N], macs[:M, :N]
 
 
 def event_matmul2(x: torch.Tensor, w: torch.Tensor, w_occ: torch.Tensor, *,
@@ -353,15 +412,34 @@ event_matmul.launches = 0
 
 def event_matmul_packed(x: torch.Tensor, kw: KernelWeights) -> torch.Tensor:
     """``x @ w`` at 128-wide tiles and threshold 0 for weights already in
-    the kernel's layout: the event backend's entry point, with one
-    :class:`KernelWeights` per layer.  The joint kernel when ``kw`` has an
-    occupancy map, else the 1-D one; CPU tensors run the same plain
-    versions as :func:`event_matmul`."""
+    the kernel's layout: the event backend's entry point for a value
+    product alone, with one :class:`KernelWeights` per layer.  The joint
+    kernel when ``kw`` has an occupancy map, else the 1-D one; CPU tensors
+    run the same plain versions as :func:`event_matmul`."""
     if x.device.type == "cpu":
         return event_matmul(x, kw.w, kw.w_occ)
     if x.device.type != "cuda":
         raise ValueError(f"event_matmul: unsupported device {x.device}")
     return _launch(x, kw, 0.0)
+
+
+def event_matmul_pair_packed(x: torch.Tensor, m: torch.Tensor,
+                             kw: KernelWeights, kw_mask: KernelWeights
+                             ) -> tuple[torch.Tensor, torch.Tensor]:
+    """A layer's two products in one library call, at 128-wide tiles and
+    threshold 0: the values ``x @ w`` and the counts ``(m != 0) @ wm``,
+    ``m`` the float32 wire events (the delta path's ``x`` differs from
+    them) and ``kw_mask`` the int8 nnz mask of ``kw``'s weights, both in
+    the kernel's layout.  CPU tensors run the plain versions of
+    :func:`event_matmul_packed`.  Returns ``(y, macs)``, both float32 for
+    float32 ``x``."""
+    if x.device.type == "cpu":
+        return (event_matmul(x, kw.w, kw.w_occ),
+                event_matmul((m != 0).to(torch.int8), kw_mask.w,
+                             kw_mask.w_occ))
+    if x.device.type != "cuda":
+        raise ValueError(f"event_matmul: unsupported device {x.device}")
+    return _launch(x, kw, 0.0, m, kw_mask)
 
 
 def event_matmul_pair(x: torch.Tensor, m: torch.Tensor, w: torch.Tensor,

@@ -2,6 +2,8 @@
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import torch
 import torch.nn.functional as F
 
@@ -13,6 +15,57 @@ def block_activity_ref(x: torch.Tensor, threshold: float, bm: int,
     M, K = x.shape
     tiles = x.abs().reshape(M // bm, bm, K // bk, bk)
     return tiles.amax(dim=(1, 3)) > threshold
+
+
+def reads_in_place(x: torch.Tensor, rows: int = 64, bk: int = 128) -> bool:
+    """Whether the CUDA kernel reads ``x`` (M, K) where it lies: K a
+    multiple of the ``bk`` k tile, M of the kernel's ``rows``-row blocks (a
+    block reads all of its rows once one is live), the rows packed
+    row-major from a 16-byte boundary (``cp.async`` copies 16 bytes).  Else
+    the bind copies ``x`` into a zero-padded layout."""
+    M, K = x.shape
+    return (K % bk == 0 and M % rows == 0 and x.stride(1) == 1
+            and x.stride(0) == K and x.data_ptr() % 16 == 0)
+
+
+class Bound(NamedTuple):
+    """What the bind gives the products of one call."""
+    active: torch.Tensor                 # (Mb, Kb) bool, the value product's
+    operand: torch.Tensor                # x, or its zero-padded (Mp, Kp) copy
+    mask: torch.Tensor | None            # int8 m != 0: (M, K) or (Mp, Kp)
+    mask_active: torch.Tensor | None     # (Mb, Kb) bool, the counter's
+    copies: int                          # operands in a padded layout
+
+
+def bind_ref(x: torch.Tensor, m: torch.Tensor | None = None,
+             threshold: float = 0.0, bm: int = 128, bk: int = 128,
+             rows: int = 64) -> Bound:
+    """The CUDA bind as plain tensor code: the (bm, bk) activity map of
+    ``x`` on its zero-padded grid, a tile live where some |x| > threshold
+    (compared in ``x``'s type, float32 for int8) and no entry is NaN;
+    the operand the value product reads (:func:`reads_in_place`); and,
+    for a counter's event mask ``m``, the int8 operand ``m != 0`` (NaN is
+    an event), in place as (M, K) where the shape allows, else padded to
+    (Mp, Kp), with its activity map, the OR of its tiles."""
+    M, K = x.shape
+    mp, kp = -(-M // bm) * bm, -(-K // bk) * bk
+
+    def tiles_any(t: torch.Tensor) -> torch.Tensor:
+        return t.reshape(mp // bm, bm, kp // bk, bk).any(dim=3).any(dim=1)
+
+    xp = F.pad(x, (0, kp - K, 0, mp - M))
+    a = xp.abs().to(torch.float32)
+    thr = torch.tensor(threshold, dtype=x.dtype if x.is_floating_point()
+                       else torch.float32).to(torch.float32)
+    active = tiles_any(a > thr) & ~tiles_any(a.isnan())
+    in_place = reads_in_place(x, rows, bk)
+    operand, copies = (x, 0) if in_place else (xp, 1)
+    if m is None:
+        return Bound(active, operand, None, None, copies)
+    e = F.pad((m != 0).to(torch.int8), (0, kp - K, 0, mp - M))
+    if K % bk == 0 and M % rows == 0:
+        return Bound(active, operand, e[:M], tiles_any(e != 0), copies)
+    return Bound(active, operand, e, tiles_any(e != 0), copies + 1)
 
 
 def event_matmul_ref(x: torch.Tensor, w: torch.Tensor, *, threshold: float,

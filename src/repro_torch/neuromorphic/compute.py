@@ -14,10 +14,11 @@ model prices.  :class:`SimLayer` delegates it to a :class:`LayerCompute`:
   agrees to float roundoff):
 
   - ``"kernel"`` — the hand-written CUDA kernels: the joint (activation x
-    weight tile) block-sparse matmul
-    (:func:`repro_torch.kernels.event_matmul.ops.event_matmul_packed`),
-    float32 for the values and int8 0/1 masks for the exact counters, on
-    weights transposed and padded once per layer, and the windowed delta
+    weight tile) block-sparse matmul, float32 for the values and int8 0/1
+    masks for the exact counters, both products of a layer bound and run
+    in one library call
+    (:func:`repro_torch.kernels.event_matmul.ops.event_matmul_pair_packed`),
+    on weights transposed and padded once per layer, and the windowed delta
     reconstruction
     (:func:`repro_torch.kernels.sigma_delta.ops.window_reconstruct`).  On
     CPU tensors the kernel wrappers run their plain PyTorch versions.
@@ -40,6 +41,7 @@ from repro_torch import trace
 from repro_torch.kernels.event_matmul.ops import (KERNEL_TILE, KernelWeights,
                                                   event_matmul2,
                                                   event_matmul_packed,
+                                                  event_matmul_pair_packed,
                                                   weight_block_occupancy)
 from repro_torch.kernels.sigma_delta.ops import window_reconstruct
 
@@ -368,12 +370,12 @@ class EventCompute(LayerCompute):
         if self._kernel_mode(x.device) == "gather":
             return (self._gather_matmul(x, w, wb=wb),
                     self._gather_matmul(m, wm, wb=wb))
-        m8 = (m != 0).to(torch.int8)
         if self._packed():
-            macs = event_matmul_packed(m8, wb.kernel_weights()[1])
-        else:
-            macs = event_matmul2(m8, (wm != 0).to(torch.int8), wb.occ,
-                                 bm=self.bm, bk=self.bk, bn=self.bn)
+            return event_matmul_pair_packed(x.to(torch.float32), m,
+                                            *wb.kernel_weights())
+        macs = event_matmul2((m != 0).to(torch.int8),
+                             (wm != 0).to(torch.int8), wb.occ, bm=self.bm,
+                             bk=self.bk, bn=self.bn)
         return self._values(x, w, wb), macs
 
     # ------------------------------------------------------------ layer kinds

@@ -244,3 +244,39 @@ def test_live_tiles_equal_the_joint_compaction(seed):
     assert rec.count("live") == sum(
         int(em._compact_indices_joint(a, occ)[1].sum()) for a in maps)
     assert rec.count("all") == mb * nb * kb
+
+
+@pytest.fixture
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: torch.cuda.is_available() is False")
+    return torch.device("cuda")
+
+
+def test_cuda_run_batch_binds_and_counts_live_tiles(card):
+    """On a card a recorded ``run_batch`` yields the wrapper's
+    ``event_matmul.bind`` and ``event_matmul.launch`` spans, one of each
+    a layer (its two products share one library call), and live tiles
+    equal to the joint compaction's over both products of every layer."""
+    net = fc_network([300, 160, 40, 24], weight_density=0.5, seed=0,
+                     device=card)
+    xs = make_inputs(300, 0.3, 200, seed=1, device=card)
+    calls = []
+
+    class Keep(EventCompute):
+        def forward(self, layer, x_eff, act_mask, msgs_in):
+            calls.append((layer, x_eff, act_mask))
+            return super().forward(layer, x_eff, act_mask, msgs_in)
+
+    with trace.recording() as rec:
+        net.run_batch(xs, compute=Keep(mode="kernel"))
+    n = len(net.layers)
+    assert len(_named(rec, "event_matmul.bind")) == n
+    assert len(_named(rec, "event_matmul.launch")) == n
+    want = 0
+    for layer, x, m in calls:
+        occ = em.weight_block_occupancy(layer.weights).cpu()
+        for a in (x, (m != 0).to(torch.int8)):
+            active = em.block_activity(a.cpu(), 0.0)
+            want += int(em._compact_indices_joint(active, occ)[1].sum())
+    assert len(calls) == n and rec.count("event_matmul2.live_tiles") == want
