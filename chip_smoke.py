@@ -383,6 +383,23 @@ Phases, each printing one JSON line:
                   float32 router and the ends of ``embed`` and
                   ``unembed``.  Phases (x), (A), (I) and (J) start from
                   these weights.  No ported kernel may launch.
+  (L) neuron_scan — the ssm state neurons' scan (``csrc/neuron_scan.cu``)
+                  at one state layer of ``mamba2-1.3b-6of48.ssm1024``
+                  (T = 1,024, n = 4,096, decay 0.5, a row slice of a
+                  padded block): messages and final state bit for bit
+                  with the loop on the card for both ``force_active``
+                  values, one launch a call, and the launch alone (warm
+                  and cold L2), the wrapper and the loop timed beside
+                  the 10.0 us bytes bound.  Then one stream of the cell
+                  itself (the registry's mamba2-1.3b cut to 6 blocks and
+                  the published 50,277-wide head, T = 1,024) through
+                  ``run_batch`` in kernel mode, recorded: one launch a
+                  state layer (6) and ``neuron_scan.entries`` 6 x 1,024
+                  x 4,096, the output and all five counters bit for bit
+                  with the same stream through the loop.  Phases (f)
+                  and (g) count the launches too: none for whisper-base,
+                  one a state layer and ``run_batch`` for every
+                  compiled fixture.
 
 Then a ``{"kernels": [...]}`` line, the card's name and power limit as
 nvidia-smi reports them, and a last line ``{"ok": true, "device": ...}``.
@@ -482,6 +499,10 @@ TP_SMOKE = ("olmoe-1b-7b", "mamba2-1.3b", "recurrentgemma-2b")   # (J.d)
 INIT_SEED = 0                         # (K): PRNGKey(0), as (x), (A), (I), (J)
 INIT_EDGE = 1 << 22                   # (K): embed elements held at each end
 INIT_PEAK_LIMIT = 20e9                # (K): bytes allocated by one init
+# phase (L): the ssm scan at a state layer of mamba2-1.3b-6of48.ssm1024
+SCAN_T, SCAN_N, SCAN_DECAY = 1024, 4096, 0.5
+SCAN_PAD = 64                         # (L): columns of the padded block
+SCAN_BLOCKS, SCAN_VOCAB = 6, 50_277   # (L): the cell's depth and head
 
 # stated tolerances
 GRAD_CHECK_RTOL = 1e-2                # (B) <g, d> vs the central difference
@@ -3408,6 +3429,143 @@ def tensor_parallel_phases(*, device, card: str, ckpt_root, serve_x: dict,
             f"{launches}")
 
 
+def neuron_scan_phase(*, card: str, T: int = SCAN_T, n: int = SCAN_N
+                      ) -> dict:
+    """Phase (L): the ssm state neurons' scan at one state layer of the
+    ``mamba2-1.3b-6of48`` cell, (T, n) float32 pre-activations read as a
+    row slice of a padded block, as ``EventCompute`` hands them over.
+    The kernel's messages and final state against the loop on the card,
+    bit for bit, for both ``force_active`` values; one launch a call; the
+    launch alone (warm, and after an L2-evicting write), the wrapper and
+    the loop timed beside the bytes bound.  Then one stream of the cell
+    through ``run_batch`` (:func:`scan_cell_stream`).  Returns the
+    kernel-table row, whose ``launches`` are that stream's."""
+    import torch
+    from repro_torch.kernels import build
+    from repro_torch.kernels.neuron_scan.ops import ssm_scan
+    from repro_torch.kernels.neuron_scan.ref import ssm_scan_ref
+
+    g = torch.Generator(device="cuda").manual_seed(5)
+    wide = torch.randn((T, n + SCAN_PAD), generator=g, device="cuda")
+    pre = wide[:, :n]
+    x0 = torch.randn(n, generator=g, device="cuda")
+    bits = lambda a: a.view(torch.int32)
+    checked = {}
+    for fa in (False, True):
+        before = ssm_scan.launches
+        y, x = ssm_scan(pre, x0, SCAN_DECAY, fa)
+        require(ssm_scan.launches == before + 1,
+                f"(L) ssm_scan launched {ssm_scan.launches - before} times")
+        want_y, want_x = ssm_scan_ref(pre, x0, SCAN_DECAY, fa)
+        torch.cuda.synchronize()
+        same = (torch.equal(bits(y), bits(want_y))
+                and torch.equal(bits(x), bits(want_x)))
+        require(same, f"(L) force_active={fa}: the kernel is not the "
+                      f"loop's bits")
+        checked[str(fa)] = {"bit_identical": same,
+                            "messages_nonzero": int((y != 0).sum())}
+    lib = build.load()
+    y_out, x_out = torch.empty((T, n), device="cuda"), torch.empty_like(x0)
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def launch():
+        lib.ssm_scan_launch(pre.data_ptr(), pre.stride(0), x0.data_ptr(),
+                            y_out.data_ptr(), x_out.data_ptr(), T, n,
+                            SCAN_DECAY, 1, stream)
+    nbytes = 2 * (T + 1) * n * 4
+    bound_ms = 1e3 * nbytes / PEAK_BYTES_PER_S
+    ms, cold_ms = time_ms(launch), time_ms_cold(launch)
+    row = {"name": "ssm_scan", "route": "cuda",
+           "source": "src/repro_torch/csrc/neuron_scan.cu",
+           "replaces": None, "ms": ms, "cold_ms": cold_ms,
+           "bound_ms": bound_ms, "bound_by": "bytes",
+           "plain_ms": time_ms(lambda: ssm_scan_ref(pre, x0, SCAN_DECAY,
+                                                    True), reps=2,
+                               batches=3),
+           "library_ms": None,
+           "wrapper_ms": time_ms(lambda: ssm_scan(pre, x0, SCAN_DECAY,
+                                                  True))}
+    del wide, pre, x0, y, x, want_y, want_x, y_out, x_out
+    torch.cuda.empty_cache()
+    stream_rec = scan_cell_stream()
+    row["launches"] = stream_rec["launches"]
+    emit({"phase": "neuron_scan", "card": card, "T": T, "n": n,
+          "row_stride": n + SCAN_PAD, "decay": SCAN_DECAY,
+          "bytes": nbytes, "checked": checked, **row,
+          "roofline_pct": 100.0 * bound_ms / ms,
+          "roofline_pct_cold": 100.0 * bound_ms / cold_ms,
+          "cell_stream": stream_rec})
+    return row
+
+
+def scan_cell_stream() -> dict:
+    """Phase (L)'s stream of ``mamba2-1.3b-6of48.ssm1024``: the registry's
+    mamba2-1.3b cut to ``SCAN_BLOCKS`` blocks with the published
+    ``SCAN_VOCAB``-wide head, T = ``SCAN_T``, through ``run_batch`` in
+    kernel mode under a recording.  Requires one ``ssm_scan`` launch a
+    state layer, ``neuron_scan.entries`` = state layers x T x n, and the
+    output and every counter bit for bit with the same stream through
+    the loop (``ssm_scan_ref`` in the scan's place).  Returns the
+    record."""
+    import dataclasses
+
+    import torch
+    from repro_torch import trace
+    from repro_torch.configs import mamba2_1_3b
+    from repro_torch.kernels.neuron_scan.ops import ssm_scan
+    from repro_torch.kernels.neuron_scan.ref import ssm_scan_ref
+    from repro_torch.neuromorphic import EventCompute, compile_network
+    from repro_torch.neuromorphic import network as network_mod
+
+    cfg = dataclasses.replace(mamba2_1_3b.CONFIG, n_repeats=SCAN_BLOCKS,
+                              vocab_size=SCAN_VOCAB)
+    t0 = time.perf_counter()
+    cn = compile_network(cfg, seq_len=SCAN_T, smoke=False, seed=0,
+                         device=DEVICE)
+    compile_s = time.perf_counter() - t0
+    state = [l for l in cn.net.layers if l.neuron_model == "ssm"]
+    require(len(state) == SCAN_BLOCKS
+            and all(l.n_neurons == SCAN_N for l in state),
+            f"(L) {len(state)} state layers, widths "
+            f"{sorted({l.n_neurons for l in state})}")
+    xs = cn.inputs(SCAN_T, seed=5)
+    before = ssm_scan.launches
+    with trace.recording() as rec:
+        out, cnts = cn.net.run_batch(xs, compute=EventCompute(mode="kernel"))
+    torch.cuda.synchronize()
+    launches = ssm_scan.launches - before
+    entries = rec.count("neuron_scan.entries")
+    require(launches == len(state),
+            f"(L) {launches} ssm_scan launches a stream, not {len(state)}")
+    require(entries == len(state) * SCAN_T * SCAN_N,
+            f"(L) neuron_scan.entries {entries}")
+    network_mod.ssm_scan = ssm_scan_ref
+    try:
+        t0 = time.perf_counter()
+        out_l, cnts_l = cn.net.run_batch(xs,
+                                         compute=EventCompute(mode="kernel"))
+        torch.cuda.synchronize()
+        loop_s = time.perf_counter() - t0
+    finally:
+        network_mod.ssm_scan = ssm_scan
+    require(ssm_scan.launches - before == launches,
+            "(L) the loop's stream launched the scan")
+    exact(out.view(torch.int32), out_l.view(torch.int32), "(L) output")
+    for layer, a, b in zip(cn.net.layers, cnts, cnts_l):
+        for f in FIELDS:
+            exact(getattr(a, f), getattr(b, f), f"(L) {layer.name} {f}")
+    rec_out = {"config": f"mamba2-1.3b, {SCAN_BLOCKS} of "
+                         f"{mamba2_1_3b.CONFIG.n_repeats} blocks, vocab "
+                         f"{SCAN_VOCAB}",
+               "layers": len(cn.net.layers), "state_layers": len(state),
+               "T": SCAN_T, "launches": launches, "entries": entries,
+               "compile_s": compile_s, "loop_run_batch_s": loop_s,
+               "output_and_counters": "bit-identical to the loop"}
+    del cn, xs, out, cnts, out_l, cnts_l
+    torch.cuda.empty_cache()
+    return rec_out
+
+
 def init_phase(*, device, card: str, full: bool = True,
                edge: int = INIT_EDGE) -> dict:
     """Phase (K): the LM weights from the reference's key on the card, held
@@ -3568,6 +3726,7 @@ def main() -> int:
     from repro_torch.kernels.flash_attn.ops import (bind_launch,
                                                     flash_attention)
     from repro_torch.kernels.flash_attn.ref import flash_attention_ref
+    from repro_torch.kernels.neuron_scan.ops import ssm_scan
     from repro_torch.kernels.sigma_delta.ops import (sigma_delta_encode,
                                                      window_cumsum,
                                                      window_reconstruct)
@@ -4088,7 +4247,7 @@ def main() -> int:
     del rec, run_k, run_d
     torch.cuda.empty_cache()
     kernels = {"event_matmul2": event_matmul2, "window_cumsum": window_cumsum,
-               "flash_attn": flash_attention}
+               "flash_attn": flash_attention, "ssm_scan": ssm_scan}
     T_W = 448                               # whisper's n_text_ctx
     torch.cuda.reset_peak_memory_stats()
     for fn in kernels.values():
@@ -4111,7 +4270,7 @@ def main() -> int:
     launches_f = {k: fn.launches for k, fn in kernels.items()}
     n_fc = len(cn.net.layers)
     expect_f = {"event_matmul2": 2 * n_fc, "window_cumsum": 0,
-                "flash_attn": len(cn.attn_specs)}
+                "flash_attn": len(cn.attn_specs), "ssm_scan": 0}
     require(n_fc == 97 and len(cn.attn_specs) == 18,
             f"whisper-base lowered to {n_fc} layers, "
             f"{len(cn.attn_specs)} attention sites")
@@ -4200,6 +4359,10 @@ def main() -> int:
                              / f"{fixture}.json").read_text())
         net_g, xs_s = builder()
         require(golden["steps"] == xs_s.shape[0], f"{fixture}: steps")
+        n_ssm = sum(l.neuron_model == "ssm" for l in net_g.layers)
+        require((n_ssm > 0) == (fixture == "model_ssm_mamba2"),
+                f"{fixture}: {n_ssm} ssm state layers")
+        ssm_scan.launches = 0
         require([r["name"] for r in golden["layers"]]
                 == [l.name for l in net_g.layers], f"{fixture}: layers")
         reps = {}
@@ -4212,6 +4375,11 @@ def main() -> int:
                                           .sum()),
                             f"{fixture} {mode} {row['name']} {f}")
             reps[mode] = simulate(net_g, xs_s, prof, precomputed=run)
+        # one scan a state layer and run_batch, whatever the synaptic
+        # backend
+        require(ssm_scan.launches == 2 * n_ssm,
+                f"{fixture}: {ssm_scan.launches} ssm_scan launches over two "
+                f"run_batch, not 2 x {n_ssm}")
         rk, rd = reps["kernel"], reps["dense"]
         rel_t = abs(rk.time_per_step - rd.time_per_step) / rd.time_per_step
         rel_e = (abs(rk.energy_per_step - rd.energy_per_step)
@@ -4223,7 +4391,9 @@ def main() -> int:
                         "time_per_step": rd.time_per_step,
                         "energy_per_step": rd.energy_per_step,
                         "bottleneck_stage": rd.bottleneck_stage,
-                        "rel_diff_time": rel_t, "rel_diff_energy": rel_e}
+                        "rel_diff_time": rel_t, "rel_diff_energy": rel_e,
+                        "ssm_state_layers": n_ssm,
+                        "ssm_scan_launches": ssm_scan.launches}
     emit({"phase": "pricing", "profile": prof.name, "archs": priced,
           "counters": "equal to tests/golden (all nine fixtures), kernel "
                       "and dense",
@@ -4734,7 +4904,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     init_phase(device=DEVICE, card=card)
 
-    emit({"kernels": [mm, wc, fa, em1, sdk]})
+    # ----------------------------- (L) the ssm state neurons' scan
+    ns = neuron_scan_phase(card=card)
+
+    emit({"kernels": [mm, wc, fa, em1, sdk, ns]})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -9,6 +9,8 @@ wrapper counts its launches in a plain integer attribute, ``launches``.
 The public names are the JAX package's: the block-sparse event-driven
 matmul (``event_matmul``, ``event_matmul_pair`` and their tile
 bookkeeping) and the sigma-delta encoder and windowed reconstruction.
+The ssm state neurons' scan, which has no counterpart there, is
+imported from its own module (``neuron_scan.ops.ssm_scan``).
 """
 
 from repro_torch.kernels.event_matmul.ops import (block_activity,

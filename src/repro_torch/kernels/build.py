@@ -48,6 +48,8 @@ SIGNATURES = {
     # scale, stream
     "flash_attn_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
                           _F, _I, _F, _P],
+    # pre, ld, x0, y, x_out, T, N, decay, force_active, stream
+    "ssm_scan_launch": [_P, _L, _P, _P, _P, _I, _I, _F, _I, _P],
 }
 
 _lock = threading.Lock()

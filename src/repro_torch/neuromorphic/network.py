@@ -13,7 +13,8 @@ Two execution engines produce identical event counts:
   layer in order, the full ``(T, n_in)`` message matrix is consumed at
   once.  Exact for feed-forward stacks: within a timestep messages flow
   strictly downstream, and stateful neurons carry state only along time
-  within one layer, so they reduce to a Python loop over T of vectorised
+  within one layer: the ``ssm`` state neurons run one scan over T (a
+  kernel on the card), the others a Python loop over T of vectorised
   tensor ops on the device.
 
 The per-layer synaptic forward (pre-activations plus the exact MAC / fetch
@@ -38,6 +39,7 @@ import torch
 
 from repro_torch import trace
 from repro_torch.device import resolve_device
+from repro_torch.kernels.neuron_scan.ops import ssm_scan
 from repro_torch.neuromorphic import compute as _compute
 
 
@@ -272,9 +274,11 @@ class SimLayer:
     def _neuron_batch(self, pre: torch.Tensor, state: dict
                       ) -> tuple[torch.Tensor, dict]:
         """Neuron update over the whole (T, n) pre-activation block:
-        stateless models vectorise fully; stateful models loop over T with
-        every per-step op vectorised across the n neurons (the float op
-        order of T sequential single-step updates)."""
+        stateless models vectorise fully; ``ssm`` runs one scan over all T
+        steps (one kernel launch on the card); ``if`` and ``sd_relu`` loop
+        over T with every per-step op vectorised across the n neurons.
+        Each keeps the float op order of T sequential single-step
+        updates."""
         T = pre.shape[0]
         if self.neuron_model == "relu":
             if self.force_active:
@@ -306,11 +310,7 @@ class SimLayer:
                 y[t] = q
             return y, dict(state, y_sent=y_sent)
         if self.neuron_model == "ssm":
-            x = state["x"]
-            y = torch.empty_like(pre)
-            for t in range(T):
-                x = self.decay * x + pre[t]
-                y[t] = x.abs() + 1.0 if self.force_active else x
+            y, x = ssm_scan(pre, state["x"], self.decay, self.force_active)
             return y, dict(state, x=x)
         raise ValueError(f"unknown neuron model {self.neuron_model}")
 
