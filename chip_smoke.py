@@ -25,8 +25,8 @@ Phases, each printing one JSON line:
                   float and as int8 masks; the value-only base rows), on a
                   strided conv stack through im2col, and on edge cases
                   (bm = 64 with a threshold); two launches of each of the
-                  six instances (1-D and joint, float32 / bfloat16 / int8)
-                  bit for bit, with and without a split k list; a layer's
+                  six instances (1-D and joint, float32 on the wgmma body
+                  / bfloat16 / int8 on mma.sync) bit for bit, with and without a split k list; a layer's
                   two products in one library call (the bind kernel, then
                   each product; values and wire events that differ) at
                   whisper-base's values map (K = 12,000, copied to a
@@ -46,8 +46,12 @@ Phases, each printing one JSON line:
                   ``event_matmul2`` is timed at the largest value and
                   counter launches, the narrowest layer, a base-row value
                   launch, the largest delta stream with half its windows
-                  quiet (dead activation tiles) and whisper-base's fc2 at
-                  M = 448 (448x2048 @ 2048x512, a split k list); the share
+                  quiet (dead activation tiles), whisper-base's fc2 at
+                  M = 448 (448x2048 @ 2048x512, a split k list) and the
+                  mamba2-1.3b head (1024x2048 @ 2048x50277), each value
+                  launch's output held to the float64 product within
+                  ``EM_TOL`` and to the plain version with its own error
+                  as slack; the share
                   of live tile products of every main-path launch is
                   printed too.  ``window_cumsum`` at the widest stream.
   (f) frontend  — the model-zoo frontend at full width: whisper-base's full
@@ -61,7 +65,8 @@ Phases, each printing one JSON line:
                   is traced as in ``profile``, with the device time of each
                   kernel family, and one recorded: 24 padded copies a
                   stream (both products of the 12 values maps of K =
-                  12,000).
+                  12,000) and 97 ``event_matmul.wgmma_products`` (every
+                  float32 value product on the wgmma body).
   (g) pricing   — four compiled smoke archs (gemma2, mamba2, olmoe, whisper)
                   priced on loihi2_like through kernel mode and dense; the
                   per-layer counters equal ``tests/golden/model_*.json``.
@@ -394,9 +399,12 @@ Phases, each printing one JSON line:
                   itself (the registry's mamba2-1.3b cut to 6 blocks and
                   the published 50,277-wide head, T = 1,024) through
                   ``run_batch`` in kernel mode, recorded: one launch a
-                  state layer (6) and ``neuron_scan.entries`` 6 x 1,024
-                  x 4,096, the output and all five counters bit for bit
-                  with the same stream through the loop.  Phases (f)
+                  state layer (6), ``neuron_scan.entries`` 6 x 1,024
+                  x 4,096 and ``event_matmul.wgmma_products`` 19 (every
+                  layer's float32 value product on the wgmma body, each
+                  held to the float64 product and the plain version as in
+                  (e)), the output and all five counters bit for bit with
+                  the same stream through the loop.  Phases (f)
                   and (g) count the launches too: none for whisper-base,
                   one a state layer and ``run_batch`` for every
                   compiled fixture.
@@ -551,6 +559,39 @@ def close(a, b, rtol, atol, what: str) -> float:
 def exact(a, b, what: str) -> None:
     import torch
     require(torch.equal(a, b), f"{what}: not bit-identical")
+
+
+def f32_product_errors(y, x, w, occ, what: str) -> dict:
+    """A float32 product ``y`` of the event matmul held as the card tests
+    hold the wgmma body: to the float64 product within ``EM_TOL``, and to
+    the plain version (``event_matmul2_ref`` at threshold 0, joint with
+    the weight-tile occupancy ``occ``) with that version's own float32
+    error as the only slack -- the plain float32 product strays up to
+    1.9e-5 at K = 8,512, so EM_TOL alone cannot hold the kernel to it.
+    Dead activation tiles and unoccupied weight tiles are zeros, so the
+    float64 product is ``x @ w``.  Returns the largest errors."""
+    import torch
+    from repro_torch.kernels.event_matmul.ops import _pad_to
+    from repro_torch.kernels.event_matmul.ref import event_matmul2_ref
+    rtol, atol = EM_TOL["float32"]
+    M, N = y.shape
+    want = x.double() @ w.double()
+    plain = event_matmul2_ref(_pad_to(x, (TILE, TILE)),
+                              _pad_to(w, (TILE, TILE)), occ, threshold=0.0,
+                              bm=TILE, bk=TILE, bn=TILE)[:M, :N].double()
+    err = (y.double() - want).abs()
+    slack = (plain - want).abs()
+    off = (y.double() - plain).abs()
+    past = float((err - rtol * want.abs()).max())
+    past_plain = float((off - rtol * plain.abs() - slack).max())
+    out = {"float64_max_abs_err": float(err.max()),
+           "plain_float64_max_abs_err": float(slack.max()),
+           "plain_max_abs_err": float(off.max())}
+    require(past <= atol and past_plain <= atol,
+            f"{what}: {out} beyond rtol={rtol} atol={atol} (float64 "
+            f"{past}, plain with its own error as slack {past_plain})")
+    del want, plain, err, slack, off
+    return out
 
 
 def reports_close(got, want, rtol: float) -> float:
@@ -3505,13 +3546,17 @@ def scan_cell_stream() -> dict:
     kernel mode under a recording.  Requires one ``ssm_scan`` launch a
     state layer, ``neuron_scan.entries`` = state layers x T x n, and the
     output and every counter bit for bit with the same stream through
-    the loop (``ssm_scan_ref`` in the scan's place).  Returns the
-    record."""
+    the loop (``ssm_scan_ref`` in the scan's place), and each layer's
+    float32 value product of the stream, launched again on its recorded
+    operands, held to the float64 product and the plain version
+    (:func:`f32_product_errors`).  Returns the record."""
     import dataclasses
 
     import torch
     from repro_torch import trace
     from repro_torch.configs import mamba2_1_3b
+    from repro_torch.kernels.event_matmul.ops import (event_matmul2,
+                                                      weight_block_occupancy)
     from repro_torch.kernels.neuron_scan.ops import ssm_scan
     from repro_torch.kernels.neuron_scan.ref import ssm_scan_ref
     from repro_torch.neuromorphic import EventCompute, compile_network
@@ -3530,8 +3575,9 @@ def scan_cell_stream() -> dict:
             f"{sorted({l.n_neurons for l in state})}")
     xs = cn.inputs(SCAN_T, seed=5)
     before = ssm_scan.launches
+    calls = recorder()
     with trace.recording() as rec:
-        out, cnts = cn.net.run_batch(xs, compute=EventCompute(mode="kernel"))
+        out, cnts = cn.net.run_batch(xs, compute=calls)
     torch.cuda.synchronize()
     launches = ssm_scan.launches - before
     entries = rec.count("neuron_scan.entries")
@@ -3539,6 +3585,23 @@ def scan_cell_stream() -> dict:
             f"(L) {launches} ssm_scan launches a stream, not {len(state)}")
     require(entries == len(state) * SCAN_T * SCAN_N,
             f"(L) neuron_scan.entries {entries}")
+    wgmma = rec.count("event_matmul.wgmma_products")
+    require(wgmma == len(cn.net.layers),
+            f"(L) {wgmma} wgmma products a stream, not "
+            f"{len(cn.net.layers)}")
+    errs, faults = [], []
+    for layer, x, _, _ in calls.calls:
+        occ = weight_block_occupancy(layer.weights)
+        try:
+            errs.append(f32_product_errors(
+                event_matmul2(x, layer.weights, occ), x, layer.weights, occ,
+                f"(L) {layer.name} values"))
+        except RuntimeError as e:
+            faults.append(str(e))
+    require(not faults, "; ".join(faults))
+    require(len(errs) == wgmma,
+            f"(L) {len(errs)} value products checked, not {wgmma}")
+    calls.calls.clear()
     network_mod.ssm_scan = ssm_scan_ref
     try:
         t0 = time.perf_counter()
@@ -3559,6 +3622,8 @@ def scan_cell_stream() -> dict:
                          f"{SCAN_VOCAB}",
                "layers": len(cn.net.layers), "state_layers": len(state),
                "T": SCAN_T, "launches": launches, "entries": entries,
+               "wgmma_products": wgmma,
+               **{k: max(e[k] for e in errs) for k in errs[0]},
                "compile_s": compile_s, "loop_run_batch_s": loop_s,
                "output_and_counters": "bit-identical to the loop"}
     del cn, xs, out, cnts, out_l, cnts_l
@@ -4124,13 +4189,14 @@ def main() -> int:
         Values are float32 (3xTF32), counters int8 0/1 masks (int8 rate,
         float32 out); the library call is ``torch.matmul`` for values and
         ``torch._int_mm`` for counters (``torch.matmul`` of the float
-        masks beside it)."""
+        masks beside it).  A value launch's output is held to the float64
+        product and the plain version (:func:`f32_product_errors`)."""
         live, xp, active, occ = live_tiles(x, w)
         wp = _pad_to(w, (TILE, TILE))
         if counter:
             x, w = (x != 0).to(torch.int8), (w != 0).to(torch.int8)
         kw = KernelWeights(w, occ)
-        launch, _, _ = em_bind_launch(x, kw)
+        launch, y, _ = em_bind_launch(x, kw)
         M, N = x.shape[0], w.shape[1]
         row = {"what": what, "layer": name, "M": M, "K": x.shape[1],
                "N": N, "dtype": str(x.dtype)[6:],
@@ -4147,6 +4213,10 @@ def main() -> int:
                "plain_ms": time_ms(lambda: event_matmul2_ref(
                    _pad_to(x, (TILE, TILE)), _pad_to(w, (TILE, TILE)), occ,
                    threshold=0.0, bm=TILE, bk=TILE, bn=TILE))}
+        if not counter:  # the output of the launches timed above
+            torch.cuda.synchronize()
+            row.update(f32_product_errors(y[:M, :N], x, w, occ,
+                                          f"(e) {name}"))
         if counter and M > 16:
             x8, w8 = _pad_to(x, (TILE, TILE)), _pad_to(w, (TILE, TILE))
             row["library_ms"] = time_ms(lambda: torch._int_mm(x8, w8))
@@ -4190,11 +4260,21 @@ def main() -> int:
     mm_rows.append(time_matmul(xw, ww, False, "whisper-base fc2 shape, "
                                "M = 448 (random operands, seed 11)",
                                "whisper fc2"))
+    gh = torch.Generator().manual_seed(13)
+    xh = torch.randn((SCAN_T, 2048), generator=gh).to(dev)
+    wh = (torch.randn((2048, SCAN_VOCAB), generator=gh) / 2048 ** 0.5
+          ).to(dev)
+    mm_rows.append(time_matmul(xh, wh, False, "mamba2-1.3b head, "
+                               "1,024 x 2,048 x 50,277 (random operands, "
+                               "seed 13)", "mamba2 head"))
+    del xh, wh
     mm = {"name": "event_matmul2", "route": "cuda",
           "source": "src/repro_torch/csrc/event_matmul.cu",
           "replaces": "src/repro/kernels/event_matmul/kernel.py:52",
           "launches": launches["event_matmul2"],
-          "max_abs_err": max_err["event_matmul2"]}
+          "max_abs_err": max_err["event_matmul2"],
+          "float64_max_abs_err": max(r.get("float64_max_abs_err", 0.0)
+                                     for r in mm_rows)}
     mm.update({k: mm_rows[0][k] for k in ("ms", "plain_ms", "bound_ms",
                                           "bound_by", "library_ms",
                                           "fp32_fma_bound_ms", "method")})
@@ -4297,6 +4377,10 @@ def main() -> int:
     copies_w = rec_copies.count("event_matmul.padded_copies")
     require(copies_w == 24, f"whisper-base: {copies_w} padded copies a "
             f"stream, not 24")
+    # every layer's float32 value product on the wgmma body
+    wgmma_w = rec_copies.count("event_matmul.wgmma_products")
+    require(wgmma_w == n_fc, f"whisper-base: {wgmma_w} wgmma products a "
+            f"stream, not {n_fc}")
     attn_share = {layer.name: [float(live_tiles(a, b)[0].float().mean())
                                for a, b in ((x, layer.weights),
                                             (m, layer.w_mask))]
@@ -4315,6 +4399,7 @@ def main() -> int:
           "counters": "bit-identical to dense; MACs == T * macs_per_token",
           "peak_device_bytes": torch.cuda.max_memory_allocated(),
           "traced_run_batch": profile_w, "padded_copies": copies_w,
+          "wgmma_products": wgmma_w,
           "live_share_value_counter": attn_share})
     del cn, xs_w, rec_w, out_w, cnt_w, cnt_wd
     torch.cuda.empty_cache()

@@ -1,4 +1,4 @@
-// Block-sparse event-driven matmuls for Hopper (sm_90a): one tile body,
+// Block-sparse event-driven matmuls for Hopper (sm_90a): two tile bodies,
 // two TPU kernels, three operand kinds.
 //
 // Replaces `_event_matmul_kernel` / `event_matmul_pallas` (the 1-D kernel)
@@ -12,6 +12,16 @@
 //         shared by every n;
 //   joint (kPerPair = true):  the k tiles whose activation tile has an
 //         event AND whose weight tile (k, n) a nonzero.
+// Each block builds its own list (the Hopper form of the TPU's scalar
+// prefetch): warp 0 reads the (Mb, Kb) activity bytes and, for the joint
+// kernel, the (Kb, Nb) occupancy bytes, and compacts the live k tiles in
+// ascending order into shared memory with a ballot and a popcount prefix,
+// 32 k tiles per step.  Where the output tiles alone would leave the card
+// under one wave, the wrapper asks for `splits` blocks per tile: block s
+// takes live entries [s*cnt/splits, (s+1)*cnt/splits) of the list and
+// writes a float32 partial; a second pass (reduce_splits) sums the
+// partials in split order.  No atomics and a fixed k order: repeated
+// launches give the same bits.
 //
 // Operand kinds (one instance each; x and w of one type):
 //   F32  -- float32 values, 3xTF32 on the TF32 tensor cores: each operand
@@ -22,58 +32,64 @@
 //           in the tensor core across the whole list, the sum truncates at
 //           every step, drifts one way, and missed float32 by 2.8e-5 at
 //           K = 1024 (limit 1e-5); a stage's partial has a random sign, so
-//           its truncations do not add up.  About float32 accuracy (the
-//           dropped a_lo*b_lo term is ~2^-22 relative); float32 out.
+//           its truncations do not add up.  Within 4.14e-6 of the float64
+//           product at K = 8,512 (the plain float32 product: 1.9e-5); the
+//           dropped a_lo*b_lo term is ~2^-22 relative.  float32 out.
 //   BF16 -- bfloat16 operands, float32 accumulation, rounded once at the
 //           store; bfloat16 out.
 //   I8   -- int8 0/1 masks (the counter products), int32 accumulation,
 //           converted to float32 at the store: exact while a sum stays
 //           below 2^24.
 //
-// What bounds it on this card: operations for F32 (3 products per MAC at
-// the 495 TFLOP/s TF32 rate) and BF16 at full tile liveness; bytes for I8
-// (the float32 output outweighs its int8 operands) and for sparse BF16.
-// The design answers each limit of the first version (SIMT fp32 FMA,
-// synchronous staging, one block per 128 x 128 tile, host-built lists):
+// What bounds F32 on this card: operations, 3 TF32 products a MAC at the
+// 495 TFLOP/s rate, and behind them the L2's bandwidth, since the weights'
+// two halves double the bytes a tile reads.  Its body (wgmma, below)
+// answers each limit of the first tensor-core design, which ran at a
+// third of that rate on mma.sync:
 //
-// * Tensor cores through mma.sync (m16n8k8 tf32, m16n8k16 bf16, m16n8k32
-//   s8), not wgmma: a first tensor-core design.  With both operands
-//   K-major (x as (M, K), w transposed to (N, K) by the wrapper) the three
-//   kinds read their fragments at the same 32-bit word positions, so one
-//   body serves all three: a k step is 8 words (k8 tf32, k16 bf16, k32 s8).
-// * A ring of kStages = 4 shared-memory stages filled by 16-byte
-//   cp.async: a stage is 128 bytes of k for the block's 64 x rows and 128
-//   w rows (24 KB), 16-byte chunks XOR-swizzled by row so that fragment
-//   reads are conflict-free.  The copies for stage q+3 are in flight while
-//   stage q is multiplied; one barrier per stage.  96 KB of dynamic shared
-//   memory per block, two blocks per SM.
-// * 64-row output tiles (the activity granularity stays 128: a tile reads
-//   the list of its 128-row block), four warps of 32 x 64 outputs each.
-//   Where the output tiles alone would leave the card under one wave, the
-//   wrapper asks for `splits` blocks per tile: block s takes live entries
-//   [s*cnt/splits, (s+1)*cnt/splits) of the list and writes a float32
-//   partial; a second pass sums the partials in split order.  No atomics
-//   and a fixed k order: repeated launches give the same bits.
-// * The block builds its own live list (the Hopper form of the TPU's
-//   scalar prefetch): warp 0 reads the (Mb, Kb) activity bytes and, for
-//   the joint kernel, the (Kb, Nb) occupancy bytes, and compacts the live
-//   k steps in ascending order into shared memory with a ballot and a
-//   popcount prefix, 32 k tiles per step.
+// * wgmma.mma_async m64n128k8 .tf32, the only way to Hopper's full tensor
+//   rate.  A block owns a 128 x 128 output tile: two consumer warpgroups
+//   of 64 rows, each holding its tile's float32 accumulator and the
+//   stage's tensor-core sum (64 + 64 registers a thread, after setmaxnreg
+//   moves registers from the producer to them).
+// * The weights' TF32 halves are made once per layer by the wrapper
+//   (KernelWeights), not re-split on every k step of every call: B comes
+//   from shared memory through descriptors.  x is loaded raw and split in
+//   the consumers' registers, where it enters the products as A.
+// * One producer thread keeps a 4-stage ring full through TMA: a stage is
+//   32 floats of k for the 128 x rows and the 128 rows of each weight half
+//   (48 KB, 128-byte swizzled by the copy, conflict-free for the A loads),
+//   handed over by a full and an empty mbarrier a stage, so no barrier
+//   stops the whole block.  Rows past M arrive as zeros (TMA's bounds), so
+//   x is read in place at M = 448.
+// * Blocks walk the m-blocks of one n tile together, so each weight tile
+//   is read from device memory once and from L2 by the others.
+//
+// BF16 and I8 run on the mma.sync body: m16n8k16 bf16 and m16n8k32 s8
+// fragments, read at the same 32-bit word positions (a k step is 8 words),
+// a 4-stage cp.async ring of 24 KB stages (64 x rows, 128 w rows, 16-byte
+// chunks XOR-swizzled by row), 64-row output tiles of four warps (32 x 64
+// outputs each), two blocks an SM.  What bounds them: bytes for I8 (the
+// float32 output outweighs its int8 operands) and for sparse BF16,
+// operations for dense BF16.
 //
 // The bind (event_bind) runs first, in the same library call as the
 // products it feeds: one pass over a layer's value operand and wire-event
 // mask that writes both activity maps and the int8 counter operand, and a
 // zero-padded copy of an operand only where a product would read past it
 // (K not a multiple of 128, M not of 64, or x not packed and 16-byte
-// aligned); every other operand is read in place.  Rows past M are never
-// read: their 64-row blocks find an empty list.  It replaces the dozen
-// PyTorch ops a layer took to pad, map and cast on the host's side.
+// aligned); every other operand is read in place.  The mma.sync body never
+// reads rows past M: their 64-row blocks find an empty list.  It replaces
+// the dozen PyTorch ops a layer took to pad, map and cast on the host's
+// side.
 
+#include <cuda.h>  // CUtensorMap and its enums; no libcuda symbol is linked
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstddef>
 #include <cstdint>
+#include <type_traits>
 
 #include "tf32_mma.cuh"
 
@@ -89,17 +105,14 @@ constexpr int kStageWords = (kRows + kTile) * kWords;
 constexpr int kStageBytes = kStageWords * 4;
 constexpr int kChunks = (kRows + kTile) * 8 / kThreads;  // 16 B copies
 
-// kPromote: each stage's sum starts at zero in the tensor core and joins
-// the accumulator through a rounded float32 add.  For the bind: Raw is the
-// operand's bits, magnitude(v) its |v| as PyTorch's abs gives it (int8
-// wraps: |-128| = -128), compared(t) the threshold as PyTorch compares a
-// tensor of the kind with a float (in bfloat16 for bfloat16).
+// For the bind: Raw is the operand's bits, magnitude(v) its |v| as
+// PyTorch's abs gives it (int8 wraps: |-128| = -128), compared(t) the
+// threshold as PyTorch compares a tensor of the kind with a float (in
+// bfloat16 for bfloat16).  F32's products run on the wgmma body, the other
+// two kinds' on the mma.sync body (Acc: its accumulator).
 struct F32 {
-  using T = float;
-  using Acc = float;
   using Out = float;
   using Raw = uint32_t;
-  static constexpr bool kPromote = true;
   static __device__ float magnitude(Raw v) { return fabsf(__uint_as_float(v)); }
   static __device__ float compared(float t) { return t; }
 };
@@ -108,7 +121,6 @@ struct BF16 {
   using Acc = float;
   using Out = __nv_bfloat16;
   using Raw = uint16_t;
-  static constexpr bool kPromote = false;
   static __device__ float magnitude(Raw v) {
     return fabsf(__uint_as_float(static_cast<uint32_t>(v) << 16));
   }
@@ -121,7 +133,6 @@ struct I8 {
   using Acc = int;
   using Out = float;
   using Raw = int8_t;
-  static constexpr bool kPromote = false;
   static __device__ float magnitude(Raw v) {
     return static_cast<float>(static_cast<int8_t>(v < 0 ? -v : v));
   }
@@ -147,28 +158,6 @@ __device__ __forceinline__ void mma_s8(int (&d)[4], const uint32_t (&a)[4],
 // One k step (8 words) of a warp's 32 x 64 tile: a[i] holds the A
 // fragments of its two 16-row slices, b[j] the B fragments of its eight
 // 8-column slices, as raw words of the operand type.
-__device__ __forceinline__ void warp_step(float (&acc)[2][kNT][4],
-                                          const uint32_t (&a)[2][4],
-                                          const uint32_t (&b)[kNT][2], F32) {
-  uint32_t ah[2][4], al[2][4];
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int r = 0; r < 4; ++r) split_tf32(a[i][r], ah[i][r], al[i][r]);
-#pragma unroll
-  for (int j = 0; j < kNT; ++j) {
-    uint32_t bh[2], bl[2];
-    split_tf32(b[j][0], bh[0], bl[0]);
-    split_tf32(b[j][1], bh[1], bl[1]);
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      mma_tf32(acc[i][j], al[i], bh);
-      mma_tf32(acc[i][j], ah[i], bl);
-      mma_tf32(acc[i][j], ah[i], bh);
-    }
-  }
-}
-
 __device__ __forceinline__ void warp_step(float (&acc)[2][kNT][4],
                                           const uint32_t (&a)[2][4],
                                           const uint32_t (&b)[kNT][2], BF16) {
@@ -212,6 +201,7 @@ __device__ __forceinline__ void store4(__nv_bfloat16* p, float4 v) {
   *reinterpret_cast<uint2*>(p) = raw;
 }
 
+// The mma.sync body, BF16 and I8.
 // Grid (nb, mp / 64, splits), 128 threads.  x (mp, K) and wt (nb*128, K)
 // row-major, K = kb * 128; act (mp / 128, kb) and occ (kb, nb) bytes;
 // out (mp, nb*128), or with splits > 1 the partials part (splits, mp,
@@ -314,48 +304,28 @@ event_matmul_kernel(const typename Kind::T* __restrict__ x,
     const uint32_t* stage = smem + (q % kStages) * kStageWords;
     const uint32_t* sa = stage + (wm * 32 + g) * kWords;
     const uint32_t* sb = stage + (kRows + wn * 8 * kNT + g) * kWords;
-    auto k_steps = [&](Acc(&dst)[2][kNT][4]) {
 #pragma unroll
-      for (int s = 0; s < 4; ++s) {
-        // words 8s + t and 8s + t + 4 sit in chunks 2s and 2s + 1; every
-        // fragment row is g modulo 8
-        const int c0 = (((2 * s) ^ g) << 2) + t;
-        const int c1 = (((2 * s + 1) ^ g) << 2) + t;
-        uint32_t a[2][4], b[kNT][2];
+    for (int s = 0; s < 4; ++s) {
+      // words 8s + t and 8s + t + 4 sit in chunks 2s and 2s + 1; every
+      // fragment row is g modulo 8
+      const int c0 = (((2 * s) ^ g) << 2) + t;
+      const int c1 = (((2 * s + 1) ^ g) << 2) + t;
+      uint32_t a[2][4], b[kNT][2];
 #pragma unroll
-        for (int i = 0; i < 2; ++i) {
-          const uint32_t* r = sa + i * 16 * kWords;
-          a[i][0] = r[c0];
-          a[i][1] = r[8 * kWords + c0];
-          a[i][2] = r[c1];
-          a[i][3] = r[8 * kWords + c1];
-        }
-#pragma unroll
-        for (int j = 0; j < kNT; ++j) {
-          const uint32_t* r = sb + j * 8 * kWords;
-          b[j][0] = r[c0];
-          b[j][1] = r[c1];
-        }
-        warp_step(dst, a, b, Kind{});
+      for (int i = 0; i < 2; ++i) {
+        const uint32_t* r = sa + i * 16 * kWords;
+        a[i][0] = r[c0];
+        a[i][1] = r[8 * kWords + c0];
+        a[i][2] = r[c1];
+        a[i][3] = r[8 * kWords + c1];
       }
-    };
-    if constexpr (Kind::kPromote) {
-      Acc stage_sum[2][kNT][4];
 #pragma unroll
-      for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int j = 0; j < kNT; ++j)
-#pragma unroll
-          for (int r = 0; r < 4; ++r) stage_sum[i][j][r] = 0;
-      k_steps(stage_sum);
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int j = 0; j < kNT; ++j)
-#pragma unroll
-          for (int r = 0; r < 4; ++r) acc[i][j][r] += stage_sum[i][j][r];
-    } else {
-      k_steps(acc);
+      for (int j = 0; j < kNT; ++j) {
+        const uint32_t* r = sb + j * 8 * kWords;
+        b[j][0] = r[c0];
+        b[j][1] = r[c1];
+      }
+      warp_step(acc, a, b, Kind{});
     }
   }
 
@@ -396,6 +366,328 @@ __global__ void reduce_splits(const float* __restrict__ part,
     }
     store4(out + 4 * i, s);
   }
+}
+
+// ---------------------------------------------- the float32 body on wgmma
+//
+// Grid (mp / 128, nb, splits), 384 threads: warpgroup 0 produces (one
+// thread issues the TMA loads), warpgroups 1 and 2 consume, 64 output rows
+// each, all 128 columns of the n tile.  x (x_rows, kb*128) and the
+// weights' halves (2, nb*128, kb*128) -- hi rows, then lo rows -- are read
+// through tensor maps as 128-row boxes of 32 floats (128 B, the swizzle
+// width); rows at or past x_rows arrive as zeros.
+constexpr int kWRows = 128;              // output rows a block
+constexpr int kWThreads = 384;           // producer + two consumer groups
+constexpr int kWStages = 4;              // depth of the ring
+constexpr int kWBox = kTile * 128;       // one 128-row, 128-byte box
+constexpr int kWStageBytes = 3 * kWBox;  // x, w hi, w lo: 48 KB
+constexpr int kWRing = kWStages * kWStageBytes;
+constexpr int kWSteps = kTile / 32;      // stages a k tile
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+      "r"(bytes)
+      : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// One box of `map` at (c0 = k, c1 = row) into shared memory at dst,
+// counted on the barrier's transaction bytes.
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
+                                         int c0, int c1, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%2, %3}], [%4];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(bar)
+      : "memory");
+}
+
+// The shared-memory descriptor of a K-major box: rows of 128 B, eight
+// rows (1,024 B) a swizzle atom, 128-byte swizzle.  Adding 2 advances it
+// by 32 B, one k step of 8 floats.
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr) {
+  return static_cast<uint64_t>((addr & 0x3ffffu) >> 4) | (1ull << 16) |
+         (64ull << 32) | (1ull << 62);
+}
+
+// d (+)= a * b over one k step of 8: the warpgroup's 64 x 128 tile, A
+// (its 64 x 8 rows) from registers as mma.m16n8k8 fragments a warp, B
+// (128 x 8) from shared memory.  scale_d 0 overwrites d.
+__device__ __forceinline__ void wgmma_tf32(float (&d)[64],
+                                           const uint32_t (&a)[4],
+                                           uint64_t desc, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(scale_d));
+}
+
+// Keeps the compiler from moving register traffic across the asynchronous
+// products that read or write r.
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+
+template <int M, int N>
+__device__ __forceinline__ void fence_regs(uint32_t (&r)[M][N]) {
+#pragma unroll
+  for (int i = 0; i < M; ++i)
+#pragma unroll
+    for (int j = 0; j < N; ++j) asm volatile("" : "+r"(r[i][j])::"memory");
+}
+
+template <bool kPerPair>
+__global__ void __launch_bounds__(kWThreads, 1)
+event_matmul_kernel_wgmma(const __grid_constant__ CUtensorMap xmap,
+                          const __grid_constant__ CUtensorMap wmap,
+                          const unsigned char* __restrict__ act,
+                          const unsigned char* __restrict__ occ,
+                          float* __restrict__ out, float* __restrict__ part,
+                          int nb, int kb) {
+  extern __shared__ unsigned char wsmem[];
+  // the ring on a 1,024-byte boundary (the swizzle atom), then the full
+  // and empty barriers of each stage, then the live list
+  const uint32_t raw = static_cast<uint32_t>(__cvta_generic_to_shared(wsmem));
+  const uint32_t ring = (raw + 1023u) & ~1023u;
+  const unsigned char* base = wsmem + (ring - raw);
+  const uint32_t full = ring + kWRing;
+  const uint32_t empty = full + 8 * kWStages;
+  int* list = reinterpret_cast<int*>(wsmem + (ring - raw) + kWRing +
+                                     16 * kWStages);
+
+  const int mblk = blockIdx.x;
+  const int n = blockIdx.y;
+  const int split = blockIdx.z;
+  const int splits = gridDim.z;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+
+  if (warp == 0) {
+    int count = 0;
+    const unsigned char* arow = act + static_cast<size_t>(mblk) * kb;
+    for (int b = 0; b < kb; b += 32) {
+      const int k = b + lane;
+      bool live = k < kb && arow[k] != 0;
+      if (kPerPair) live = live && occ[static_cast<size_t>(k) * nb + n] != 0;
+      const unsigned bits = __ballot_sync(0xffffffffu, live);
+      if (live) list[count + __popc(bits & ((1u << lane) - 1u))] = k;
+      count += __popc(bits);
+    }
+    if (lane == 0) {
+      list[kb] = count;
+      for (int s = 0; s < kWStages; ++s) {
+        mbar_init(full + 8 * s, 1);
+        mbar_init(empty + 8 * s, 8);  // lane 0 of each consumer warp
+      }
+      asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    }
+  }
+  __syncthreads();
+  const int cnt = list[kb];
+  const int lo = static_cast<int>(static_cast<long long>(split) * cnt / splits);
+  const int hi =
+      static_cast<int>(static_cast<long long>(split + 1) * cnt / splits);
+  const int total = (hi - lo) * kWSteps;
+
+  if (warp < 4) {  // the producer warpgroup
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    if (tid == 0) {
+      for (int q = 0; q < total; ++q) {
+        const int s = q % kWStages;
+        mbar_wait(empty + 8 * s, ((q / kWStages) & 1) ^ 1);
+        const uint32_t dst = ring + s * kWStageBytes;
+        const int k = list[lo + q / kWSteps] * kTile + (q % kWSteps) * 32;
+        mbar_expect_tx(full + 8 * s, kWStageBytes);
+        tma_load(dst, &xmap, k, mblk * kTile, full + 8 * s);
+        tma_load(dst + kWBox, &wmap, k, n * kTile, full + 8 * s);
+        tma_load(dst + 2 * kWBox, &wmap, k, (nb + n) * kTile, full + 8 * s);
+      }
+    }
+    return;
+  }
+
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+  const int row = (warp - 4) * 16 + (lane >> 2);  // 0..127, and row + 8
+  const int g = lane >> 2;                        // row % 8: the swizzle
+  const int t = lane & 3;
+  float acc[64], sum[64];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) acc[i] = sum[i] = 0.0f;
+  for (int q = 0; q < total; ++q) {
+    const int s = q % kWStages;
+    mbar_wait(full + 8 * s, (q / kWStages) & 1);
+    // A: this thread's fragments of the stage's four k steps, split here
+    const uint32_t* sa =
+        reinterpret_cast<const uint32_t*>(base + s * kWStageBytes) +
+        row * kWords;
+    uint32_t ah[kWSteps][4], al[kWSteps][4];
+#pragma unroll
+    for (int ks = 0; ks < kWSteps; ++ks) {
+      const int c0 = (((2 * ks) ^ g) << 2) + t;
+      const int c1 = (((2 * ks + 1) ^ g) << 2) + t;
+      split_tf32(sa[c0], ah[ks][0], al[ks][0]);
+      split_tf32(sa[8 * kWords + c0], ah[ks][1], al[ks][1]);
+      split_tf32(sa[c1], ah[ks][2], al[ks][2]);
+      split_tf32(sa[8 * kWords + c1], ah[ks][3], al[ks][3]);
+    }
+    const uint32_t stage = ring + s * kWStageBytes;
+    const uint64_t bh = sw128_desc(stage + kWBox);
+    const uint64_t bl = sw128_desc(stage + 2 * kWBox);
+    fence_regs(sum);
+    asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+#pragma unroll
+    for (int ks = 0; ks < kWSteps; ++ks) {
+      wgmma_tf32(sum, al[ks], bh + 2 * ks, ks);  // the stage's sum from 0
+      wgmma_tf32(sum, ah[ks], bl + 2 * ks, 1);
+      wgmma_tf32(sum, ah[ks], bh + 2 * ks, 1);
+    }
+    asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+    asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+    fence_regs(sum);
+    fence_regs(ah);  // the products read A until the wait
+    fence_regs(al);
+    __syncwarp();
+    if (lane == 0) mbar_arrive(empty + 8 * s);
+#pragma unroll
+    for (int i = 0; i < 64; ++i) acc[i] += sum[i];
+  }
+
+  const size_t N = static_cast<size_t>(nb) * kTile;
+  float* dst = splits == 1 ? out
+                           : part + static_cast<size_t>(split) * gridDim.x *
+                                        kWRows * N;
+  float* r0 = dst + (static_cast<size_t>(mblk) * kWRows + row) * N +
+              static_cast<size_t>(n) * kTile + 2 * t;
+#pragma unroll
+  for (int j = 0; j < 16; ++j) {
+    store2(r0 + 8 * j, acc[4 * j], acc[4 * j + 1]);
+    store2(r0 + 8 * N + 8 * j, acc[4 * j + 2], acc[4 * j + 3]);
+  }
+}
+
+// cuTensorMapEncodeTiled, reached through the runtime so that the library
+// needs no link against libcuda.
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
+                                 cuuint32_t, void*, const cuuint64_t*,
+                                 const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+EncodeTiled encoder() {
+  static const EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+    if (err != cudaSuccess || found != cudaDriverEntryPointSuccess)
+      p = nullptr;
+    return reinterpret_cast<EncodeTiled>(p);
+  }();
+  return fn;
+}
+
+// A (rows, kp) row-major float32 matrix as the kernel's boxes: 32 floats
+// of k by 128 rows, 128-byte swizzled, zeros past the last row.
+bool box_map(CUtensorMap* map, const void* a, size_t rows, size_t kp) {
+  const EncodeTiled encode = encoder();
+  if (encode == nullptr) return false;
+  const cuuint64_t dims[2] = {kp, rows};
+  const cuuint64_t strides[1] = {kp * sizeof(float)};
+  const cuuint32_t box[2] = {32, kWRows};
+  const cuuint32_t unit[2] = {1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2,
+                const_cast<void*>(a), dims, strides, box, unit,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <bool kPerPair>
+int launch_wgmma(const void* x, int x_rows, const void* wsplit,
+                 const unsigned char* act, const unsigned char* occ,
+                 float* out, float* part, int mp, int nb, int kb, int splits,
+                 cudaStream_t stream) {
+  if (mp <= 0 || nb <= 0 || kb <= 0)
+    return static_cast<int>(cudaGetLastError());
+  if (mp % kWRows || splits < 1 || (splits > 1 && part == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  CUtensorMap xmap, wmap;
+  const size_t kp = static_cast<size_t>(kb) * kTile;
+  if (!box_map(&xmap, x, x_rows, kp) ||
+      !box_map(&wmap, wsplit, 2 * static_cast<size_t>(nb) * kTile, kp))
+    return static_cast<int>(cudaErrorInvalidValue);
+  auto kernel = event_matmul_kernel_wgmma<kPerPair>;
+  const int smem = 1024 + kWRing + 16 * kWStages + (kb + 1) * 4;
+  static int smem_set = 0;  // per instance: raise the limit once
+  if (smem > smem_set) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    smem_set = smem;
+  }
+  kernel<<<dim3(mp / kWRows, nb, splits), kWThreads, smem, stream>>>(
+      xmap, wmap, act, occ, out, part, nb, kb);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess || splits == 1) return static_cast<int>(err);
+  const size_t n4 = static_cast<size_t>(mp) * nb * kTile / 4;
+  size_t blocks = (n4 + 255) / 256;
+  if (blocks > 4096) blocks = 4096;
+  reduce_splits<float><<<static_cast<unsigned>(blocks), 256, 0, stream>>>(
+      part, out, n4, splits);
+  return static_cast<int>(cudaGetLastError());
 }
 
 template <class Kind, bool kPerPair>
@@ -495,18 +787,22 @@ event_bind(const typename Kind::Raw* __restrict__ x, long long sx0,
 
 // One call: the bind, the value product (1-D without occ) and, with m,
 // the int8 counter product (1-D without occ8), each with its reduction.
-// The workspace is carved in the order of the wrapper's sizes: act_x,
-// act_m, the copy of x, m8, the split partials (shared by both products,
-// which run one after the other on the stream).
+// A float32 value product runs on the wgmma body (wt: the weights' (2,
+// nb*128, kb*128) TF32 halves), the other kinds' and the counter on the
+// mma.sync body; `splits` and `splits_m` are the two products' blocks a
+// tile.  The workspace is carved in the order of the wrapper's sizes:
+// act_x, act_m, the copy of x, m8, the split partials (shared by both
+// products, which run one after the other on the stream).
 template <class Kind>
 int pair(const void* x, long long sx0, long long sx1, const float* m,
          long long sm0, long long sm1, const void* wt,
          const unsigned char* occ, const void* wt8,
          const unsigned char* occ8, void* y, float* macs, void* ws,
          long long ws_bytes, int m_rows, int k, int nb, int splits,
-         float threshold, int pad_x, int pad_m, cudaStream_t stream) {
+         int splits_m, float threshold, int pad_x, int pad_m,
+         cudaStream_t stream) {
   using Raw = typename Kind::Raw;
-  if (m_rows < 0 || k < 0 || nb <= 0 || splits < 1)
+  if (m_rows < 0 || k < 0 || nb <= 0 || splits < 1 || splits_m < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   const int kb = (k + kTile - 1) / kTile;
   const int mp = (m_rows + kTile - 1) / kTile * kTile;
@@ -541,9 +837,10 @@ int pair(const void* x, long long sx0, long long sx1, const float* m,
                      : nullptr;
   const int m8_rows = pad_m ? mp : m_rows;
   int8_t* m8 = m ? reinterpret_cast<int8_t*>(take(m8_rows * kp)) : nullptr;
-  float* part = splits > 1 ? reinterpret_cast<float*>(
-                                 take(splits * mp * np * sizeof(float)))
-                           : nullptr;
+  const int most = splits > splits_m || m == nullptr ? splits : splits_m;
+  float* part = most > 1 ? reinterpret_cast<float*>(
+                               take(most * mp * np * sizeof(float)))
+                         : nullptr;
   if (used > static_cast<size_t>(ws_bytes))
     return static_cast<int>(cudaErrorInvalidValue);
   event_bind<Kind><<<dim3(kb, mp / kTile), kBindThreads, 0, stream>>>(
@@ -552,16 +849,25 @@ int pair(const void* x, long long sx0, long long sx1, const float* m,
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   const void* xk = pad_x ? static_cast<const void*>(xcopy) : x;
-  const int rc =
-      occ ? launch<Kind, true>(xk, wt, act_x, occ, y, part, m_rows, mp, nb,
-                                kb, splits, stream)
-          : launch<Kind, false>(xk, wt, act_x, nullptr, y, part, m_rows, mp,
-                                 nb, kb, splits, stream);
+  int rc;
+  if constexpr (std::is_same<Kind, F32>::value) {
+    const int x_rows = pad_x ? mp : m_rows;
+    float* yf = static_cast<float*>(y);
+    rc = occ ? launch_wgmma<true>(xk, x_rows, wt, act_x, occ, yf, part, mp,
+                                  nb, kb, splits, stream)
+             : launch_wgmma<false>(xk, x_rows, wt, act_x, nullptr, yf, part,
+                                   mp, nb, kb, splits, stream);
+  } else {
+    rc = occ ? launch<Kind, true>(xk, wt, act_x, occ, y, part, m_rows, mp,
+                                  nb, kb, splits, stream)
+             : launch<Kind, false>(xk, wt, act_x, nullptr, y, part, m_rows,
+                                   mp, nb, kb, splits, stream);
+  }
   if (rc != 0 || m == nullptr) return rc;
   return occ8 ? launch<I8, true>(m8, wt8, act_m, occ8, macs, part, m_rows,
-                                  mp, nb, kb, splits, stream)
+                                  mp, nb, kb, splits_m, stream)
               : launch<I8, false>(m8, wt8, act_m, nullptr, macs, part,
-                                   m_rows, mp, nb, kb, splits, stream);
+                                   m_rows, mp, nb, kb, splits_m, stream);
 }
 
 }  // namespace
@@ -569,8 +875,11 @@ int pair(const void* x, long long sx0, long long sx1, const float* m,
 // One library call for one layer's products.  The value operand x
 // (m_rows, k) at element strides (sx0, sx1), of one kind -- 0 float32
 // (3xTF32), 1 bfloat16, 2 int8 (0/1 masks) -- with its weights wt
-// (nb*128, kb*128) transposed (K-major) and zero-padded, and occ (kb, nb),
-// 1 where a weight tile holds a nonzero (null: the 1-D product).  For a
+// (nb*128, kb*128) transposed (K-major) and zero-padded -- for float32
+// its TF32 halves (2, nb*128, kb*128), hi then lo -- and occ (kb, nb), 1
+// where a weight tile holds a nonzero (null: the 1-D product).  splits and
+// splits_m: blocks a tile of the value product (128-row tiles for
+// float32, else 64) and of the counter product (64-row tiles).  For a
 // pair, m (m_rows, k) float32 wire events at (sm0, sm1), counted against
 // the int8 nnz mask wt8 (same layout) and occ8.  y (mp, nb*128) in the
 // kind's output type (float32, bfloat16, float32) and macs (mp, nb*128)
@@ -586,22 +895,44 @@ extern "C" int event_matmul_pair_launch(
     long long sm0, long long sm1, const void* wt, const unsigned char* occ,
     const void* wt8, const unsigned char* occ8, void* y, float* macs,
     void* ws, long long ws_bytes, int m_rows, int k, int nb, int splits,
-    int kind, float threshold, int pad_x, int pad_m, void* stream) {
+    int splits_m, int kind, float threshold, int pad_x, int pad_m,
+    void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (kind) {
     case 0:
       return pair<F32>(x, sx0, sx1, m, sm0, sm1, wt, occ, wt8, occ8, y, macs,
-                       ws, ws_bytes, m_rows, k, nb, splits, threshold, pad_x,
-                       pad_m, s);
+                       ws, ws_bytes, m_rows, k, nb, splits, splits_m,
+                       threshold, pad_x, pad_m, s);
     case 1:
       return pair<BF16>(x, sx0, sx1, m, sm0, sm1, wt, occ, wt8, occ8, y, macs,
-                        ws, ws_bytes, m_rows, k, nb, splits, threshold, pad_x,
-                        pad_m, s);
+                        ws, ws_bytes, m_rows, k, nb, splits, splits_m,
+                        threshold, pad_x, pad_m, s);
     case 2:
       return pair<I8>(x, sx0, sx1, m, sm0, sm1, wt, occ, wt8, occ8, y, macs,
-                      ws, ws_bytes, m_rows, k, nb, splits, threshold, pad_x,
-                      pad_m, s);
+                      ws, ws_bytes, m_rows, k, nb, splits, splits_m,
+                      threshold, pad_x, pad_m, s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
+}
+
+// The split the wgmma body makes of each x word, alone: hi and lo of n
+// float32 words, so that tests can hold it to cvt.rna's bits and to the
+// plain split of the weights' halves.
+__global__ void tf32_split_kernel(const uint32_t* __restrict__ x,
+                                  uint32_t* __restrict__ hi,
+                                  uint32_t* __restrict__ lo, long long n) {
+  const long long i =
+      static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (i < n) split_tf32(x[i], hi[i], lo[i]);
+}
+
+extern "C" int tf32_split_launch(const void* x, void* hi, void* lo,
+                                 long long n, void* stream) {
+  if (n <= 0) return static_cast<int>(cudaGetLastError());
+  tf32_split_kernel<<<static_cast<unsigned>((n + 255) / 256), 256, 0,
+                      static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint32_t*>(x), static_cast<uint32_t*>(hi),
+      static_cast<uint32_t*>(lo), n);
+  return static_cast<int>(cudaGetLastError());
 }

@@ -36,10 +36,10 @@ _P, _I, _L, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
 #: ``c_float``); every one returns ``cudaError_t``.
 SIGNATURES = {
     # x, sx0, sx1, m, sm0, sm1, wt, occ, wt8, occ8, y, macs, ws, ws_bytes,
-    # m_rows, k, nb, splits, kind, threshold, pad_x, pad_m, stream
+    # m_rows, k, nb, splits, splits_m, kind, threshold, pad_x, pad_m, stream
     "event_matmul_pair_launch": [_P, _L, _L, _P, _L, _L, _P, _P, _P, _P, _P,
-                                 _P, _P, _L, _I, _I, _I, _I, _I, _F, _I, _I,
-                                 _P],
+                                 _P, _P, _L, _I, _I, _I, _I, _I, _I, _F, _I,
+                                 _I, _P],
     # a, s, q, s_out, n, theta, bf16, stream
     "sigma_delta_launch": [_P, _P, _P, _P, _L, _F, _I, _P],
     # x, live, out, n_windows, D, window, stream
@@ -50,6 +50,8 @@ SIGNATURES = {
                           _F, _I, _F, _P],
     # pre, ld, x0, y, x_out, T, N, decay, force_active, stream
     "ssm_scan_launch": [_P, _L, _P, _P, _P, _I, _I, _F, _I, _P],
+    # x, hi, lo, n, stream
+    "tf32_split_launch": [_P, _P, _P, _L, _P],
 }
 
 _lock = threading.Lock()

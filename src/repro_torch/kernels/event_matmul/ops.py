@@ -2,9 +2,11 @@
 :func:`event_matmul` / :func:`event_matmul_pair` API and the two kernels
 behind it.
 
-Both kernels are instances of one tile body (``csrc/event_matmul.cu``),
-for float32 (3xTF32), bfloat16 and int8 0/1-mask operands (exact counts,
-float32 out).  Without a weight-tile occupancy map the product goes
+Both kernels (``csrc/event_matmul.cu``) take float32 operands on a
+``wgmma`` body (3xTF32 on the weights' TF32 halves, which
+:class:`KernelWeights` makes once, 128-row output tiles) and bfloat16 and
+int8 0/1-mask operands (exact counts, float32 out) on an ``mma.sync``
+body (64-row tiles).  Without a weight-tile occupancy map the product goes
 through the 1-D kernel (one k list per m-block, shared by every n); with
 one, through the joint kernel :func:`event_matmul2` (one k list per
 (m, n) tile pair).  On CUDA every product goes through one library call,
@@ -26,6 +28,7 @@ versions, the reference's API and the tests; no CUDA path calls them.
 from __future__ import annotations
 
 import functools
+from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
@@ -36,12 +39,14 @@ from repro_torch.kernels.event_matmul.ref import (block_activity_ref,
                                                   event_matmul2_ref,
                                                   event_matmul_ref,
                                                   reads_in_place,
+                                                  tf32_split_ref,
                                                   zero_dead_tiles_ref)
 
 #: The tile edge of the CUDA kernel's activity map, k steps and output
 #: columns (bm = bk = bn).
 KERNEL_TILE = 128
-#: Output rows per block of the CUDA kernel (two per 128-row m-block).
+#: Output rows per block of the CUDA kernel's ``mma.sync`` body (two per
+#: 128-row m-block).
 KERNEL_ROWS = 64
 #: Most blocks that share one output tile's live list.
 MAX_SPLITS = 8
@@ -149,10 +154,13 @@ def kernel_layout(w: torch.Tensor) -> torch.Tensor:
 
 class KernelWeights:
     """One (K, N) weight matrix prepared for the kernel at 128-wide tiles:
-    ``wt`` its :func:`kernel_layout` copy and ``occ`` the (Kb, Nb) weight-
-    tile occupancy as bytes (None: the 1-D kernel, no weight skipping),
-    both built only for CUDA weights.  ``w`` and ``w_occ`` are kept for the
-    plain version on the CPU."""
+    ``wt`` its :func:`kernel_layout` copy -- for float32 that copy's TF32
+    halves instead, (2, Np, Kp), ``hi`` then ``lo`` of
+    :func:`..ref.tf32_split_ref`: the ``wgmma`` body's B operands, split
+    once here rather than on every k step of every product -- and ``occ``
+    the (Kb, Nb) weight-tile occupancy as bytes (None: the 1-D kernel, no
+    weight skipping), both built only for CUDA weights.  ``w`` and
+    ``w_occ`` are kept for the plain version on the CPU."""
 
     __slots__ = ("w", "w_occ", "wt", "occ", "_occ_rows")
 
@@ -165,6 +173,8 @@ class KernelWeights:
         self.wt = self.occ = self._occ_rows = None
         if w.device.type == "cuda":
             self.wt = kernel_layout(w)
+            if w.dtype == torch.float32:
+                self.wt = torch.stack(tf32_split_ref(self.wt))
             if w_occ is not None:
                 self.occ = w_occ.to(torch.uint8).contiguous()
 
@@ -188,6 +198,48 @@ def kernel_splits(tiles: int, kb: int, sms: int) -> int:
     return max(1, min(MAX_SPLITS, kb // 2, -(-2 * sms // tiles)))
 
 
+def wgmma_splits(tiles: int, kb: int, sms: int) -> int:
+    """Blocks per 128-row output tile of the ``wgmma`` body, which holds
+    an SM alone: 1 when the ``tiles`` fill the ``sms`` SMs; else as many
+    as still fit in one wave, at most :data:`MAX_SPLITS` and at most half
+    the ``kb`` k tiles."""
+    if tiles >= sms or tiles == 0:
+        return 1
+    return max(1, min(MAX_SPLITS, kb // 2, sms // tiles))
+
+
+class CallPlan(NamedTuple):
+    """How one library call runs: each product's blocks a tile, and the
+    workspace's bytes."""
+    splits: int
+    splits_m: int
+    ws_bytes: int
+
+
+def call_plan(dtype: torch.dtype, M: int, kp: int, np_: int, sms: int, *,
+              pair: bool, pad_x: bool, pad_m: bool) -> CallPlan:
+    """The plan of a call on (M, kp) operands of ``dtype`` and (np_, kp)
+    weights on a card of ``sms`` SMs: the value product's body (float32
+    on ``wgmma``, 128-row tiles; bfloat16 and int8 on ``mma.sync``, 64-row
+    tiles, as the counter product), each product's splits
+    (:func:`wgmma_splits`, :func:`kernel_splits`), and the workspace in
+    the order the library carves it -- the activity maps, the padded copy
+    of x, the int8 operand, the split partials (one buffer, the larger
+    product's)."""
+    mp = -(-M // KERNEL_TILE) * KERNEL_TILE
+    mb, nb, kb = mp // KERNEL_TILE, np_ // KERNEL_TILE, kp // KERNEL_TILE
+    splits64 = kernel_splits(-(-M // KERNEL_ROWS) * nb, kb, sms)
+    splits = (wgmma_splits(mb * nb, kb, sms) if dtype == torch.float32
+              else splits64)
+    splits_m = splits64 if pair else 1
+    most = max(splits, splits_m)
+    ws_bytes = ((2 if pair else 1) * _carved(mb * kb)
+                + (_carved(mp * kp * dtype.itemsize) if pad_x else 0)
+                + (_carved((mp if pad_m else M) * kp) if pair else 0)
+                + (_carved(most * mp * np_ * 4) if most > 1 else 0))
+    return CallPlan(splits, splits_m, ws_bytes)
+
+
 @functools.lru_cache(maxsize=None)
 def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
@@ -206,11 +258,14 @@ def bind_launch(x: torch.Tensor, kw: KernelWeights, threshold: float = 0.0,
     workspace.  Returns ``(launch, y, macs)`` (``macs`` None without
     ``m``): ``launch()``, called with the device current, runs on the
     current stream the bind kernel, then the value product (the 1-D kernel
-    when ``kw.occ`` is None, else the joint one) and the counter product
-    ``(m != 0) @ kw_mask``, and returns the status code; it neither checks
-    nor counts.  ``launch.splits``; ``launch.copies``, the operands copied
-    to a zero-padded layout; ``launch.maps()``, the products' (Mb, Kb)
-    activity maps in the workspace, valid once ``launch()`` has run."""
+    when ``kw.occ`` is None, else the joint one; on the body
+    :func:`call_plan` names) and the counter product ``(m != 0) @
+    kw_mask`` (the ``mma.sync`` body), and returns the status code; it
+    neither checks nor counts.  ``launch.splits``, the value product's
+    blocks a tile;
+    ``launch.copies``, the operands copied to a zero-padded layout;
+    ``launch.maps()``, the products' (Mb, Kb) activity maps in the
+    workspace, valid once ``launch()`` has run."""
     if x.dtype not in KERNEL_KINDS or kw.wt is None or (
             kw.wt.dtype != x.dtype):
         raise TypeError(f"the kernel takes float32, bfloat16 or int8 CUDA "
@@ -220,7 +275,7 @@ def bind_launch(x: torch.Tensor, kw: KernelWeights, threshold: float = 0.0,
         raise ValueError("operands on different devices")
     kind, out_dtype = KERNEL_KINDS[x.dtype]
     M, K = x.shape
-    np_, kp = kw.wt.shape
+    np_, kp = kw.wt.shape[-2:]
     if -(-K // KERNEL_TILE) * KERNEL_TILE != kp:
         raise ValueError(f"contraction mismatch: {tuple(x.shape)} @ "
                          f"{tuple(kw.w.shape)}")
@@ -232,23 +287,17 @@ def bind_launch(x: torch.Tensor, kw: KernelWeights, threshold: float = 0.0,
                              f"operand's shape and device, got {m.dtype} "
                              f"{tuple(m.shape)} on {m.device}")
         if kw_mask.wt is None or kw_mask.wt.dtype != torch.int8 or (
-                kw_mask.wt.shape != kw.wt.shape):
+                kw_mask.wt.shape != (np_, kp)):
             raise TypeError("the counter's weights must be an int8 mask "
                             "of the value weights' shape")
         pad_m = bool(K % KERNEL_TILE or M % KERNEL_ROWS)
     mp = -(-M // KERNEL_TILE) * KERNEL_TILE
     mb, nb, kb = mp // KERNEL_TILE, np_ // KERNEL_TILE, kp // KERNEL_TILE
-    splits = kernel_splits(-(-M // KERNEL_ROWS) * nb, kb,
-                           _sm_count(x.device.index or 0))
     pad_x = not reads_in_place(x, KERNEL_ROWS, KERNEL_TILE)
     n_maps = 1 if m is None else 2
-    # in the order the library carves them: the activity maps, the copy
-    # of x, the int8 operand, the split partials
-    ws_bytes = (n_maps * _carved(mb * kb)
-                + (_carved(mp * kp * x.element_size()) if pad_x else 0)
-                + (_carved((mp if pad_m else M) * kp) if m is not None
-                   else 0)
-                + (_carved(splits * mp * np_ * 4) if splits > 1 else 0))
+    splits, splits_m, ws_bytes = call_plan(
+        x.dtype, M, kp, np_, _sm_count(x.device.index or 0),
+        pair=m is not None, pad_x=pad_x, pad_m=pad_m)
     ws = torch.empty(ws_bytes, dtype=torch.uint8, device=x.device)
     y = torch.empty((mp, np_), dtype=out_dtype, device=x.device)
     macs = (None if m is None else
@@ -264,8 +313,9 @@ def bind_launch(x: torch.Tensor, kw: KernelWeights, threshold: float = 0.0,
     args = (x.data_ptr(), x.stride(0), x.stride(1), *counter,
             kw.wt.data_ptr(), occ, w8, occ8, y.data_ptr(),
             None if macs is None else macs.data_ptr(), ws.data_ptr(),
-            ws_bytes, M, K, nb, splits, kind, threshold, int(pad_x),
-            int(pad_m), torch.cuda.current_stream(x.device).cuda_stream)
+            ws_bytes, M, K, nb, splits, splits_m, kind, threshold,
+            int(pad_x), int(pad_m),
+            torch.cuda.current_stream(x.device).cuda_stream)
     lib = build.load()
 
     def launch() -> int:
@@ -275,7 +325,8 @@ def bind_launch(x: torch.Tensor, kw: KernelWeights, threshold: float = 0.0,
         step = _carved(mb * kb)
         return [ws[i * step:i * step + mb * kb].view(mb, kb)
                 for i in range(n_maps)]
-    launch.splits, launch.copies = splits, int(pad_x) + int(pad_m)
+    launch.splits = splits
+    launch.copies = int(pad_x) + int(pad_m)
     launch.maps = activity_maps
     launch.operands = (x, m, kw, kw_mask, ws)   # alive until it is called
     return launch, y, macs
@@ -289,9 +340,10 @@ def _launch(x: torch.Tensor, kw: KernelWeights, threshold: float,
     ``event_matmul``'s for a 1-D one.  While a trace records, each joint
     product's live and total tile triples go to the counts
     ``event_matmul2.live_tiles`` (a copy of its activity map, queued after
-    the call that writes it) and ``event_matmul2.tiles``, and the operands
-    copied to a padded layout to ``event_matmul.padded_copies``.  Returns
-    the (M, N) product, or with ``m`` the ``(y, macs)`` pair."""
+    the call that writes it) and ``event_matmul2.tiles``, the operands
+    copied to a padded layout to ``event_matmul.padded_copies``, and a
+    value product on the ``wgmma`` body to ``event_matmul.wgmma_products``.
+    Returns the (M, N) product, or with ``m`` the ``(y, macs)`` pair."""
     with trace.span("event_matmul.bind"):
         launch, y, macs = bind_launch(x, kw, threshold, m, kw_mask)
     products = (kw,) if m is None else (kw, kw_mask)
@@ -307,6 +359,8 @@ def _launch(x: torch.Tensor, kw: KernelWeights, threshold: float,
             (event_matmul if k.occ is None else event_matmul2).launches += 1
     if trace.enabled():
         trace.count("event_matmul.padded_copies", launch.copies)
+        trace.count("event_matmul.wgmma_products",
+                    int(x.dtype == torch.float32))
         for k, active in zip(products, launch.maps()):
             if k.occ is not None:
                 mb, kb = active.shape

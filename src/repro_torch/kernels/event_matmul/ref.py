@@ -17,6 +17,31 @@ def block_activity_ref(x: torch.Tensor, threshold: float, bm: int,
     return tiles.amax(dim=(1, 3)) > threshold
 
 
+def tf32_rna_ref(v: torch.Tensor) -> torch.Tensor:
+    """``cvt.rna.tf32.f32`` on an int32 view of float32 ``v``: the value
+    rounded to TF32's 10 mantissa bits, to nearest with ties away from
+    zero -- half a TF32 ulp (0x1000) added to the magnitude's bits, then
+    the low 13 bits cleared (sign-magnitude, so the carry rounds away from
+    zero for either sign, into the exponent where it must, subnormals
+    alike, and a finite value past TF32's largest to inf).  Inf and NaN
+    only lose their low 13 bits, as on an H100: a NaN keeps its sign and
+    the top of its payload, and one whose payload lies in the low 13 bits
+    alone becomes inf.  float32 out, the same shape."""
+    u = v.contiguous().view(torch.int32)
+    special = (u & 0x7F800000) == 0x7F800000
+    return (torch.where(special, u, u + 0x1000) & ~0x1FFF).view(
+        torch.float32)
+
+
+def tf32_split_ref(w: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """3xTF32's halves of float32 ``w`` as the kernel splits its operands:
+    ``hi = tf32_rna(w)``, ``lo = tf32_rna(w - hi)``.  ``w - hi`` is exact
+    for a finite ``w``, and ``hi + lo`` is within 2^-22 of ``w`` relative
+    for a normal one."""
+    hi = tf32_rna_ref(w)
+    return hi, tf32_rna_ref(w - hi)
+
+
 def reads_in_place(x: torch.Tensor, rows: int = 64, bk: int = 128) -> bool:
     """Whether the CUDA kernel reads ``x`` (M, K) where it lies: K a
     multiple of the ``bk`` k tile, M of the kernel's ``rows``-row blocks (a
