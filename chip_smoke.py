@@ -65,8 +65,7 @@ Phases, each printing one JSON line:
                   is traced as in ``profile``, with the device time of each
                   kernel family, and one recorded: 24 padded copies a
                   stream (both products of the 12 values maps of K =
-                  12,000) and 97 ``event_matmul.wgmma_products`` (every
-                  float32 value product on the wgmma body).
+                  12,000).
   (g) pricing   — four compiled smoke archs (gemma2, mamba2, olmoe, whisper)
                   priced on loihi2_like through kernel mode and dense; the
                   per-layer counters equal ``tests/golden/model_*.json``.
@@ -400,10 +399,9 @@ Phases, each printing one JSON line:
                   the published 50,277-wide head, T = 1,024) through
                   ``run_batch`` in kernel mode, recorded: one launch a
                   state layer (6), ``neuron_scan.entries`` 6 x 1,024
-                  x 4,096 and ``event_matmul.wgmma_products`` 19 (every
-                  layer's float32 value product on the wgmma body, each
-                  held to the float64 product and the plain version as in
-                  (e)), the output and all five counters bit for bit with
+                  x 4,096, every layer's float32 value product (19) held
+                  to the float64 product and the plain version as in
+                  (e), the output and all five counters bit for bit with
                   the same stream through the loop.  Phases (f)
                   and (g) count the launches too: none for whisper-base,
                   one a state layer and ``run_batch`` for every
@@ -3585,10 +3583,6 @@ def scan_cell_stream() -> dict:
             f"(L) {launches} ssm_scan launches a stream, not {len(state)}")
     require(entries == len(state) * SCAN_T * SCAN_N,
             f"(L) neuron_scan.entries {entries}")
-    wgmma = rec.count("event_matmul.wgmma_products")
-    require(wgmma == len(cn.net.layers),
-            f"(L) {wgmma} wgmma products a stream, not "
-            f"{len(cn.net.layers)}")
     errs, faults = [], []
     for layer, x, _, _ in calls.calls:
         occ = weight_block_occupancy(layer.weights)
@@ -3599,8 +3593,9 @@ def scan_cell_stream() -> dict:
         except RuntimeError as e:
             faults.append(str(e))
     require(not faults, "; ".join(faults))
-    require(len(errs) == wgmma,
-            f"(L) {len(errs)} value products checked, not {wgmma}")
+    require(len(errs) == len(calls.calls) == len(cn.net.layers),
+            f"(L) {len(errs)} value products checked, not "
+            f"{len(calls.calls)} of {len(cn.net.layers)} layers")
     calls.calls.clear()
     network_mod.ssm_scan = ssm_scan_ref
     try:
@@ -3622,7 +3617,6 @@ def scan_cell_stream() -> dict:
                          f"{SCAN_VOCAB}",
                "layers": len(cn.net.layers), "state_layers": len(state),
                "T": SCAN_T, "launches": launches, "entries": entries,
-               "wgmma_products": wgmma,
                **{k: max(e[k] for e in errs) for k in errs[0]},
                "compile_s": compile_s, "loop_run_batch_s": loop_s,
                "output_and_counters": "bit-identical to the loop"}
@@ -4377,10 +4371,6 @@ def main() -> int:
     copies_w = rec_copies.count("event_matmul.padded_copies")
     require(copies_w == 24, f"whisper-base: {copies_w} padded copies a "
             f"stream, not 24")
-    # every layer's float32 value product on the wgmma body
-    wgmma_w = rec_copies.count("event_matmul.wgmma_products")
-    require(wgmma_w == n_fc, f"whisper-base: {wgmma_w} wgmma products a "
-            f"stream, not {n_fc}")
     attn_share = {layer.name: [float(live_tiles(a, b)[0].float().mean())
                                for a, b in ((x, layer.weights),
                                             (m, layer.w_mask))]
@@ -4399,7 +4389,6 @@ def main() -> int:
           "counters": "bit-identical to dense; MACs == T * macs_per_token",
           "peak_device_bytes": torch.cuda.max_memory_allocated(),
           "traced_run_batch": profile_w, "padded_copies": copies_w,
-          "wgmma_products": wgmma_w,
           "live_share_value_counter": attn_share})
     del cn, xs_w, rec_w, out_w, cnt_w, cnt_wd
     torch.cuda.empty_cache()

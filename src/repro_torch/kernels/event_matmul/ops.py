@@ -19,10 +19,13 @@ compacts its own live list.  The host checks shapes and allocates the
 outputs and one workspace.  The kernel reads the weights transposed,
 (N, K), and zero-padded to 128-tile multiples: :class:`KernelWeights`,
 built per call by the public wrappers and once per layer by the event
-backend.  CUDA tensors launch the kernel or raise; CPU tensors run the
-plain versions in :mod:`.ref`.  The host padding, activity map and
-compaction (:func:`pad_compact`, ``_compact_indices*``) serve the CPU
-versions, the reference's API and the tests; no CUDA path calls them.
+backend, whose every option set reaches the kernel through
+:func:`event_matmul_packed` and :func:`event_matmul_pair_packed` on the
+operand :func:`kernel_operand` makes.  CUDA tensors launch the kernel or
+raise; CPU tensors run the plain versions in :mod:`.ref`.  The host
+padding, activity map and compaction (:func:`pad_compact`,
+``_compact_indices*``) serve the CPU versions, the reference's API and
+the tests; no CUDA path calls them.
 """
 
 from __future__ import annotations
@@ -143,6 +146,18 @@ def _tiles_to_elements(tiles: torch.Tensor, b0: int, b1: int,
     """A (rows, cols) tile map expanded to the elements of ``shape``."""
     return (tiles.repeat_interleave(b0, 0).repeat_interleave(b1, 1)
             [:shape[0], :shape[1]])
+
+
+def kernel_operand(x: torch.Tensor, threshold: float, bm: int,
+                   bk: int) -> tuple[torch.Tensor, float]:
+    """``(x, threshold)`` as the kernel, whose activity tiles are 128
+    wide, takes a product over (bm, bk) activation tiles: unchanged at
+    128, else ``x`` with its dead (bm, bk) tiles zeroed
+    (:func:`..ref.zero_dead_tiles_ref`) and threshold 0 -- the (bm, bk)
+    product exactly."""
+    if (bm, bk) == (KERNEL_TILE, KERNEL_TILE):
+        return x, threshold
+    return zero_dead_tiles_ref(x, threshold, bm, bk), 0.0
 
 
 def kernel_layout(w: torch.Tensor) -> torch.Tensor:
@@ -341,8 +356,7 @@ def _launch(x: torch.Tensor, kw: KernelWeights, threshold: float,
     product's live and total tile triples go to the counts
     ``event_matmul2.live_tiles`` (a copy of its activity map, queued after
     the call that writes it) and ``event_matmul2.tiles``, the operands
-    copied to a padded layout to ``event_matmul.padded_copies``, and a
-    value product on the ``wgmma`` body to ``event_matmul.wgmma_products``.
+    copied to a padded layout to ``event_matmul.padded_copies``.
     Returns the (M, N) product, or with ``m`` the ``(y, macs)`` pair."""
     with trace.span("event_matmul.bind"):
         launch, y, macs = bind_launch(x, kw, threshold, m, kw_mask)
@@ -359,8 +373,6 @@ def _launch(x: torch.Tensor, kw: KernelWeights, threshold: float,
             (event_matmul if k.occ is None else event_matmul2).launches += 1
     if trace.enabled():
         trace.count("event_matmul.padded_copies", launch.copies)
-        trace.count("event_matmul.wgmma_products",
-                    int(x.dtype == torch.float32))
         for k, active in zip(products, launch.maps()):
             if k.occ is not None:
                 mb, kb = active.shape
@@ -409,8 +421,7 @@ def event_matmul2(x: torch.Tensor, w: torch.Tensor, w_occ: torch.Tensor, *,
     if x.device.type != "cuda":
         raise ValueError(f"event_matmul2: unsupported device {x.device}")
     w_occ = w_occ.to(torch.bool)
-    if (bm, bk) != (KERNEL_TILE, KERNEL_TILE):
-        x, threshold = zero_dead_tiles_ref(x, threshold, bm, bk), 0.0
+    x, threshold = kernel_operand(x, threshold, bm, bk)
     if (bk, bn) != (KERNEL_TILE, KERNEL_TILE):
         w = torch.where(_tiles_to_elements(w_occ, bk, bn, w.shape), w,
                         torch.zeros((), dtype=w.dtype, device=w.device))
@@ -456,44 +467,46 @@ def event_matmul(x: torch.Tensor, w: torch.Tensor,
     if x.dtype != w.dtype or x.dtype not in KERNEL_KINDS:
         raise TypeError(f"event_matmul takes float32, bfloat16 or int8 "
                         f"operands of one type, got {x.dtype} @ {w.dtype}")
-    if (bm, bk) != (KERNEL_TILE, KERNEL_TILE):
-        x, threshold = zero_dead_tiles_ref(x, threshold, bm, bk), 0.0
+    x, threshold = kernel_operand(x, threshold, bm, bk)
     return _launch(x, KernelWeights(w), threshold)
 
 
 event_matmul.launches = 0
 
 
-def event_matmul_packed(x: torch.Tensor, kw: KernelWeights) -> torch.Tensor:
-    """``x @ w`` at 128-wide tiles and threshold 0 for weights already in
-    the kernel's layout: the event backend's entry point for a value
-    product alone, with one :class:`KernelWeights` per layer.  The joint
-    kernel when ``kw`` has an occupancy map, else the 1-D one; CPU tensors
-    run the same plain versions as :func:`event_matmul`."""
+def event_matmul_packed(x: torch.Tensor, kw: KernelWeights,
+                        threshold: float = 0.0) -> torch.Tensor:
+    """``x @ w`` at 128-wide tiles for weights already in the kernel's
+    layout: the event backend's entry point for a value product alone,
+    with one :class:`KernelWeights` per layer (other activation tiles:
+    :func:`kernel_operand` first).  The joint kernel when ``kw`` has an
+    occupancy map, else the 1-D one; CPU tensors run the same plain
+    versions as :func:`event_matmul`."""
     if x.device.type == "cpu":
-        return event_matmul(x, kw.w, kw.w_occ)
+        return event_matmul(x, kw.w, kw.w_occ, threshold=threshold)
     if x.device.type != "cuda":
         raise ValueError(f"event_matmul: unsupported device {x.device}")
-    return _launch(x, kw, 0.0)
+    return _launch(x, kw, threshold)
 
 
 def event_matmul_pair_packed(x: torch.Tensor, m: torch.Tensor,
-                             kw: KernelWeights, kw_mask: KernelWeights
+                             kw: KernelWeights, kw_mask: KernelWeights,
+                             threshold: float = 0.0
                              ) -> tuple[torch.Tensor, torch.Tensor]:
-    """A layer's two products in one library call, at 128-wide tiles and
-    threshold 0: the values ``x @ w`` and the counts ``(m != 0) @ wm``,
-    ``m`` the float32 wire events (the delta path's ``x`` differs from
-    them) and ``kw_mask`` the int8 nnz mask of ``kw``'s weights, both in
-    the kernel's layout.  CPU tensors run the plain versions of
-    :func:`event_matmul_packed`.  Returns ``(y, macs)``, both float32 for
-    float32 ``x``."""
+    """A layer's two products in one library call, at 128-wide tiles:
+    the values ``x @ w``, an event ``|x| > threshold``, and the counts
+    ``(m != 0) @ wm`` at threshold 0, ``m`` the float32 wire events (the
+    delta path's ``x`` differs from them) and ``kw_mask`` the int8 nnz
+    mask of ``kw``'s weights, both in the kernel's layout.  CPU tensors
+    run the plain versions of :func:`event_matmul_packed`.  Returns ``(y,
+    macs)``, both float32 for float32 ``x``."""
     if x.device.type == "cpu":
-        return (event_matmul(x, kw.w, kw.w_occ),
+        return (event_matmul(x, kw.w, kw.w_occ, threshold=threshold),
                 event_matmul((m != 0).to(torch.int8), kw_mask.w,
                              kw_mask.w_occ))
     if x.device.type != "cuda":
         raise ValueError(f"event_matmul: unsupported device {x.device}")
-    return _launch(x, kw, 0.0, m, kw_mask)
+    return _launch(x, kw, threshold, m, kw_mask)
 
 
 def event_matmul_pair(x: torch.Tensor, m: torch.Tensor, w: torch.Tensor,

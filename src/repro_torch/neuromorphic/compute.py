@@ -18,8 +18,8 @@ model prices.  :class:`SimLayer` delegates it to a :class:`LayerCompute`:
     masks for the exact counters, both products of a layer bound and run
     in one library call
     (:func:`repro_torch.kernels.event_matmul.ops.event_matmul_pair_packed`),
-    on weights transposed and padded once per layer, and the windowed delta
-    reconstruction
+    under every option set, on weights transposed and padded once per
+    layer, and the windowed delta reconstruction
     (:func:`repro_torch.kernels.sigma_delta.ops.window_reconstruct`).  On
     CPU tensors the kernel wrappers run their plain PyTorch versions.
   - ``"gather"`` — the column-granular host expression of the same
@@ -39,9 +39,9 @@ import torch.nn.functional as F
 
 from repro_torch import trace
 from repro_torch.kernels.event_matmul.ops import (KERNEL_TILE, KernelWeights,
-                                                  event_matmul2,
                                                   event_matmul_packed,
                                                   event_matmul_pair_packed,
+                                                  kernel_operand,
                                                   weight_block_occupancy)
 from repro_torch.kernels.sigma_delta.ops import window_reconstruct
 
@@ -213,8 +213,8 @@ class _WeightBlocks:
 
     def kernel_weights(self) -> tuple[KernelWeights, KernelWeights]:
         """The value weights (float32) and their nnz mask (int8) in the
-        kernel's layout, both with ``occ`` (128-square tiles only): built
-        at first use, then cached with this structure, i.e. once per
+        kernel's layout, both with ``occ`` (a structure at 128-wide tiles):
+        built at first use, then cached with this structure, i.e. once per
         layer."""
         if self._kernel is None:
             with trace.span("compute.pack"):
@@ -225,16 +225,22 @@ class _WeightBlocks:
         return self._kernel
 
 
-def _fc_weight_blocks(layer, bk: int, bn: int) -> _WeightBlocks:
+def _fc_weight_blocks(layer, bk: int = KERNEL_TILE,
+                      bn: int = KERNEL_TILE) -> _WeightBlocks:
+    """The fc layer's structure at (bk, bn) tiles; at the default 128, kernel
+    mode's for every option set (its occupancy is the weights' own)."""
     return derived_from_weights(
         layer, f"_fc_weight_blocks_{bk}x{bn}",
         lambda l: _WeightBlocks(l.weights, bk, bn))
 
 
-def _conv_weight_blocks(layer, bk: int, bn: int) -> _WeightBlocks:
+def _conv_weight_blocks(layer) -> _WeightBlocks:
+    """Kernel mode's structure of the conv layer's patch weights, at
+    128-wide tiles."""
     return derived_from_weights(
-        layer, f"_conv_weight_blocks_{bk}x{bn}",
-        lambda l: _WeightBlocks(_patch_weights(l)[0], bk, bn))
+        layer, f"_conv_weight_blocks_{KERNEL_TILE}x{KERNEL_TILE}",
+        lambda l: _WeightBlocks(_patch_weights(l)[0], KERNEL_TILE,
+                                KERNEL_TILE))
 
 
 def _im2col(x4: torch.Tensor, kh: int, kw: int, stride: int,
@@ -262,11 +268,12 @@ class EventCompute(LayerCompute):
     contribute exact zeros; above it, gather mode drops sub-threshold
     columns per row tile and kernel mode skips (bm, bk) tiles with no
     entry above it, two different approximations.  ``bm``/``bk``/``bn``
-    are kernel mode's tiles: at 128 each (the CUDA kernel's) and threshold
-    0 the layer's weights are laid out for the kernel once
-    (:func:`event_matmul_packed`); other tiles or a threshold go through
-    :func:`event_matmul2`, which zeroes dead tiles and keeps the kernel's
-    128 tile.  ``gather_bm`` is gather mode's row tile.  ``delta_mode``
+    are kernel mode's tiles.  Its weights are laid out for the CUDA
+    kernel's 128-wide tiles once per layer under every option set: their
+    occupancy is their own, so zeroing unoccupied (bk, bn) tiles changes
+    nothing; other (bm, bk) zero the dead activation tiles first
+    (:func:`kernel_operand`).  ``bk``/``bn`` are also gather mode's
+    weight tiles, ``gather_bm`` its row tile.  ``delta_mode``
     ``"window"`` reconstructs sigma-delta inputs by temporal tiles of
     ``delta_window`` steps (by default ``bm`` in kernel mode, so quiet
     windows line up with skippable activation tiles, ``max(8,
@@ -295,12 +302,6 @@ class EventCompute(LayerCompute):
         if self.mode != "auto":
             return self.mode
         return "kernel" if device.type == "cuda" else "gather"
-
-    def _packed(self) -> bool:
-        """Kernel mode on weights laid out once per layer: the kernel's
-        own tiles and no threshold."""
-        return (self.bm, self.bk, self.bn) == (KERNEL_TILE,) * 3 \
-            and self.threshold == 0.0
 
     def _delta_window_size(self, device: torch.device) -> int:
         """Temporal tile length for windowed delta reconstruction:
@@ -349,40 +350,34 @@ class EventCompute(LayerCompute):
                 out[i0:i1] = x[i0:i1, cols] @ w[cols]
         return out
 
-    def _values(self, x, w, wb: _WeightBlocks):
-        """``x @ w`` through the selected kernel mode (``wb`` holds
-        ``w``'s structures)."""
-        if self._kernel_mode(x.device) == "gather":
-            return self._gather_matmul(x, w, wb=wb)
-        x = x.to(torch.float32)
-        if self._packed():
-            return event_matmul_packed(x, wb.kernel_weights()[0])
-        return event_matmul2(x, w.to(torch.float32), wb.occ,
-                             threshold=self.threshold, bm=self.bm,
-                             bk=self.bk, bn=self.bn)
+    def _operand(self, x):
+        """The kernel's float32 operand and threshold for ``x``."""
+        return kernel_operand(x.to(torch.float32), self.threshold, self.bm,
+                              self.bk)
 
-    def _pair(self, x, m, w, wm, wb: _WeightBlocks):
-        """(pre, macs) through the selected kernel mode; ``wm`` is the nnz
-        mask of ``w``, so both contractions share one occupancy map and
-        skip exactly the same tiles.  Kernel mode counts with the int8
-        instance at threshold 0: the 0/1 event mask ``m != 0`` against the
-        int8 nnz mask, exact."""
-        if self._kernel_mode(x.device) == "gather":
-            return (self._gather_matmul(x, w, wb=wb),
-                    self._gather_matmul(m, wm, wb=wb))
-        if self._packed():
-            return event_matmul_pair_packed(x.to(torch.float32), m,
-                                            *wb.kernel_weights())
-        macs = event_matmul2((m != 0).to(torch.int8),
-                             (wm != 0).to(torch.int8), wb.occ, bm=self.bm,
-                             bk=self.bk, bn=self.bn)
-        return self._values(x, w, wb), macs
+    def _values(self, x, wb: _WeightBlocks):
+        """``x @ w`` in kernel mode, one library call (``wb`` holds ``w``'s
+        structures at 128-wide tiles)."""
+        x, threshold = self._operand(x)
+        return event_matmul_packed(x, wb.kernel_weights()[0], threshold)
+
+    def _pair(self, x, m, wb: _WeightBlocks):
+        """(pre, macs) in kernel mode, one library call: both products
+        share ``wb``'s occupancy and skip the same weight tiles; the
+        counter is the 0/1 event mask ``m != 0`` against the int8 nnz mask
+        at threshold 0, exact."""
+        x, threshold = self._operand(x)
+        return event_matmul_pair_packed(x, m, *wb.kernel_weights(),
+                                        threshold)
 
     # ------------------------------------------------------------ layer kinds
     def fc_forward(self, layer, x_eff, act_mask, msgs_in):
-        wb = _fc_weight_blocks(layer, self.bk, self.bn)
-        pre, macs = self._pair(x_eff, act_mask, layer.weights, layer.w_mask,
-                               wb)
+        if self._kernel_mode(x_eff.device) == "kernel":
+            pre, macs = self._pair(x_eff, act_mask, _fc_weight_blocks(layer))
+        else:
+            wb = _fc_weight_blocks(layer, self.bk, self.bn)
+            pre = self._gather_matmul(x_eff, layer.weights, wb=wb)
+            macs = self._gather_matmul(act_mask, layer.w_mask, wb=wb)
         return pre, macs, _fetches(msgs_in, macs.shape)
 
     def _conv_gather(self, a4, wf, layer, wlive=None):
@@ -426,18 +421,16 @@ class EventCompute(LayerCompute):
         kh, kw = layer.weights.shape[:2]
         oh, ow = layer.out_hw
         cout = layer.weights.shape[3]
-        wf, wfm, wlive = _patch_weights(layer)
         x4 = _conv_input(layer, x_eff)
         m4 = _conv_input(layer, act_mask)
         if self._kernel_mode(x_eff.device) == "gather":
+            wf, wfm, wlive = _patch_weights(layer)
             pre, _ = self._conv_gather(x4, wf, layer, wlive)
             macs, fetch_rows = self._conv_gather(m4, wfm, layer, wlive)
         else:
             xpat = _im2col(x4, kh, kw, layer.stride, oh, ow)
             mpat = _im2col(m4, kh, kw, layer.stride, oh, ow)
-            pre, macs = self._pair(xpat, mpat, wf, wfm,
-                                   _conv_weight_blocks(layer, self.bk,
-                                                       self.bn))
+            pre, macs = self._pair(xpat, mpat, _conv_weight_blocks(layer))
             fetch_rows = mpat.sum(dim=1)
         fetches = fetch_rows[:, None].expand(T * oh * ow, cout)
         return (_conv_flat(layer, pre, T), _conv_flat(layer, macs, T),
@@ -447,19 +440,22 @@ class EventCompute(LayerCompute):
         """The ``(T, n_out)`` pre-activations alone, no counters: the same
         value contraction as :meth:`forward`'s (the delta path's base
         rows, whose counters nobody reads)."""
+        kernel = self._kernel_mode(x_eff.device) == "kernel"
         if layer.kind == "fc":
-            return self._values(x_eff, layer.weights,
-                                _fc_weight_blocks(layer, self.bk, self.bn))
+            if kernel:
+                return self._values(x_eff, _fc_weight_blocks(layer))
+            return self._gather_matmul(
+                x_eff, layer.weights,
+                wb=_fc_weight_blocks(layer, self.bk, self.bn))
         kh, kw = layer.weights.shape[:2]
         oh, ow = layer.out_hw
-        wf, _, wlive = _patch_weights(layer)
         x4 = _conv_input(layer, x_eff)
-        if self._kernel_mode(x_eff.device) == "gather":
-            pre, _ = self._conv_gather(x4, wf, layer, wlive)
-        else:
+        if kernel:
             pre = self._values(_im2col(x4, kh, kw, layer.stride, oh, ow),
-                               wf, _conv_weight_blocks(layer, self.bk,
-                                                       self.bn))
+                               _conv_weight_blocks(layer))
+        else:
+            wf, _, wlive = _patch_weights(layer)
+            pre, _ = self._conv_gather(x4, wf, layer, wlive)
         return _conv_flat(layer, pre, x_eff.shape[0])
 
     # --------------------------------------------- temporal-tile delta path

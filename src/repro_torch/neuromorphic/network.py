@@ -8,7 +8,8 @@ ReLU / SSM state) and its weight format.
 Two execution engines produce identical event counts:
 
 * **step-major** (``step`` / ``run``): one timestep at a time, layer by
-  layer — the reference implementation, kept for parity checking.
+  layer, each step the batched one at T = 1 with state and accumulators
+  carried across calls — kept for parity checking.
 * **layer-major, time-batched** (``step_batch`` / ``run_batch``): for each
   layer in order, the full ``(T, n_in)`` message matrix is consumed at
   once.  Exact for feed-forward stacks: within a timestep messages flow
@@ -189,37 +190,10 @@ class SimLayer:
         """One timestep: consume input messages ``x_in`` (n_in,), produce
         output messages, update neuron state, and count events exactly.
         ``in_acc`` reconstructs the upstream activation when the upstream
-        layer sends deltas; the forward runs through the backend's batched
-        contract at T = 1."""
-        cc = _compute.get_compute(compute)
-        x_in = x_in.to(torch.float32)
-        if in_acc is not None:
-            in_acc = in_acc + x_in          # delta reconstruction
-            x_eff = in_acc
-        else:
-            x_eff = x_in
-
-        act_mask = (x_in != 0).to(torch.float32)   # events on the wire
-        msgs_in = act_mask.sum()
-
-        pre, macs, fetches_dense = cc.forward(
-            self, x_eff[None, :], act_mask[None, :], msgs_in.reshape(1))
-        pre, macs, fetches_dense = pre[0], macs[0], fetches_dense[0]
-
-        if self.bias is not None:
-            pre = pre + self.bias
-
-        y_msgs, state = self._neuron(pre, state)
-        if self.msg_gate is not None:
-            y_msgs = y_msgs * self.msg_gate
-        msgs_out = (y_msgs != 0).to(torch.float32)
-
-        counters = CounterMaps(
-            msgs_in=msgs_in.to(torch.float64),
-            macs=macs.reshape(-1), fetches_dense=fetches_dense.reshape(-1),
-            msgs_out=msgs_out.reshape(-1),
-            acts_evented=(macs.reshape(-1) > 0).to(torch.float32))
-        return y_msgs, state, counters, in_acc
+        layer sends deltas.  :meth:`step_batch` at T = 1."""
+        y_msgs, state, counters, in_acc = self.step_batch(
+            x_in[None], state, in_acc, compute=compute)
+        return y_msgs[0], state, counters.step_view(0), in_acc
 
     # ------------------------------------------------------- batched step
     def step_batch(self, x_in: torch.Tensor, state: dict,
@@ -266,11 +240,6 @@ class SimLayer:
             return y_msgs, state, counters, new_acc
 
     # ------------------------------------------------------------ neuron fns
-    def _neuron(self, pre: torch.Tensor, state: dict
-                ) -> tuple[torch.Tensor, dict]:
-        y, state = self._neuron_batch(pre[None, :], state)
-        return y[0], state
-
     def _neuron_batch(self, pre: torch.Tensor, state: dict
                       ) -> tuple[torch.Tensor, dict]:
         """Neuron update over the whole (T, n) pre-activation block:

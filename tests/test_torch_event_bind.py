@@ -246,3 +246,48 @@ def test_run_batch_binds_each_layer_in_one_call(card):
         for f in ("msgs_in", "macs", "fetches_dense", "msgs_out",
                   "acts_evented"):
             assert torch.equal(getattr(a, f), getattr(b, f)), f
+
+
+#: ``EventCompute``'s kernel option sets other than the defaults, as the
+#: threshold and tile tests of ``test_torch_event_options.py`` run them.
+OPTION_SETS = {"threshold-tiles16": dict(threshold=0.3, bm=16, bk=16),
+               "tiles64": dict(bm=64, bk=64),
+               "tiles64-bn32": dict(bm=64, bk=64, bn=32)}
+
+
+@pytest.mark.parametrize("name", sorted(OPTION_SETS))
+def test_option_sets_take_one_call_a_layer(card, name):
+    """Every option set reaches the kernel through the layer's own
+    weights in one library call: one ``event_matmul.launch`` span for
+    each ``forward`` and ``value_forward`` of a layer (two and one
+    ``event_matmul2`` launches), and the bits of the same products made
+    by two public ``event_matmul2`` calls on the raw weights and (bk, bn)
+    occupancy, values and counters alike."""
+    kw = OPTION_SETS[name]
+    bm, bk, bn = (kw.get(k, T) for k in ("bm", "bk", "bn"))
+    thr = kw.get("threshold", 0.0)
+    ec = EventCompute(mode="kernel", **kw)
+    net = fc_network([300, 256, 200, 64], weight_density=0.5, seed=0,
+                     device=card)
+    for i, layer in enumerate(net.layers):
+        x, m = _cases(448, layer.fanin, seed=i)[0]
+        x = (x * 0.5).to(card)      # entries on both sides of 0.3
+        m = (x != 0).to(torch.float32)
+        msgs = m.sum(dim=1)
+        before = em.event_matmul2.launches
+        with trace.recording() as rec:
+            pre, macs, _ = ec.forward(layer, x, m, msgs)
+            values = ec.value_forward(layer, x)
+        torch.cuda.synchronize()
+        assert len([s for s in rec.spans
+                    if s.name == "event_matmul.launch"]) == 2
+        assert em.event_matmul2.launches == before + 3
+        w = layer.weights
+        occ = em.weight_block_occupancy(w, bk, bn)
+        want = em.event_matmul2(x, w, occ, threshold=thr, bm=bm, bk=bk,
+                                bn=bn)
+        want_macs = em.event_matmul2(
+            (m != 0).to(torch.int8), (w != 0).to(torch.int8), occ, bm=bm,
+            bk=bk, bn=bn)
+        for got, ref in ((pre, want), (values, want), (macs, want_macs)):
+            assert torch.equal(got.view(torch.int32), ref.view(torch.int32))

@@ -249,6 +249,33 @@ def test_fc_and_conv_threshold_kernel_tiles(ref):
         assert_matches(ref, nets, xs, pair)
 
 
+@pytest.mark.parametrize("cell", ["fc", "conv"])
+def test_kernel_weight_tiles_change_nothing(ref, cell):
+    """Kernel mode lays its weights out at 128-wide tiles whatever ``bk``
+    and ``bn`` are (their occupancy is the weights' own), and at
+    threshold 0 zeroing the dead (128, 64) activation tiles leaves
+    NaN-free inputs as they are: (bk, bn) = (64, 32) gives the defaults'
+    outputs and counters exactly, on float32 data, with no structure
+    built at 64 x 32."""
+    if cell == "fc":
+        _, net = sd_nets(ref)
+        xs = ref.network.make_inputs(64, 0.3, 160, seed=9)
+        xs[32:128] = 0.0
+    else:
+        _, net = conv_nets(ref)
+        xs = ref.network.make_inputs(net.in_size, 0.3, 24, seed=11)
+    xt = torch.from_numpy(xs)
+    out_d, cnt_d = net.run_batch(xt, compute=EventCompute(mode="kernel"))
+    out_t, cnt_t = net.run_batch(xt, compute=EventCompute(mode="kernel",
+                                                          bk=64, bn=32))
+    assert torch.equal(out_t, out_d)
+    for l, (a, b) in enumerate(zip(cnt_d, cnt_t)):
+        for f in FIELDS:
+            assert torch.equal(getattr(a, f), getattr(b, f)), (l, f)
+    assert not [k for layer in net.layers for k in vars(layer)
+                if k.endswith("64x32")]
+
+
 def test_defaults_are_the_reference_signature(ref):
     import inspect
     sig = inspect.signature(EventCompute.__init__)
@@ -258,7 +285,6 @@ def test_defaults_are_the_reference_signature(ref):
     ec = EventCompute(mode="kernel")
     assert (ec.threshold, ec.bm, ec.bk, ec.bn, ec.gather_bm, ec.delta_mode,
             ec.delta_window) == (0.0, 128, 128, 128, 32, "window", None)
-    assert ec._packed() and not EventCompute(threshold=0.1)._packed()
     cpu = torch.device("cpu")
     assert ec._delta_window_size(cpu) == 128
     assert EventCompute(mode="gather")._delta_window_size(cpu) == 32

@@ -129,9 +129,11 @@ def test_total_covers_nesting_and_self_time_its_children():
     assert rec.total("event_matmul.launch") == launch.seconds
 
 
-def test_a_second_run_packs_nothing():
+@pytest.mark.parametrize("kw", [{}, dict(threshold=0.3, bm=16, bk=16)],
+                         ids=["defaults", "threshold-tiles16"])
+def test_a_second_run_packs_nothing(kw):
     net = _net("sd_relu")
-    ec = EventCompute(mode="kernel")
+    ec = EventCompute(mode="kernel", **kw)
     with trace.recording() as first:
         net.run_batch(_xs(), compute=ec)
     with trace.recording() as second:
