@@ -406,6 +406,19 @@ Phases, each printing one JSON line:
                   and (g) count the launches too: none for whisper-base,
                   one a state layer and ``run_batch`` for every
                   compiled fixture.
+                  The neuron epilogue (``csrc/neuron_epilogue.cu``): one
+                  launch a layer (19) and 18 wire handoffs on that
+                  stream, and the kernel alone at the head's shape
+                  (1,024 x 50,277, force-active, row slices of the padded
+                  product), each neuron code bit for bit with the plain
+                  version, timed beside its bytes bound (five maps).
+                  Phases (f) (97 launches), (g) (one a layer and
+                  ``run_batch``), (L), (u)-(w) (one a layer) and (G) (one
+                  a layer and option set) count its launches, and each
+                  holds its kernel-mode runs' outputs and five counters
+                  bit for bit with the same run through the eager glue
+                  without the handoff (``glue_parity``), printing both
+                  runs' SHA-256 digests.
 
 Then a ``{"kernels": [...]}`` line, the card's name and power limit as
 nvidia-smi reports them, and a last line ``{"ok": true, "device": ...}``.
@@ -784,6 +797,57 @@ def recorder():
             return super().delta_forward(layer, x_in, in_acc, act_mask,
                                          msgs_in)
     return Recorder()
+
+
+def plain_glue_run(net, xs, compute):
+    """``net.run_batch(xs)`` as the port ran it before the neuron
+    epilogue: each layer's ``step_batch`` recomputes its wire events from
+    its input, and the eager glue (``neuron_epilogue_ref``) stands in the
+    epilogue's place.  Returns ``(outputs, counters)``."""
+    import torch
+    from repro_torch.kernels.neuron_epilogue.ref import neuron_epilogue_ref
+    from repro_torch.neuromorphic import network as network_mod
+
+    states, accs = net.init_states(), net.init_accs()
+    cur = torch.as_tensor(xs, dtype=torch.float32, device=net.device)
+    cnts = []
+    kept = network_mod.neuron_epilogue
+    network_mod.neuron_epilogue = neuron_epilogue_ref
+    try:
+        for i, layer in enumerate(net.layers):
+            cur, states[i], c, accs[i] = layer.step_batch(
+                cur, states[i], accs[i], compute=compute)
+            cnts.append(c)
+    finally:
+        network_mod.neuron_epilogue = kept
+    return cur.reshape(xs.shape[0], -1), cnts
+
+
+def run_digest(out, cnts) -> str:
+    """SHA-256 of a run's outputs and every layer's five counters, in
+    layer and field order (the bits, as numpy holds them on the host)."""
+    import hashlib
+    h = hashlib.sha256()
+    for a in [out] + [getattr(c, f) for c in cnts for f in FIELDS]:
+        h.update(a.detach().contiguous().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def glue_parity(net, xs, compute, got, what: str) -> dict:
+    """Requires ``got``, a ``run_batch`` of ``net`` on ``xs`` (the neuron
+    epilogue, the wire handed on), bit for bit with
+    :func:`plain_glue_run` on the same operands: outputs and all five
+    counters of every layer.  Returns both runs' :func:`run_digest`."""
+    import torch
+    bits = lambda a: a.view({8: torch.int64, 4: torch.int32}[
+        a.element_size()])
+    out, cnts = plain_glue_run(net, xs, compute)
+    exact(bits(got[0]), bits(out), f"{what}: outputs against the eager glue")
+    for layer, a, b in zip(net.layers, got[1], cnts, strict=True):
+        for f in FIELDS:
+            exact(bits(getattr(a, f)), bits(getattr(b, f)),
+                  f"{what}: {layer.name} {f} against the eager glue")
+    return {"digest": run_digest(*got), "plain_digest": run_digest(out, cnts)}
 
 
 def live_tiles(x, w):
@@ -1406,6 +1470,7 @@ def training_phases(*, device, card: str, ckpt_root,
     from repro_torch.core.search import evolutionary_search
     from repro_torch.device import resolve_device
     from repro_torch.kernels.event_matmul.ops import event_matmul2
+    from repro_torch.kernels.neuron_epilogue.ops import neuron_epilogue
     from repro_torch.kernels.sigma_delta.ops import window_cumsum
     from repro_torch.neuromorphic import (EventCompute, compile_network,
                                           loihi2_like, minimal_partition,
@@ -1431,6 +1496,7 @@ def training_phases(*, device, card: str, ckpt_root,
         delta layer past the delta window (none on the CPU)."""
         for fn in counted.values():
             fn.launches = 0
+        neuron_epilogue.launches = 0
         sync()
         t0 = time.perf_counter()
         run = net.run_batch(xs, compute=EventCompute(mode="kernel"))
@@ -1442,6 +1508,10 @@ def training_phases(*, device, card: str, ckpt_root,
         want = {"event_matmul2": 2 * L + windowed if on_card else 0,
                 "window_cumsum": windowed if on_card else 0}
         require(got == want, f"{what}: launches {got} != {want}")
+        # one neuron epilogue a layer
+        require(neuron_epilogue.launches == (L if on_card else 0),
+                f"{what}: {neuron_epilogue.launches} neuron_epilogue "
+                f"launches for {L} layers")
         require(bool(torch.isfinite(run[0]).all()), f"{what}: non-finite")
         return run, got, wall
 
@@ -1641,6 +1711,8 @@ def training_phases(*, device, card: str, ckpt_root,
     n_delta = len(net_w.layers) - 1
     run_w, launches_w, run_w_s = kernel_run(net_w, xs_w, "(w) sd_relu",
                                             n_delta=n_delta)
+    parity_w = glue_parity(net_w, xs_w, EventCompute(mode="kernel"), run_w,
+                           "(w) sd_relu")
     dense_w = net_w.run_batch(xs_w, compute="dense")
     same = all(torch.equal(getattr(a, f), getattr(b, f))
                for a, b in zip(run_w[1], dense_w[1]) for f in FIELDS)
@@ -1661,6 +1733,9 @@ def training_phases(*, device, card: str, ckpt_root,
           "thresholds_vs_cpu_max_rel_diff": th_err, "calibrate_s": calib_s,
           "held_out_rows": T_w, "first_step": 11_000,
           "launches": launches_w, "run_batch_s": run_w_s,
+          "neuron_epilogue": {"launches": len(net_w.layers) if on_card
+                              else 0, "against_the_eager_glue":
+                              "bit-identical", **parity_w},
           "counters": ("bit-identical to dense" if same else
                        f"within rtol {REPORT_RTOL} of dense (quantiser "
                        f"ties): max rel diff of a layer total {worst}"),
@@ -2606,6 +2681,7 @@ def event_options_phase(*, device, card: str, sizes=SLICE1_SIZES,
     docstring).  Returns the phase's line."""
     import torch
     from repro_torch.core.hlo_cost import ported_kernels
+    from repro_torch.kernels.neuron_epilogue.ops import neuron_epilogue
     from repro_torch.neuromorphic import (EventCompute, SimLayer,
                                           SimNetwork, fc_network,
                                           make_inputs)
@@ -2647,6 +2723,7 @@ def event_options_phase(*, device, card: str, sizes=SLICE1_SIZES,
             expect = dict.fromkeys(expect, 0)
         for fn in counted.values():
             fn.launches = 0
+        neuron_epilogue.launches = 0
         sync()
         t0 = time.perf_counter()
         out, cnt = net.run_batch(xs, compute=cc)
@@ -2657,6 +2734,10 @@ def event_options_phase(*, device, card: str, sizes=SLICE1_SIZES,
                 and not any(fn.launches for k, fn in counted.items()
                             if k not in expect),
                 f"(G) {name}: launches {launches} != {expect}")
+        epilogues = neuron_epilogue.launches
+        require(epilogues == (len(net.layers) if on_card else 0),
+                f"(G) {name}: {epilogues} neuron_epilogue launches")
+        parity = glue_parity(net, xs, cc, (out, cnt), f"(G) {name}")
         walls = []
         for _ in range(reps):
             sync()
@@ -2677,7 +2758,9 @@ def event_options_phase(*, device, card: str, sizes=SLICE1_SIZES,
         require(bool(torch.isfinite(out).all()), f"(G) {name}: non-finite")
         rows[name] = {
             "window": cc._delta_window_size(dev) if windowed else None,
-            "launches": launches, "first_run_s": first_s,
+            "launches": launches, "neuron_epilogue_launches": epilogues,
+            "against_the_eager_glue": "bit-identical", **parity,
+            "first_run_s": first_s,
             "run_batch_s": statistics.median(walls), "run_batch_s_all": walls,
             "host_gather_run_batch_s": host_s,
             "outputs_max_abs_err": err,
@@ -3528,12 +3611,87 @@ def neuron_scan_phase(*, card: str, T: int = SCAN_T, n: int = SCAN_N
     torch.cuda.empty_cache()
     stream_rec = scan_cell_stream()
     row["launches"] = stream_rec["launches"]
+    row["cell_epilogue_launches"] = stream_rec["neuron_epilogue"]["launches"]
     emit({"phase": "neuron_scan", "card": card, "T": T, "n": n,
           "row_stride": n + SCAN_PAD, "decay": SCAN_DECAY,
           "bytes": nbytes, "checked": checked, **row,
           "roofline_pct": 100.0 * bound_ms / ms,
           "roofline_pct_cold": 100.0 * bound_ms / cold_ms,
           "cell_stream": stream_rec})
+    return row
+
+
+def neuron_epilogue_phase(*, card: str, T: int = SCAN_T,
+                          n: int = SCAN_VOCAB) -> dict:
+    """Phase (L)'s epilogue row: the neuron epilogue alone at the shape of
+    the ``mamba2-1.3b-6of48`` cell's head (T x n, force-active, no bias or
+    gate), ``pre`` and ``macs`` read as row slices of the padded product
+    as ``EventCompute`` hands them over.  Its five outputs against the
+    plain version on the card, bit for bit, for each neuron code; one
+    launch a call; the launch alone (warm, and after an L2-evicting
+    write), the wrapper and the plain version timed beside the bytes
+    bound (read ``pre`` and ``macs``, write three maps).  Returns the
+    kernel-table row."""
+    import torch
+    from repro_torch.kernels import build
+    from repro_torch.kernels.neuron_epilogue.ops import neuron_epilogue
+    from repro_torch.kernels.neuron_epilogue.ref import (FORCE_ACTIVE,
+                                                         IDENTITY, RELU,
+                                                         neuron_epilogue_ref)
+
+    padded = -(-n // TILE) * TILE
+    g = torch.Generator(device="cuda").manual_seed(7)
+    wide = torch.randn((T, padded), generator=g, device="cuda")
+    wide_m = torch.randint(0, 3, (T, padded), generator=g,
+                           device="cuda").to(torch.float32)
+    pre, macs = wide[:, :n], wide_m[:, :n]
+    bits = lambda a: a.view({8: torch.int64, 4: torch.int32}[
+        a.element_size()])
+    checked = {}
+    for name, code in (("identity", IDENTITY), ("relu", RELU),
+                       ("force_active", FORCE_ACTIVE)):
+        before = neuron_epilogue.launches
+        got = neuron_epilogue(pre, macs, None, None, code)
+        require(neuron_epilogue.launches == before + 1,
+                f"(L) neuron_epilogue launched "
+                f"{neuron_epilogue.launches - before} times")
+        want = neuron_epilogue_ref(pre, macs, None, None, code)
+        torch.cuda.synchronize()
+        for i, (a, b) in enumerate(zip(got, want)):
+            exact(bits(a), bits(b), f"(L) epilogue {name}: output {i}")
+        checked[name] = {"bit_identical": True,
+                         "messages": int(got[3].to(torch.float64).sum())}
+        del got, want
+    lib = build.load()
+    y, msgs, acts = (torch.empty((T, n), device="cuda") for _ in range(3))
+    counts = torch.empty(T, device="cuda")
+    counts64 = torch.empty(T, dtype=torch.float64, device="cuda")
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def launch():
+        lib.neuron_epilogue_launch(
+            pre.data_ptr(), pre.stride(0), macs.data_ptr(), macs.stride(0),
+            None, None, y.data_ptr(), msgs.data_ptr(), acts.data_ptr(),
+            counts.data_ptr(), counts64.data_ptr(), T, n, FORCE_ACTIVE,
+            stream)
+    nbytes = 5 * T * n * 4
+    bound_ms = 1e3 * nbytes / PEAK_BYTES_PER_S
+    ms, cold_ms = time_ms(launch), time_ms_cold(launch)
+    row = {"name": "neuron_epilogue", "route": "cuda",
+           "source": "src/repro_torch/csrc/neuron_epilogue.cu",
+           "replaces": None, "ms": ms, "cold_ms": cold_ms,
+           "bound_ms": bound_ms, "bound_by": "bytes",
+           "plain_ms": time_ms(lambda: neuron_epilogue_ref(
+               pre, macs, None, None, FORCE_ACTIVE), reps=5),
+           "library_ms": None,
+           "wrapper_ms": time_ms(lambda: neuron_epilogue(
+               pre, macs, None, None, FORCE_ACTIVE))}
+    emit({"phase": "neuron_epilogue", "card": card, "T": T, "n": n,
+          "row_stride": padded, "bytes": nbytes, "checked": checked, **row,
+          "roofline_pct": 100.0 * bound_ms / ms,
+          "roofline_pct_cold": 100.0 * bound_ms / cold_ms})
+    del wide, wide_m, pre, macs, y, msgs, acts, counts, counts64
+    torch.cuda.empty_cache()
     return row
 
 
@@ -3555,6 +3713,7 @@ def scan_cell_stream() -> dict:
     from repro_torch.configs import mamba2_1_3b
     from repro_torch.kernels.event_matmul.ops import (event_matmul2,
                                                       weight_block_occupancy)
+    from repro_torch.kernels.neuron_epilogue.ops import neuron_epilogue
     from repro_torch.kernels.neuron_scan.ops import ssm_scan
     from repro_torch.kernels.neuron_scan.ref import ssm_scan_ref
     from repro_torch.neuromorphic import EventCompute, compile_network
@@ -3572,17 +3731,27 @@ def scan_cell_stream() -> dict:
             f"(L) {len(state)} state layers, widths "
             f"{sorted({l.n_neurons for l in state})}")
     xs = cn.inputs(SCAN_T, seed=5)
-    before = ssm_scan.launches
     calls = recorder()
+    ssm_scan.launches = neuron_epilogue.launches = 0
     with trace.recording() as rec:
         out, cnts = cn.net.run_batch(xs, compute=calls)
     torch.cuda.synchronize()
-    launches = ssm_scan.launches - before
+    launches = ssm_scan.launches
     entries = rec.count("neuron_scan.entries")
     require(launches == len(state),
             f"(L) {launches} ssm_scan launches a stream, not {len(state)}")
     require(entries == len(state) * SCAN_T * SCAN_N,
             f"(L) neuron_scan.entries {entries}")
+    # one neuron epilogue a layer, the wire handed on L - 1 times
+    L = len(cn.net.layers)
+    epilogues = neuron_epilogue.launches
+    handoffs = rec.count("network.wire_handoffs")
+    require(epilogues == L == 19 and handoffs == L - 1,
+            f"(L) {epilogues} neuron_epilogue launches and {handoffs} "
+            f"handoffs for {L} layers")
+    require(rec.count("neuron_epilogue.entries")
+            == SCAN_T * sum(l.n_neurons for l in cn.net.layers),
+            "(L) neuron_epilogue.entries")
     errs, faults = [], []
     for layer, x, _, _ in calls.calls:
         occ = weight_block_occupancy(layer.weights)
@@ -3606,21 +3775,28 @@ def scan_cell_stream() -> dict:
         loop_s = time.perf_counter() - t0
     finally:
         network_mod.ssm_scan = ssm_scan
-    require(ssm_scan.launches - before == launches,
+    require(ssm_scan.launches == launches,
             "(L) the loop's stream launched the scan")
     exact(out.view(torch.int32), out_l.view(torch.int32), "(L) output")
     for layer, a, b in zip(cn.net.layers, cnts, cnts_l):
         for f in FIELDS:
             exact(getattr(a, f), getattr(b, f), f"(L) {layer.name} {f}")
+    del out_l, cnts_l
+    parity = glue_parity(cn.net, xs, EventCompute(mode="kernel"),
+                         (out, cnts), "(L) mamba2-1.3b-6of48")
     rec_out = {"config": f"mamba2-1.3b, {SCAN_BLOCKS} of "
                          f"{mamba2_1_3b.CONFIG.n_repeats} blocks, vocab "
                          f"{SCAN_VOCAB}",
                "layers": len(cn.net.layers), "state_layers": len(state),
                "T": SCAN_T, "launches": launches, "entries": entries,
+               "neuron_epilogue": {"launches": epilogues,
+                                   "wire_handoffs": handoffs,
+                                   "against_the_eager_glue":
+                                   "bit-identical", **parity},
                **{k: max(e[k] for e in errs) for k in errs[0]},
                "compile_s": compile_s, "loop_run_batch_s": loop_s,
                "output_and_counters": "bit-identical to the loop"}
-    del cn, xs, out, cnts, out_l, cnts_l
+    del cn, xs, out, cnts
     torch.cuda.empty_cache()
     return rec_out
 
@@ -3785,6 +3961,7 @@ def main() -> int:
     from repro_torch.kernels.flash_attn.ops import (bind_launch,
                                                     flash_attention)
     from repro_torch.kernels.flash_attn.ref import flash_attention_ref
+    from repro_torch.kernels.neuron_epilogue.ops import neuron_epilogue
     from repro_torch.kernels.neuron_scan.ops import ssm_scan
     from repro_torch.kernels.sigma_delta.ops import (sigma_delta_encode,
                                                      window_cumsum,
@@ -4003,7 +4180,7 @@ def main() -> int:
         check_matmul(pat, wf, occ, f"{layer.name} im2col values")
         check_matmul((pat != 0).to(torch.float32), wfm, occ,
                      f"{layer.name} im2col counters", mask_operand=True)
-        cur, _ = layer._neuron_batch(pre, {})
+        cur = torch.clamp_min(pre, 0.0)   # relu, no bias or gate
 
     # edge cases: ragged M/K/N, all-zero activation and weight tiles, (m, n)
     # pairs with cnt == 0, a quiet window and ragged T
@@ -4321,7 +4498,8 @@ def main() -> int:
     del rec, run_k, run_d
     torch.cuda.empty_cache()
     kernels = {"event_matmul2": event_matmul2, "window_cumsum": window_cumsum,
-               "flash_attn": flash_attention, "ssm_scan": ssm_scan}
+               "flash_attn": flash_attention, "ssm_scan": ssm_scan,
+               "neuron_epilogue": neuron_epilogue}
     T_W = 448                               # whisper's n_text_ctx
     torch.cuda.reset_peak_memory_stats()
     for fn in kernels.values():
@@ -4344,7 +4522,8 @@ def main() -> int:
     launches_f = {k: fn.launches for k, fn in kernels.items()}
     n_fc = len(cn.net.layers)
     expect_f = {"event_matmul2": 2 * n_fc, "window_cumsum": 0,
-                "flash_attn": len(cn.attn_specs), "ssm_scan": 0}
+                "flash_attn": len(cn.attn_specs), "ssm_scan": 0,
+                "neuron_epilogue": n_fc}
     require(n_fc == 97 and len(cn.attn_specs) == 18,
             f"whisper-base lowered to {n_fc} layers, "
             f"{len(cn.attn_specs)} attention sites")
@@ -4355,6 +4534,8 @@ def main() -> int:
     for spec, c in zip(cn.specs, cnt_w):
         require(int(c.macs.to(torch.float64).sum())
                 == T_W * spec.macs_per_token, f"{spec.name}: MACs")
+    parity_f = glue_parity(cn.net, xs_w, EventCompute(mode="kernel"),
+                           (out_w, cnt_w), "(f) whisper-base")
     t0 = time.perf_counter()
     _, cnt_wd = cn.net.run_batch(xs_w, compute="dense")
     torch.cuda.synchronize()
@@ -4389,6 +4570,8 @@ def main() -> int:
           "counters": "bit-identical to dense; MACs == T * macs_per_token",
           "peak_device_bytes": torch.cuda.max_memory_allocated(),
           "traced_run_batch": profile_w, "padded_copies": copies_w,
+          "neuron_epilogue": {"against_the_eager_glue": "bit-identical",
+                              **parity_f},
           "live_share_value_counter": attn_share})
     del cn, xs_w, rec_w, out_w, cnt_w, cnt_wd
     torch.cuda.empty_cache()
@@ -4436,13 +4619,14 @@ def main() -> int:
         n_ssm = sum(l.neuron_model == "ssm" for l in net_g.layers)
         require((n_ssm > 0) == (fixture == "model_ssm_mamba2"),
                 f"{fixture}: {n_ssm} ssm state layers")
-        ssm_scan.launches = 0
+        ssm_scan.launches = neuron_epilogue.launches = 0
         require([r["name"] for r in golden["layers"]]
                 == [l.name for l in net_g.layers], f"{fixture}: layers")
-        reps = {}
+        reps, runs = {}, {}
         for mode, cc in (("kernel", EventCompute(mode="kernel")),
                          ("dense", DenseCompute())):
             run = net_g.run_batch(xs_s, compute=cc)
+            runs[mode] = (cc, run)
             for row, c in zip(golden["layers"], run[1]):
                 for f in FIELDS:
                     require(row[f] == int(getattr(c, f).to(torch.float64)
@@ -4454,6 +4638,14 @@ def main() -> int:
         require(ssm_scan.launches == 2 * n_ssm,
                 f"{fixture}: {ssm_scan.launches} ssm_scan launches over two "
                 f"run_batch, not 2 x {n_ssm}")
+        # one neuron epilogue a layer and run_batch, either backend
+        epilogues = neuron_epilogue.launches
+        require(epilogues == 2 * len(net_g.layers),
+                f"{fixture}: {epilogues} neuron_epilogue launches over two "
+                f"run_batch, not 2 x {len(net_g.layers)}")
+        parity = {mode: glue_parity(net_g, xs_s, cc, run,
+                                    f"(g) {fixture} {mode}")
+                  for mode, (cc, run) in runs.items()}
         rk, rd = reps["kernel"], reps["dense"]
         rel_t = abs(rk.time_per_step - rd.time_per_step) / rd.time_per_step
         rel_e = (abs(rk.energy_per_step - rd.energy_per_step)
@@ -4467,7 +4659,9 @@ def main() -> int:
                         "bottleneck_stage": rd.bottleneck_stage,
                         "rel_diff_time": rel_t, "rel_diff_energy": rel_e,
                         "ssm_state_layers": n_ssm,
-                        "ssm_scan_launches": ssm_scan.launches}
+                        "ssm_scan_launches": ssm_scan.launches,
+                        "neuron_epilogue_launches": epilogues,
+                        "against_the_eager_glue": parity}
     emit({"phase": "pricing", "profile": prof.name, "archs": priced,
           "counters": "equal to tests/golden (all nine fixtures), kernel "
                       "and dense",
@@ -4980,8 +5174,10 @@ def main() -> int:
 
     # ----------------------------- (L) the ssm state neurons' scan
     ns = neuron_scan_phase(card=card)
+    ne = neuron_epilogue_phase(card=card)
+    ne["launches"] = ns["cell_epilogue_launches"]
 
-    emit({"kernels": [mm, wc, fa, em1, sdk, ns]})
+    emit({"kernels": [mm, wc, fa, em1, sdk, ns, ne]})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -52,6 +52,10 @@ SIGNATURES = {
     "ssm_scan_launch": [_P, _L, _P, _P, _P, _I, _I, _F, _I, _P],
     # x, hi, lo, n, stream
     "tf32_split_launch": [_P, _P, _P, _L, _P],
+    # pre, ld_pre, macs, ld_macs, bias, gate, y, msgs, acts, counts,
+    # counts64, T, N, code, stream
+    "neuron_epilogue_launch": [_P, _L, _P, _L, _P, _P, _P, _P, _P, _P, _P,
+                               _I, _I, _I, _P],
 }
 
 _lock = threading.Lock()

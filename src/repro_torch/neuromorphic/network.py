@@ -22,7 +22,12 @@ The per-layer synaptic forward (pre-activations plus the exact MAC / fetch
 counter maps) is delegated to a :class:`repro_torch.neuromorphic.compute.
 LayerCompute` backend (``compute=``): ``"dense"`` (``torch.matmul`` /
 ``F.conv2d``) or ``"event"`` (the event-driven path whose kernel mode runs
-the hand-written CUDA kernels).
+the hand-written CUDA kernels).  After it one neuron epilogue
+(:func:`repro_torch.kernels.neuron_epilogue.ops.neuron_epilogue`, one
+kernel launch on the card) applies the bias, a stateless neuron and the
+message gate and writes the counter maps; its 0/1 message map and counts
+are the next layer's wire events (:class:`Wire`), handed on by
+``run_batch`` and ``step`` instead of recomputed.
 
 Every float op that decides a message (neuron recurrences, the sigma-delta
 quantiser, the delta accumulator) keeps the float32 operation order of the
@@ -33,13 +38,16 @@ pre-activations are.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Mapping, Sequence
+from typing import Any, Mapping, NamedTuple, Sequence
 
 import numpy as np
 import torch
 
 from repro_torch import trace
 from repro_torch.device import resolve_device
+from repro_torch.kernels.neuron_epilogue.ops import neuron_epilogue
+from repro_torch.kernels.neuron_epilogue.ref import (FORCE_ACTIVE, IDENTITY,
+                                                     RELU)
 from repro_torch.kernels.neuron_scan.ops import ssm_scan
 from repro_torch.neuromorphic import compute as _compute
 
@@ -77,6 +85,18 @@ class BatchCounters:
             msgs_in=self.msgs_in[t], macs=self.macs[t],
             fetches_dense=self.fetches_dense[t], msgs_out=self.msgs_out[t],
             acts_evented=self.acts_evented[t])
+
+
+class Wire(NamedTuple):
+    """The events one layer puts on the wire to the next, from its neuron
+    epilogue: the 0/1 float32 ``mask`` (``y_msgs != 0``; also the layer's
+    kept ``msgs_out`` counter, so nothing may write into it) and its
+    per-step counts, float32 (``counts``, the compute backends'
+    ``msgs_in``) and float64 (``counts64``, the next layer's counter)."""
+
+    mask: torch.Tensor
+    counts: torch.Tensor
+    counts64: torch.Tensor
 
 
 @dataclasses.dataclass
@@ -205,6 +225,19 @@ class SimLayer:
         exactly.  Equivalent to T calls of :meth:`step` (bit-identical
         counters; the delta accumulator matches bit for bit when it starts
         at zero, which :meth:`SimNetwork.init_accs` guarantees)."""
+        return self._step_batch(x_in, state, in_acc, compute=compute)[:4]
+
+    def _step_batch(self, x_in: torch.Tensor, state: dict,
+                    in_acc: torch.Tensor | None, *, compute=None,
+                    wire: Wire | None = None):
+        """:meth:`step_batch`, taking the input's events from ``wire`` (the
+        previous layer's output :class:`Wire`, exact: ``x_in`` is that
+        layer's ``y_msgs``) instead of recomputing them, and returning
+        this layer's own :class:`Wire` as a fifth element.  After the
+        synaptic forward, one :func:`neuron_epilogue` (one kernel launch on
+        the card) applies the bias, a stateless neuron and the gate and
+        writes every counter map; stateful neurons run first and the
+        epilogue takes their messages as they are."""
         with trace.span("network.layer", layer=self.name):
             cc = _compute.get_compute(compute)
             x_in = x_in.to(torch.float32)
@@ -212,8 +245,17 @@ class SimLayer:
                 raise ValueError(
                     f"step_batch needs (T, n_in), got {tuple(x_in.shape)}")
 
-            act_mask = (x_in != 0).to(torch.float32)   # events on the wire
-            msgs_in = act_mask.sum(dim=1)               # (T,)
+            if wire is None:
+                act_mask = (x_in != 0).to(torch.float32)  # events on the wire
+                msgs_in = act_mask.sum(dim=1)              # (T,)
+                msgs_in64 = msgs_in.to(torch.float64)
+            else:
+                if wire.mask.shape != x_in.shape:
+                    raise ValueError(
+                        f"a wire of {tuple(wire.mask.shape)} for inputs "
+                        f"{tuple(x_in.shape)}")
+                act_mask, msgs_in, msgs_in64 = wire
+                trace.count("network.wire_handoffs", 1)
 
             with trace.span("compute.forward"):
                 if in_acc is not None:
@@ -224,35 +266,36 @@ class SimLayer:
                     pre, macs, fetches_dense = cc.forward(
                         self, x_in, act_mask, msgs_in)
 
-            if self.bias is not None:
+            stateless = self.neuron_model == "relu"
+            if self.bias is not None and not stateless:
                 pre = pre + self.bias
 
             with trace.span("network.neuron"):
-                y_msgs, state = self._neuron_batch(pre, state)
-            if self.msg_gate is not None:
-                y_msgs = y_msgs * self.msg_gate
-            msgs_out = (y_msgs != 0).to(torch.float32)
+                if stateless:
+                    code = FORCE_ACTIVE if self.force_active else RELU
+                    y, bias = pre, self.bias
+                else:
+                    y, state = self._neuron_batch(pre, state)
+                    code, bias = IDENTITY, None
+                y_msgs, msgs_out, acts, counts, counts64 = neuron_epilogue(
+                    y, macs, bias, self.msg_gate, code)
 
             counters = BatchCounters(
-                msgs_in=msgs_in.to(torch.float64), macs=macs,
-                fetches_dense=fetches_dense, msgs_out=msgs_out,
-                acts_evented=(macs > 0).to(torch.float32))
-            return y_msgs, state, counters, new_acc
+                msgs_in=msgs_in64, macs=macs, fetches_dense=fetches_dense,
+                msgs_out=msgs_out, acts_evented=acts)
+            return (y_msgs, state, counters, new_acc,
+                    Wire(msgs_out, counts, counts64))
 
     # ------------------------------------------------------------ neuron fns
     def _neuron_batch(self, pre: torch.Tensor, state: dict
                       ) -> tuple[torch.Tensor, dict]:
-        """Neuron update over the whole (T, n) pre-activation block:
-        stateless models vectorise fully; ``ssm`` runs one scan over all T
-        steps (one kernel launch on the card); ``if`` and ``sd_relu`` loop
-        over T with every per-step op vectorised across the n neurons.
-        Each keeps the float op order of T sequential single-step
-        updates."""
+        """Stateful neuron update over the whole (T, n) pre-activation
+        block (stateless relu runs in the neuron epilogue): ``ssm`` runs
+        one scan over all T steps (one kernel launch on the card); ``if``
+        and ``sd_relu`` loop over T with every per-step op vectorised
+        across the n neurons.  Each keeps the float op order of T
+        sequential single-step updates."""
         T = pre.shape[0]
-        if self.neuron_model == "relu":
-            if self.force_active:
-                return pre.abs() + 1.0, state
-            return torch.clamp_min(pre, 0.0), state
         if self.neuron_model == "if":
             thr = max(self.threshold, 1e-6)
             v = state["v"]
@@ -325,13 +368,14 @@ class SimNetwork:
         cc = _compute.get_compute(compute)
         counters: list[CounterMaps] = []
         new_states, new_accs = [], []
-        cur = self._inputs(x)
+        cur, wire = self._inputs(x)[None], None
         for layer, st, acc in zip(self.layers, states, accs):
-            cur, st, cnt, acc = layer.step(cur, st, acc, compute=cc)
-            counters.append(cnt)
+            cur, st, cnt, acc, wire = layer._step_batch(
+                cur, st, acc, compute=cc, wire=wire)
+            counters.append(cnt.step_view(0))
             new_states.append(st)
             new_accs.append(acc)
-        return cur, new_states, new_accs, counters
+        return cur[0], new_states, new_accs, counters
 
     def run(self, xs, *, compute=None
             ) -> tuple[torch.Tensor, list[list[CounterMaps]]]:
@@ -352,16 +396,18 @@ class SimNetwork:
                   ) -> tuple[torch.Tensor, list[BatchCounters]]:
         """Layer-major run: (T, in_size) inputs -> (T, out) outputs and one
         :class:`BatchCounters` per layer.  Exactly equivalent to
-        :meth:`run` but visits each layer once with the full time batch."""
+        :meth:`run` but visits each layer once with the full time batch.
+        Each layer after the first takes its input's events from the
+        previous layer's :class:`Wire`."""
         with trace.request("network.run_batch"):
             cc = _compute.get_compute(compute)
             states, accs = self.init_states(), self.init_accs()
-            cur = self._inputs(xs)
+            cur, wire = self._inputs(xs), None
             T = cur.shape[0]
             all_counters: list[BatchCounters] = []
             for i, layer in enumerate(self.layers):
-                cur, states[i], cnt, accs[i] = layer.step_batch(
-                    cur, states[i], accs[i], compute=cc)
+                cur, states[i], cnt, accs[i], wire = layer._step_batch(
+                    cur, states[i], accs[i], compute=cc, wire=wire)
                 all_counters.append(cnt)
             return cur.reshape(T, -1), all_counters
 

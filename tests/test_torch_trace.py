@@ -190,6 +190,26 @@ def test_outputs_and_counters_bit_identical_on_and_off(neuron_model, mode):
             assert torch.equal(getattr(a, f), getattr(b, f)), f
 
 
+@pytest.mark.parametrize("neuron_model", ["relu", "ssm"])
+def test_run_batch_hands_the_wire_on_and_counts_epilogue_entries(
+        neuron_model):
+    """A recorded ``run_batch`` hands each layer after the first its
+    input's events from the previous layer's epilogue (L - 1 handoffs)
+    and counts T x n epilogue entries a layer; two runs count twice."""
+    net = _net(neuron_model)
+    xs = _xs(steps=30)
+    with trace.recording() as rec:
+        net.run_batch(xs, compute=EventCompute(mode="kernel"))
+        net.run_batch(xs, compute="dense")
+    L = len(net.layers)
+    assert rec.count("network.wire_handoffs") == 2 * (L - 1)
+    assert rec.count("network.wire_handoffs", requests={1}) == L - 1
+    assert rec.count("neuron_epilogue.entries") == 2 * 30 * sum(
+        l.n_neurons for l in net.layers)
+    # counted inside the layers, not beside them
+    assert "network.wire_handoffs" not in rec.counts
+
+
 def test_compile_network_spans():
     with trace.recording() as rec:
         compiled = compile_network("whisper-base", seed=0, **CPU)
@@ -282,3 +302,23 @@ def test_cuda_run_batch_binds_and_counts_live_tiles(card):
             active = em.block_activity(a.cpu(), 0.0)
             want += int(em._compact_indices_joint(active, occ)[1].sum())
     assert len(calls) == n and rec.count("event_matmul2.live_tiles") == want
+
+
+def test_cuda_run_batch_launches_one_epilogue_a_layer(card):
+    """On a card a recorded ``run_batch`` opens one
+    ``neuron_epilogue.launch`` span a layer, inside its
+    ``network.neuron``, and counts L - 1 handoffs."""
+    net = fc_network([300, 160, 40, 24], weight_density=0.5, seed=0,
+                     device=card)
+    xs = make_inputs(300, 0.3, 200, seed=1, device=card)
+    with trace.recording() as rec:
+        net.run_batch(xs, compute=EventCompute(mode="kernel"))
+    layers = _named(rec, "network.layer")
+    launches = _named(rec, "neuron_epilogue.launch")
+    assert len(launches) == len(layers) == len(net.layers)
+    for s, layer in zip(launches, layers):
+        neuron = rec.spans[s.parent]
+        assert neuron.name == "network.neuron"
+        assert neuron.parent == layer.index
+    assert rec.count("network.wire_handoffs") == len(net.layers) - 1
+    assert rec.count("neuron_epilogue.entries") == 200 * (160 + 40 + 24)
